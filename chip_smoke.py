@@ -1,0 +1,395 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases (any failure raises, and the process exits nonzero):
+  1. fp32 everywhere: TF32 off for matmuls and cuDNN convolutions.
+  2. The card's name and power limit; build every CUDA kernel of
+     ``src/repro_torch/csrc`` with nvcc (one process per source, in
+     parallel) and print ptxas' register and spill counts.
+  3. Each kernel against its plain PyTorch version on the card, at the
+     main path's shapes: ``bitflip`` and ``quant_bitflip`` bitwise for all
+     four fault models, every storage type, rates 0 / 1e-3 / 0.2 and an
+     all-zero row; ``fault_matmul`` bitwise at x = I_K and, at random x,
+     within 2 K 2^-24 (|x| @ |w|): both sides' worst-case fp32
+     accumulation error, whatever the order of the sums.  Then each
+     kernel's time, its plain version's, the library call's where one
+     exists, and the bound.
+  4. The main path: ResNet18 at width 1.0 (channels 64-512), img 32, 16
+     classes, n_eval=512, labels = the clean model's own argmax;
+     ``AFarePart`` (NSGA-II pop 24, 3 generations) under the kernel backend
+     and the whole-forward strategy, then ``FaultUnawareBaseline``.  The
+     launch counters are zeroed just before and read just after; all three
+     kernels must have launched.
+  5. One ΔAcc population on AlexNet at width 1.0 (fc0 is 512x4096x1024).
+  6. Generic against kernel ΔAcc on one ResNet18 population.
+  7. Where the time of one ResNet18 candidate goes (torch.profiler).
+The lines before the last are the ``{"kernels": [...]}`` record and the
+card's ``nvidia-smi`` name and power limit; the last line is
+``{"ok": true, "device": {...}}``.
+
+Bounds: the least time for the same work is the larger of the bytes each
+input read once and each output written once over 3.35 TB/s, and the
+operations over their peak: fp32 FMAs at 67 TFLOP/s (no tensor cores),
+and the fault hash's 32-bit integer operations (about 20 per draw, see
+``csrc/faultmodel.cuh``) at 16.7 Tops/s (64 INT32 lanes per SM x 132 SMs
+x 1.98 GHz, from the H100 white paper; the guide's table has no integer
+ALU rate).  Rates are the H100 SXM's published peaks at 700 W.
+"""
+from __future__ import annotations
+
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(HERE, "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+HBM_BPS = 3.35e12
+FP32_FLOPS = 67e12
+INT32_OPS = 132 * 64 * 1.98e9
+HASH_OPS_PER_DRAW = 20
+FAULTY_BITS = 4
+SPEC_RATES = dict(weight_fault_rate=0.2, act_fault_rate=0.2, faulty_bits=4,
+                  bits=16)
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def time_ms(fn, iters=20, warmup=3) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(n_bytes: float, flops: float = 0.0, int_ops: float = 0.0):
+    t = {"bytes": n_bytes / HBM_BPS,
+         "operations": max(flops / FP32_FLOPS, int_ops / INT32_OPS)}
+    by = max(t, key=t.get)
+    return t[by] * 1e3, by
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+        a, b = a.view(view[a.dtype]), b.view(view[b.dtype])
+    return bool(torch.equal(a, b))
+
+
+def check_kernels(dev, records):
+    """Phase 3: every kernel against its plain version, then timings."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.faultmodel import FAULT_MODELS
+    from repro_torch.quant import QuantSpec
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rates = torch.tensor([0.0, 1e-3, 0.2], device=dev)
+    spec8 = QuantSpec(bits=8)
+
+    # bitflip: ResNet18's largest conv weight, 3x3x512x512, as stored (int8)
+    # and in the wider storage types
+    for dtype, hi in ((torch.int8, 127), (torch.int16, 2 ** 14),
+                      (torch.int32, 2 ** 20)):
+        q = torch.randint(-hi, hi, (3, 3, 512, 512), device=dev, dtype=dtype,
+                          generator=gen)
+        for model in FAULT_MODELS:
+            for bits in (FAULTY_BITS, 8):
+                k = ops.bitflip(q, 7919, rates, bits, fault_model=model)
+                p = ref.bitflip_ref(q, 7919, rates, bits, fault_model=model)
+                if not bits_equal(k, p):
+                    raise AssertionError(f"bitflip {dtype} {model} bits={bits}"
+                                         " differs from its plain version")
+    log("phase3 bitflip: bitwise equal to plain for int8/int16/int32 x "
+        f"{FAULT_MODELS} x bits 4,8 x rates 0,1e-3,0.2 at [3,3,512,512]")
+
+    # quant_bitflip: the input of ResNet18 units 1-3 at n_eval=512,
+    # [R, 512, 32, 32, 64]; row 0 all zeros
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(4, 512, 32, 32, 64, device=dev, generator=gen)
+        x = torch.relu(x).to(dtype)
+        x[0] = 0
+        r4 = torch.tensor([0.2, 0.0, 1e-3, 0.2], device=dev)
+        for model in FAULT_MODELS:
+            k = ops.quant_bitflip(x, 7920, r4, FAULTY_BITS, spec8,
+                                  fault_model=model)
+            p = ref.quant_bitflip_ref(x, 7920, r4, FAULTY_BITS, spec8,
+                                      fault_model=model)
+            if not bits_equal(k, p):
+                bad = (k.float() != p.float()).sum().item()
+                raise AssertionError(f"quant_bitflip {dtype} {model}: {bad} "
+                                     "elements differ from the plain version")
+            if k[0].abs().max().item() >= torch.finfo(torch.float32).tiny:
+                raise AssertionError("all-zero row did not stay (sub)zero")
+        del x, k, p
+    log("phase3 quant_bitflip: bitwise equal to plain for float32/bfloat16 x "
+        f"{FAULT_MODELS} x rates 0,1e-3,0.2 at [4,512,32,32,64] with an "
+        "all-zero row")
+
+    # fault_matmul: AlexNet fc0 at width 1.0, img 32
+    K, N = 4096, 1024
+    qw = torch.randint(-127, 128, (K, N), device=dev, dtype=torch.int8,
+                       generator=gen)
+    scale = torch.tensor(0.0123, device=dev)
+    max_err = 0.0
+    for model in FAULT_MODELS:
+        w = ref.bitflip_ref(qw, 7921, rates, FAULTY_BITS,
+                            fault_model=model).float() * scale
+        eye = torch.eye(K, device=dev).expand(3, K, K).contiguous()
+        k = ops.fault_matmul(eye, qw, scale, 7921, rates, FAULTY_BITS,
+                             fault_model=model)
+        if not bits_equal(k, w):
+            raise AssertionError(f"fault_matmul {model}: x = I_K does not "
+                                 "return the corrupted weights bitwise")
+        del eye
+        x = torch.randn(3, 512, K, device=dev, generator=gen)
+        k = ops.fault_matmul(x, qw, scale, 7921, rates, FAULTY_BITS,
+                             fault_model=model)
+        p = ref.fault_matmul_ref(x, qw, scale, 7921, rates, FAULTY_BITS,
+                                 fault_model=model)
+        tol = 2 * K * 2.0 ** -24 * torch.matmul(x.abs(), w.abs())
+        err = (k - p).abs()
+        if not bool((err <= tol).all()):
+            raise AssertionError(f"fault_matmul {model}: max err "
+                                 f"{err.max().item():.3g} above the bound")
+        max_err = max(max_err, err.max().item())
+    log("phase3 fault_matmul: x=I_K bitwise; random x within "
+        f"2*K*2^-24*(|x|@|w|), max |err| {max_err:.3g}, at [3,512,4096]x"
+        "[4096,1024] for all fault models")
+
+    # timings at the main path's shapes, one row
+    one = torch.tensor([0.2], device=dev)
+    q = torch.randint(-127, 128, (3, 3, 512, 512), device=dev,
+                      dtype=torch.int8, generator=gen)
+    n = q.numel()
+    b_ms, b_by = bound(2 * n, int_ops=n * FAULTY_BITS * HASH_OPS_PER_DRAW)
+    records["bitflip"].update(
+        ms=time_ms(lambda: ops.bitflip(q, 1, one, FAULTY_BITS)),
+        plain_ms=time_ms(lambda: ref.bitflip_ref(q, 1, one, FAULTY_BITS)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, max_abs_err=0.0,
+        shape="[1] x [3,3,512,512] int8")
+    x = torch.relu(torch.randn(1, 512, 32, 32, 64, device=dev, generator=gen))
+    n = x.numel()
+    b_ms, b_by = bound(8 * n, int_ops=n * FAULTY_BITS * HASH_OPS_PER_DRAW)
+    records["quant_bitflip"].update(
+        ms=time_ms(lambda: ops.quant_bitflip(x, 1, one, FAULTY_BITS, spec8)),
+        plain_ms=time_ms(lambda: ref.quant_bitflip_ref(x, 1, one, FAULTY_BITS,
+                                                       spec8), iters=5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, max_abs_err=0.0,
+        shape="[1,512,32,32,64] float32")
+    del x
+    x = torch.randn(1, 512, K, device=dev, generator=gen)
+    w = qw.float() * scale
+    b_ms, b_by = bound(4 * 512 * K + K * N + 4 * 512 * N,
+                       flops=2 * 512 * K * N,
+                       int_ops=K * N * FAULTY_BITS * HASH_OPS_PER_DRAW)
+    records["fault_matmul"].update(
+        ms=time_ms(lambda: ops.fault_matmul(x, qw, scale, 1, one,
+                                            FAULTY_BITS)),
+        plain_ms=time_ms(lambda: ref.fault_matmul_ref(x, qw, scale, 1, one,
+                                                      FAULTY_BITS)),
+        library_ms=time_ms(lambda: torch.matmul(x, w)),
+        bound_ms=b_ms, bound_by=b_by, max_abs_err=max_err,
+        shape="[1,512,4096] x [4096,1024] int8")
+    for name, r in records.items():
+        log(f"phase3 time {name} at {r['shape']}: kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+def pick_resnet_seed(dev):
+    """First seed whose random-init ResNet18 spreads the 512 calibration
+    images over several classes (a collapsed head keeps its argmax under
+    corruption and ΔAcc would be identically 0)."""
+    from repro_torch.cnn_setup import clean_argmax_labels
+    from repro_torch.models.cnn import ResNet18
+    for seed in (7, 5, 11, 13, 17):
+        params = ResNet18.init(seed, 16, width=1.0, img=32, device=dev)
+        labels = clean_argmax_labels("resnet18", params, 512, device=dev)
+        counts = torch.bincount(labels, minlength=16)
+        if int((counts > 0).sum()) >= 2 and int(counts.max()) < 512 - 16:
+            return seed, params, labels
+    raise AssertionError("no ResNet18 init seed gave a working probe")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA card", file=sys.stderr)
+        return 1
+    from repro_torch.cnn_setup import (accuracy_under_partition,
+                                       clean_argmax_labels, make_evaluator)
+    from repro_torch.core import (PAPER_DEVICES, AFarePart, FaultSpec,
+                                  FaultUnawareBaseline, NSGA2Config)
+    from repro_torch.kernels import _build, ops
+    from repro_torch.models.cnn import AlexNet, ResNet18
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    # phase 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # phase 2
+    smi = nvidia_smi()
+    log("card:", smi, "| torch", torch.__version__, "cuda", torch.version.cuda)
+    info = _build.build_all()
+    log(f"phase2 build: {info['seconds']:.1f} s for {info['built']} "
+        f"into {info['dir']}")
+    for name, text in info["ptxas"].items():
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+        spill = sum(int(b) for b in re.findall(r"(\d+) bytes spill", text))
+        log(f"  ptxas {name}: {len(regs)} kernels, at most {max(regs)} "
+            f"registers a thread, {spill} bytes of spills")
+
+    records = {
+        "bitflip": dict(route="cuda", source="src/repro_torch/csrc/bitflip.cu",
+                        replaces="src/repro/kernels/bitflip.py:57"),
+        "quant_bitflip": dict(
+            route="cuda", source="src/repro_torch/csrc/quant_bitflip.cu",
+            replaces="src/repro/kernels/quant_bitflip.py:50"),
+        "fault_matmul": dict(
+            route="cuda", source="src/repro_torch/csrc/fault_matmul.cu",
+            replaces="src/repro/kernels/fault_matmul.py:61"),
+    }
+    check_kernels(dev, records)
+
+    # phase 4: the main path
+    spec = FaultSpec(**SPEC_RATES)
+    seed, params, labels = pick_resnet_seed(dev)
+    log(f"phase4 resnet18 width 1.0 seed {seed}: clean-argmax labels span "
+        f"{int((torch.bincount(labels, minlength=16) > 0).sum())} classes")
+    layers = ResNet18.layer_infos(num_classes=16, width=1.0, img=32)
+    cfg = NSGA2Config(population=24, generations=3, seed=0)
+    ev = make_evaluator("resnet18", params, spec, n_eval=512,
+                        fault_backend="kernel", labels=labels, device=dev)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    plan = AFarePart(layers, PAPER_DEVICES, acc_evaluator=ev,
+                     nsga2_config=cfg).optimize()
+    base = FaultUnawareBaseline(layers, PAPER_DEVICES,
+                                nsga2_config=cfg).optimize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    main_launches = dict(ops.launches)
+    log(f"phase4 AFarePart + baseline: {wall:.2f} s wall, "
+        f"{ev.dispatches} dispatches, {ev._engine.rows_evaluated} rows, "
+        f"launches {main_launches}")
+    if min(main_launches.values()) <= 0:
+        raise AssertionError(f"a kernel never launched on the main path: "
+                             f"{main_launches}")
+    objs = plan.front_objs
+    if not (np.isfinite(objs).all() and (objs[:, 2] >= 0).all()
+            and (objs[:, 2] <= 1).all() and objs[:, 2].max() > 0):
+        raise AssertionError(f"AFarePart front out of range: {objs}")
+    log(f"phase4 front ({len(plan.front)} points):")
+    for row, o in zip(plan.front, objs):
+        log(f"  map={''.join(map(str, row))} lat={o[0] * 1e3:.3f}ms "
+            f"energy={o[1] * 1e3:.3f}mJ dAcc={o[2]:.4f}")
+    for tool, p in (("AFarePart", plan), ("fault-unaware", base)):
+        acc = accuracy_under_partition("resnet18", params, p.partition, 0.2,
+                                       0.2, n_eval=512, labels=labels,
+                                       device=dev)
+        log(f"phase4 {tool:13s} P={''.join(map(str, p.partition))} "
+            f"top-1 under 20% faults={acc:.4f} lat={p.latency * 1e3:.3f}ms "
+            f"energy={p.energy * 1e3:.3f}mJ")
+    for name, r in records.items():
+        r["launches"] = main_launches[name]
+
+    # phase 5: AlexNet at width 1.0
+    a_params = AlexNet.init(0, 16, width=1.0, img=32, device=dev)
+    a_labels = clean_argmax_labels("alexnet", a_params, 512, device=dev)
+    a_ev = make_evaluator("alexnet", a_params, spec, n_eval=512,
+                          fault_backend="kernel", labels=a_labels, device=dev)
+    P = np.random.default_rng(1).integers(0, 2, size=(8, AlexNet.n_units))
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    a_dacc = a_ev.delta_acc(P)
+    torch.cuda.synchronize()
+    log(f"phase5 alexnet width 1.0 dAcc {np.round(a_dacc, 4).tolist()} in "
+        f"{time.perf_counter() - t0:.2f} s, launches {dict(ops.launches)}")
+    if ops.launches["fault_matmul"] <= 0 or not np.isfinite(a_dacc).all():
+        raise AssertionError("alexnet population did not run fault_matmul")
+
+    # phase 6: generic against kernel on one ResNet18 population
+    P = np.random.default_rng(2).integers(0, 2, size=(8, ResNet18.n_units))
+    g_ev = make_evaluator("resnet18", params, spec, n_eval=512,
+                          fault_backend="generic", labels=labels, device=dev)
+    dk, dg = ev.delta_acc(P), g_ev.delta_acc(P)
+    diff = np.abs(dk - dg)
+    log(f"phase6 kernel {np.round(dk, 4).tolist()} generic "
+        f"{np.round(dg, 4).tolist()}: {int((diff > 0).sum())} of {len(P)} "
+        f"rows differ, max {diff.max():.4f}")
+    # the generic backend's fc runs cuBLAS, the kernel backend fault_matmul:
+    # another fp32 summation order can move a near-tie image
+    if diff.max() > 2.0 / 512:
+        raise AssertionError("generic and kernel dAcc differ by more than "
+                             "2/n_eval")
+
+    # phase 7: one candidate's device time by kernel (diagnostic)
+    row = np.zeros((1, ResNet18.n_units), np.int64)
+    t_row = time_ms(lambda: ev._dispatch(row), iters=5, warmup=1)
+    log(f"phase7 one ResNet18 candidate (kernel backend, 512 images): "
+        f"{t_row:.3f} ms device time")
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ev._dispatch(row)
+            torch.cuda.synchronize()
+        kernels_ = [a for a in prof.key_averages()
+                    if a.device_type == DeviceType.CUDA]
+        busy = sum(a.self_device_time_total for a in kernels_) / 1e3
+        log(f"phase7 profiler: kernels busy {busy:.3f} ms of {t_row:.3f} ms "
+            f"({100 * (1 - busy / t_row):.1f}% idle)")
+        for a in sorted(kernels_, key=lambda a: a.self_device_time_total,
+                        reverse=True)[:12]:
+            log(f"  {a.self_device_time_total / 1e3:8.3f} ms {a.count:4d}x "
+                f"{a.key[:90]}")
+    except Exception as e:             # diagnostic only: report and go on
+        log(f"phase7 profiler unavailable: {type(e).__name__}: {e}")
+
+    kernels = [dict(name=name, route=r["route"], source=r["source"],
+                    replaces=r["replaces"], launches=r["launches"],
+                    max_abs_err=r["max_abs_err"], ms=r["ms"],
+                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                    bound_by=r["bound_by"], library_ms=r["library_ms"])
+               for name, r in records.items()]
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,48 @@
+"""Minimal pytree helpers over nested dicts, lists and tuples.
+
+Leaves are enumerated in ``jax.tree.flatten`` order: dict keys SORTED,
+sequences in order.  The fault seeds stride by a leaf's flatten index
+(``seed + 977 * j``), so this order is part of the seed contract shared
+with the reference.
+"""
+from __future__ import annotations
+
+__all__ = ["tree_flatten", "tree_unflatten", "tree_map", "tree_leaves"]
+
+
+def tree_flatten(tree):
+    leaves = []
+
+    def rec(t):
+        if isinstance(t, dict):
+            return (dict, [(k, rec(t[k])) for k in sorted(t)])
+        if isinstance(t, (list, tuple)):
+            return (type(t), [rec(v) for v in t])
+        leaves.append(t)
+        return None
+
+    return leaves, rec(tree)
+
+
+def tree_unflatten(spec, leaves):
+    it = iter(leaves)
+
+    def rec(s):
+        if s is None:
+            return next(it)
+        kind, children = s
+        if kind is dict:
+            return {k: rec(c) for k, c in children}
+        return kind(rec(c) for c in children)
+
+    return rec(spec)
+
+
+def tree_leaves(tree) -> list:
+    return tree_flatten(tree)[0]
+
+
+def tree_map(fn, tree, *rest):
+    leaves, spec = tree_flatten(tree)
+    others = [tree_flatten(r)[0] for r in rest]
+    return tree_unflatten(spec, [fn(*xs) for xs in zip(leaves, *others)])

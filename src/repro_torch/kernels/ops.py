@@ -1,0 +1,184 @@
+"""Entry points of the three fault kernels, the counterparts of
+``repro/kernels/ops.py``.
+
+Dispatch is by the tensor's device alone: a CUDA tensor launches the
+hand-written kernel in ``csrc/`` (built at first use by ``_build.py``) or
+raises; a CPU tensor runs the plain PyTorch version in ``ref.py``.  There
+is no environment switch and no fallback between the two.
+
+Rates follow ``ref.py``'s row convention: a scalar corrupts the tensor as
+one unit, a 1-D float32 ``[R]`` tensor gives each row its own rate (the
+port's population axis).  The seed is one per call, shared by all rows.
+
+``launches`` counts, per wrapper, the calls that launched the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels._build import library
+from repro_torch.kernels.faultmodel import FAULT_MODELS, seed_u32
+from repro_torch.quant.fixedpoint import QuantSpec
+
+__all__ = ["bitflip", "quant_bitflip", "fault_matmul", "launches",
+           "reset_launches", "MODEL_IDS"]
+
+MODEL_IDS = {m: i for i, m in enumerate(FAULT_MODELS)}   # csrc/faultmodel.cuh
+_INT_BYTES = {torch.int8: 1, torch.int16: 2, torch.int32: 4}
+_P, _I64, _I32, _U32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                        ctypes.c_uint32)
+_SIGNATURES = {
+    "afp_bitflip": [_P, _P, _P, _I64, _I64, _I32, _I32, _U32, _I32, _I32, _P],
+    "afp_quant_bitflip": [_P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I32,
+                          _U32, _I32, _I32, _P],
+    "afp_fault_matmul": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                         _I32, _I32, _I32, _U32, _I32, _I32, _P],
+}
+
+launches = {"bitflip": 0, "quant_bitflip": 0, "fault_matmul": 0}
+
+
+def reset_launches():
+    for k in launches:
+        launches[k] = 0
+
+
+def _entry(lib: str, fn: str):
+    f = getattr(library(lib), fn)
+    if f.argtypes is None:
+        f.argtypes = _SIGNATURES[fn]
+        f.restype = ctypes.c_int
+    return f
+
+
+def _is_cuda(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type != "cpu":
+        raise ValueError(f"unsupported device {t.device} (cuda or cpu)")
+    return False
+
+
+def _check(cond: bool, msg: str):
+    if not cond:
+        raise ValueError(msg)
+
+
+def _model_id(fault_model: str, faulty_bits: int) -> int:
+    """The kernel's id for ``fault_model``; checks the bit window fits the
+    kernels' 32-bit masks."""
+    if fault_model not in MODEL_IDS:
+        raise ValueError(f"unknown fault_model {fault_model!r}; "
+                         f"expected one of {FAULT_MODELS}")
+    _check(0 <= faulty_bits <= 31, f"faulty_bits must be in [0, 31], got {faulty_bits}")
+    return MODEL_IDS[fault_model]
+
+
+def _launch(fn: str, *args):
+    err = _entry(fn.removeprefix("afp_"), fn)(*args)
+    if err != 0:
+        raise RuntimeError(f"{fn} failed: cudaError_t {err}")
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _k_splits(R: int, M: int, K: int, N: int, device: torch.device) -> int:
+    """K slices for ``fault_matmul``: enough 128x128-tile blocks for two
+    per SM, each slice at least 16 k-steps (128 of K) long."""
+    tiles = R * -(-M // 128) * -(-N // 128)
+    want = -(-2 * _sm_count(device.index or 0) // tiles)
+    return max(1, min(want, -(-K // 8) // 16, 65535 // R))
+
+
+def bitflip(q: torch.Tensor, seed, rate, faulty_bits: int, *,
+            fault_model: str = "flip", mbu_width: int = 2) -> torch.Tensor:
+    """Corrupt the ``faulty_bits`` LSBs of integer tensor ``q``; with a
+    ``[R]`` rate, returns ``[R, *q.shape]`` (``q`` shared by the rows)."""
+    if not _is_cuda(q):
+        return _ref.bitflip_ref(q, seed, rate, faulty_bits,
+                                fault_model=fault_model, mbu_width=mbu_width)
+    _check(q.dtype in _INT_BYTES, f"bitflip takes int8/16/32, got {q.dtype}")
+    _check(q.is_contiguous(), "bitflip needs a contiguous q")
+    rates, per_row = _ref.row_rates(rate, q.device)
+    out = torch.empty((rates.numel(), *q.shape), dtype=q.dtype, device=q.device)
+    _launch("afp_bitflip", q.data_ptr(), out.data_ptr(), rates.data_ptr(),
+            q.numel(), rates.numel(), _INT_BYTES[q.dtype],
+            _model_id(fault_model, faulty_bits), seed_u32(seed), faulty_bits, mbu_width,
+            _stream(q.device))
+    launches["bitflip"] += 1
+    return out if per_row else out[0]
+
+
+def quant_bitflip(x: torch.Tensor, seed, rate, faulty_bits: int,
+                  spec: QuantSpec = QuantSpec(), *, fault_model: str = "flip",
+                  mbu_width: int = 2) -> torch.Tensor:
+    """Fused quantize -> corrupt -> dequantize; with a ``[R]`` rate, ``x``
+    is ``[R, ...]`` and each row gets its own scale."""
+    if not _is_cuda(x):
+        return _ref.quant_bitflip_ref(x, seed, rate, faulty_bits, spec,
+                                      fault_model=fault_model,
+                                      mbu_width=mbu_width)
+    _check(x.dtype in (torch.float32, torch.bfloat16),
+           f"quant_bitflip takes float32/bfloat16, got {x.dtype}")
+    _check(x.is_contiguous(), "quant_bitflip needs a contiguous x")
+    rates, per_row = _ref.row_rates(rate, x.device)
+    R = rates.numel()
+    _check(not per_row or (x.ndim > 0 and x.shape[0] == R),
+           f"x {tuple(x.shape)} has no leading row axis of {R}")
+    out = torch.empty_like(x)
+    amax = torch.zeros(R, dtype=torch.float32, device=x.device)
+    _launch("afp_quant_bitflip", x.data_ptr(), out.data_ptr(), amax.data_ptr(),
+            rates.data_ptr(), x.numel() // R, R, int(x.dtype == torch.bfloat16),
+            _model_id(fault_model, faulty_bits), spec.qmin, spec.qmax, seed_u32(seed),
+            faulty_bits, mbu_width, _stream(x.device))
+    launches["quant_bitflip"] += 1
+    return out
+
+
+def fault_matmul(x: torch.Tensor, qw: torch.Tensor, scale, seed, rate,
+                 faulty_bits: int, *, fault_model: str = "flip",
+                 mbu_width: int = 2) -> torch.Tensor:
+    """``x @ dequant(corrupt(qw))`` with fp32 accumulation; ``qw`` is the
+    shared ``(K, N)`` integer matrix, ``scale`` its float32 scale.  With a
+    ``[R]`` rate ``x`` is ``[R, ..., K]`` and returns ``[R, ..., N]``."""
+    if not _is_cuda(x):
+        return _ref.fault_matmul_ref(x, qw, scale, seed, rate, faulty_bits,
+                                     fault_model=fault_model,
+                                     mbu_width=mbu_width)
+    _check(qw.ndim == 2 and x.ndim >= 1 and x.shape[-1] == qw.shape[0],
+           f"contraction mismatch: x {tuple(x.shape)} @ qw {tuple(qw.shape)}")
+    _check(x.dtype == torch.float32, f"fault_matmul takes float32 x, got {x.dtype}")
+    _check(qw.dtype in _INT_BYTES, f"fault_matmul takes int8/16/32 qw, got {qw.dtype}")
+    _check(x.is_contiguous() and qw.is_contiguous(),
+           "fault_matmul needs contiguous x and qw")
+    _check(qw.device == x.device, "x and qw must be on one device")
+    rates, per_row = _ref.row_rates(rate, x.device)
+    R = rates.numel()
+    _check(not per_row or (x.ndim > 1 and x.shape[0] == R),
+           f"x {tuple(x.shape)} has no leading row axis of {R}")
+    scale_t = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
+    _check(scale_t.numel() == 1, "fault_matmul takes one per-tensor scale")
+    K, N = qw.shape
+    M = x.shape[:-1].numel() // R
+    out = torch.empty((*x.shape[:-1], N), dtype=torch.float32, device=x.device)
+    splits = _k_splits(R, M, K, N, x.device)
+    partial = torch.empty((splits, R, M, N) if splits > 1 else (0,),
+                          dtype=torch.float32, device=x.device)
+    _launch("afp_fault_matmul", x.data_ptr(), qw.data_ptr(), out.data_ptr(),
+            partial.data_ptr(), scale_t.contiguous().data_ptr(),
+            rates.data_ptr(), R, M, K, N, splits, _INT_BYTES[qw.dtype],
+            _model_id(fault_model, faulty_bits), seed_u32(seed), faulty_bits, mbu_width,
+            _stream(x.device))
+    launches["fault_matmul"] += 1
+    return out

@@ -1,0 +1,74 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: each test skips (inside its fixture, never at import)
+when no NVIDIA card is present.  Run on a machine with one:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.faultmodel import FAULT_MODELS  # noqa: E402
+from repro_torch.quant import QuantSpec  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is False)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _same_bits(a, b):
+    if a.is_floating_point():
+        a, b = a.float().view(torch.int32), b.float().view(torch.int32)
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("model", FAULT_MODELS)
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16, torch.int32])
+def test_bitflip_kernel_bitwise(dev, model, dtype):
+    rates = torch.tensor([0.0, 1e-3, 0.3], device=dev)
+    for shape in ((1,), (129,), (33, 17, 3)):
+        q = torch.randint(-100, 100, shape, dtype=dtype, device=dev)
+        for seed in (42, -7):
+            k = ops.bitflip(q, seed, rates, 4, fault_model=model)
+            assert _same_bits(k, ref.bitflip_ref(q, seed, rates, 4,
+                                                 fault_model=model))
+    assert ops.launches["bitflip"] > 0
+
+
+@pytest.mark.parametrize("model", FAULT_MODELS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_bitflip_kernel_bitwise(dev, model, dtype):
+    x = torch.randn(3, 31, 33, 7, device=dev).to(dtype)
+    x[0] = 0
+    rates = torch.tensor([0.25, 0.0, 0.1], device=dev)
+    for spec in (QuantSpec(8), QuantSpec(16)):
+        k = ops.quant_bitflip(x, 9, rates, 4, spec, fault_model=model)
+        assert _same_bits(k, ref.quant_bitflip_ref(x, 9, rates, 4, spec,
+                                                   fault_model=model))
+
+
+@pytest.mark.parametrize("model", FAULT_MODELS)
+def test_fault_matmul_kernel(dev, model):
+    K, N = 300, 77
+    qw = torch.randint(-127, 128, (K, N), dtype=torch.int8, device=dev)
+    rates = torch.tensor([0.0, 0.2], device=dev)
+    scale = torch.tensor(0.01, device=dev)
+    w = ref.bitflip_ref(qw, 5, rates, 4, fault_model=model).float() * scale
+    eye = torch.eye(K, device=dev).expand(2, K, K).contiguous()
+    assert _same_bits(ops.fault_matmul(eye, qw, scale, 5, rates, 4,
+                                       fault_model=model), w)
+    x = torch.randn(2, 3, 45, K, device=dev)
+    got = ops.fault_matmul(x, qw, scale, 5, rates, 4, fault_model=model)
+    want = ref.fault_matmul_ref(x, qw, scale, 5, rates, 4, fault_model=model)
+    tol = 2 * K * 2.0 ** -24 * torch.matmul(x.abs(), w[:, None].abs())
+    assert bool(((got - want).abs() <= tol).all())
+    assert np.isfinite(got.cpu().numpy()).all()

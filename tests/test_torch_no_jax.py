@@ -1,0 +1,94 @@
+"""The port stands alone: no module of ``src/repro_torch`` and not
+``chip_smoke.py`` imports ``jax``, ``jaxlib`` or the reference package
+``repro``; and every entry point refuses to run without a card unless
+the caller asks for ``device="cpu"``."""
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: pathlib.Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+        elif isinstance(node, ast.Call) and getattr(node.func, "id", "") \
+                == "__import__" and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            roots.add(str(node.args[0].value).split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_module_imports_no_jax_nor_reference(path):
+    bad = _imported_roots(path) & set(FORBIDDEN)
+    assert not bad, f"{path} imports {sorted(bad)}"
+
+
+def test_scan_sees_every_kernel_source_module():
+    names = {p.name for p in PORT_FILES}
+    assert {"ops.py", "ref.py", "faultmodel.py", "_build.py", "cnn.py",
+            "objectives.py", "chip_smoke.py"} <= names
+
+
+def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch import cnn_setup, convert
+    from repro_torch.core import FaultSpec, InferenceAccuracyEvaluator
+    from repro_torch.models.cnn import CNN_MODELS
+
+    for model in CNN_MODELS.values():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            model.init(0, 8, width=0.25, img=16)
+    params = CNN_MODELS["alexnet"].init(0, 8, width=0.25, img=16,
+                                        device="cpu")
+    x = np.zeros((2, 16, 16, 3), np.float32)
+    y = np.zeros(2, np.int64)
+    calls = [
+        lambda: InferenceAccuracyEvaluator(CNN_MODELS["alexnet"].apply, params,
+                                           x, y, FaultSpec(), [1.0, 0.35]),
+        lambda: cnn_setup.make_evaluator("alexnet", params, FaultSpec(),
+                                         n_eval=2),
+        lambda: cnn_setup.eval_batch(2),
+        lambda: cnn_setup.clean_argmax_labels("alexnet", params, 2),
+        lambda: cnn_setup.clean_accuracy("alexnet", params, 2),
+        lambda: cnn_setup.accuracy_under_partition(
+            "alexnet", params, np.zeros(8, np.int64), 0.1, 0.1, n_eval=2),
+        lambda: convert.params_from_jax({"w": np.zeros(2, np.float32)}),
+        lambda: convert.quant_params_from_jax({"w": np.zeros(2, np.float32)}),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+def test_kernel_wrappers_take_only_cuda_or_cpu():
+    """Dispatch is by device alone: CPU runs the plain version, CUDA the
+    kernel; any other device raises (no silent plain path)."""
+    from repro_torch.kernels import _build, ops
+
+    fake = torch.empty(4, dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.bitflip(fake, 0, 0.1, 4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.quant_bitflip(fake.float(), 0, 0.1, 4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.fault_matmul(torch.empty(2, 4, device="meta"), fake.reshape(4, 1),
+                         1.0, 0, 0.1, 4)
+    assert _build.SOURCES == ("bitflip", "quant_bitflip", "fault_matmul")
+    for src in _build.SOURCES:
+        assert (_build.CSRC / f"{src}.cu").is_file()
+    assert "--use_fast_math" not in _build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
