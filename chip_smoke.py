@@ -11,31 +11,45 @@ Phases (any failure raises, and the process exits nonzero):
   3. Each kernel against its plain PyTorch version on the card, at the
      main path's shapes: ``bitflip`` and ``quant_bitflip`` bitwise for all
      four fault models, every storage type, rates 0 / 1e-3 / 0.2 and an
-     all-zero row; ``fault_matmul`` bitwise at x = I_K and, at random x,
-     within 2 K 2^-24 (|x| @ |w|): both sides' worst-case fp32
-     accumulation error, whatever the order of the sums.  Then each
-     kernel's time, its plain version's, the library call's where one
-     exists, and the bound.
+     all-zero row, ``bitflip`` also with its fused dequantization
+     (bitwise ``bitflip_ref(...).float() * scale``); ``fault_matmul`` at
+     both main-path shapes (ResNet18's fc 512x512x16, AlexNet's fc0
+     512x4096x1024) for int8, int16 and int32 weights, bitwise at
+     x = I_K and, at random x, within 2 K 2^-24 (|x| @ |w|): both sides'
+     worst-case fp32 accumulation error, whatever the order of the sums.
+     Then each kernel's times: its device time (a CUDA graph of 20
+     launches replayed between events, so no host cost), its wrapper time
+     (events around back-to-back Python calls), its plain version's, the
+     library call's where one exists, and the bound.
   4. The main path: ResNet18 at width 1.0 (channels 64-512), img 32, 16
      classes, n_eval=512, labels = the clean model's own argmax;
      ``AFarePart`` (NSGA-II pop 24, 3 generations) under the kernel backend
      and the whole-forward strategy, then ``FaultUnawareBaseline``.  The
      launch counters are zeroed just before and read just after; all three
      kernels must have launched.
-  5. One ΔAcc population on AlexNet at width 1.0 (fc0 is 512x4096x1024).
+  5. One ΔAcc population on AlexNet at width 1.0 (fc0 is 512x4096x1024),
+     its launches counted the same way.
   6. Generic against kernel ΔAcc on one ResNet18 population.
-  7. Where the time of one ResNet18 candidate goes (torch.profiler).
+  7. Where the time of one ResNet18 candidate goes (torch.profiler): each
+     kernel's total per candidate and the elementwise glue.
 The lines before the last are the ``{"kernels": [...]}`` record and the
 card's ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 
 Bounds: the least time for the same work is the larger of the bytes each
 input read once and each output written once over 3.35 TB/s, and the
-operations over their peak: fp32 FMAs at 67 TFLOP/s (no tensor cores),
-and the fault hash's 32-bit integer operations (about 20 per draw, see
-``csrc/faultmodel.cuh``) at 16.7 Tops/s (64 INT32 lanes per SM x 132 SMs
-x 1.98 GHz, from the H100 white paper; the guide's table has no integer
-ALU rate).  Rates are the H100 SXM's published peaks at 700 W.
+operations over their peak.  The fault hash costs about 20 32-bit integer
+operations per draw (``csrc/faultmodel.cuh``), counted at 16.7 Tops/s
+(64 INT32 lanes per SM x 132 SMs x 1.98 GHz, from the H100 white paper;
+the guide's table has no integer ALU rate).
+  * ``bitflip``, ``quant_bitflip``: one draw per element and bit plane;
+    the hash outweighs the bytes (1 + 1 B, or 4 + 4 + 4 B, an element).
+  * ``fault_matmul``: the hash once per weight (K N draws per plane), and
+    the product as it runs on the tensor cores: three exact bf16 products
+    of the split x, 3 x 2 M K N at 989 TFLOP/s.  Whichever is larger; at
+    AlexNet's fc0 the hash.  (The SIMT body of int16/int32 weights would
+    be bound by fp32 FMAs at 67 TFLOP/s; the main path stores int8.)
+Rates are the H100 SXM's published peaks at 700 W.
 """
 from __future__ import annotations
 
@@ -53,7 +67,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 HBM_BPS = 3.35e12
-FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 INT32_OPS = 132 * 64 * 1.98e9
 HASH_OPS_PER_DRAW = 20
 FAULTY_BITS = 4
@@ -66,7 +80,8 @@ def log(*args):
 
 
 def time_ms(fn, iters=20, warmup=3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    """Mean time of ``fn`` over ``iters`` back-to-back calls, host cost
+    included (CUDA events around the calls)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -80,9 +95,34 @@ def time_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(n_bytes: float, flops: float = 0.0, int_ops: float = 0.0):
+def device_ms(fn, launches=20, replays=10) -> float:
+    """Mean device time of ``fn``: ``launches`` calls captured in one CUDA
+    graph, replayed between events, so the wrapper's host work is not in
+    it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # warm up outside the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (launches * replays)
+
+
+def bound(n_bytes: float, tc_flops: float = 0.0, int_ops: float = 0.0):
     t = {"bytes": n_bytes / HBM_BPS,
-         "operations": max(flops / FP32_FLOPS, int_ops / INT32_OPS)}
+         "operations": max(tc_flops / BF16_FLOPS, int_ops / INT32_OPS)}
     by = max(t, key=t.get)
     return t[by] * 1e3, by
 
@@ -103,6 +143,10 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return bool(torch.equal(a, b))
 
 
+# fault_matmul at the main path's two shapes: (label, M, K, N)
+MATMUL_SHAPES = (("resnet18 fc", 512, 512, 16), ("alexnet fc0", 512, 4096, 1024))
+
+
 def check_kernels(dev, records):
     """Phase 3: every kernel against its plain version, then timings."""
     from repro_torch.kernels import ops, ref
@@ -112,9 +156,10 @@ def check_kernels(dev, records):
     gen = torch.Generator(device=dev).manual_seed(0)
     rates = torch.tensor([0.0, 1e-3, 0.2], device=dev)
     spec8 = QuantSpec(bits=8)
+    scale = torch.tensor(0.0123, device=dev)
 
     # bitflip: ResNet18's largest conv weight, 3x3x512x512, as stored (int8)
-    # and in the wider storage types
+    # and in the wider storage types; integers out, and dequantized
     for dtype, hi in ((torch.int8, 127), (torch.int16, 2 ** 14),
                       (torch.int32, 2 ** 20)):
         q = torch.randint(-hi, hi, (3, 3, 512, 512), device=dev, dtype=dtype,
@@ -126,8 +171,15 @@ def check_kernels(dev, records):
                 if not bits_equal(k, p):
                     raise AssertionError(f"bitflip {dtype} {model} bits={bits}"
                                          " differs from its plain version")
+                k = ops.bitflip(q, 7919, rates, bits, fault_model=model,
+                                scale=scale)
+                if not bits_equal(k, p.float() * scale):
+                    raise AssertionError(f"bitflip {dtype} {model} bits={bits}"
+                                         " with scale differs from "
+                                         "bitflip_ref(...).float() * scale")
     log("phase3 bitflip: bitwise equal to plain for int8/int16/int32 x "
-        f"{FAULT_MODELS} x bits 4,8 x rates 0,1e-3,0.2 at [3,3,512,512]")
+        f"{FAULT_MODELS} x bits 4,8 x rates 0,1e-3,0.2 at [3,3,512,512], "
+        "integers out and fused dequant")
 
     # quant_bitflip: the input of ResNet18 units 1-3 at n_eval=512,
     # [R, 512, 32, 32, 64]; row 0 all zeros
@@ -152,45 +204,56 @@ def check_kernels(dev, records):
         f"{FAULT_MODELS} x rates 0,1e-3,0.2 at [4,512,32,32,64] with an "
         "all-zero row")
 
-    # fault_matmul: AlexNet fc0 at width 1.0, img 32
-    K, N = 4096, 1024
-    qw = torch.randint(-127, 128, (K, N), device=dev, dtype=torch.int8,
-                       generator=gen)
-    scale = torch.tensor(0.0123, device=dev)
-    max_err = 0.0
-    for model in FAULT_MODELS:
-        w = ref.bitflip_ref(qw, 7921, rates, FAULTY_BITS,
-                            fault_model=model).float() * scale
+    # fault_matmul at both main-path shapes, every storage type
+    max_err, worst = {}, 0.0
+    for label, M, K, N in MATMUL_SHAPES:
         eye = torch.eye(K, device=dev).expand(3, K, K).contiguous()
-        k = ops.fault_matmul(eye, qw, scale, 7921, rates, FAULTY_BITS,
-                             fault_model=model)
-        if not bits_equal(k, w):
-            raise AssertionError(f"fault_matmul {model}: x = I_K does not "
-                                 "return the corrupted weights bitwise")
+        x = torch.randn(3, M, K, device=dev, generator=gen)
+        max_err[label] = 0.0
+        for dtype, hi in ((torch.int8, 128), (torch.int16, 2 ** 14),
+                          (torch.int32, 2 ** 20)):
+            qw = torch.randint(-hi, hi, (K, N), device=dev, dtype=dtype,
+                               generator=gen)
+            for model in FAULT_MODELS:
+                w = ref.bitflip_ref(qw, 7921, rates, FAULTY_BITS,
+                                    fault_model=model, scale=scale)
+                k = ops.fault_matmul(eye, qw, scale, 7921, rates, FAULTY_BITS,
+                                     fault_model=model)
+                if not bits_equal(k, w):
+                    raise AssertionError(f"fault_matmul {label} {dtype} "
+                                         f"{model}: x = I_K does not return "
+                                         "the corrupted weights bitwise")
+                k = ops.fault_matmul(x, qw, scale, 7921, rates, FAULTY_BITS,
+                                     fault_model=model)
+                p = ref.fault_matmul_ref(x, qw, scale, 7921, rates,
+                                         FAULTY_BITS, fault_model=model)
+                tol = 2 * K * 2.0 ** -24 * torch.matmul(x.abs(), w.abs())
+                err = (k - p).abs()
+                if not bool((err <= tol).all()):
+                    raise AssertionError(f"fault_matmul {label} {dtype} "
+                                         f"{model}: max err "
+                                         f"{err.max().item():.3g} above the "
+                                         "bound")
+                if dtype == torch.int8:
+                    max_err[label] = max(max_err[label], err.max().item())
+                worst = max(worst, (err / tol).max().item())
         del eye
-        x = torch.randn(3, 512, K, device=dev, generator=gen)
-        k = ops.fault_matmul(x, qw, scale, 7921, rates, FAULTY_BITS,
-                             fault_model=model)
-        p = ref.fault_matmul_ref(x, qw, scale, 7921, rates, FAULTY_BITS,
-                                 fault_model=model)
-        tol = 2 * K * 2.0 ** -24 * torch.matmul(x.abs(), w.abs())
-        err = (k - p).abs()
-        if not bool((err <= tol).all()):
-            raise AssertionError(f"fault_matmul {model}: max err "
-                                 f"{err.max().item():.3g} above the bound")
-        max_err = max(max_err, err.max().item())
     log("phase3 fault_matmul: x=I_K bitwise; random x within "
-        f"2*K*2^-24*(|x|@|w|), max |err| {max_err:.3g}, at [3,512,4096]x"
-        "[4096,1024] for all fault models")
+        f"2*K*2^-24*(|x|@|w|) (worst ratio to it {worst:.3g}), at "
+        f"{[s[0] for s in MATMUL_SHAPES]} x int8/int16/int32 x "
+        f"{FAULT_MODELS}; int8 max |err| {max_err}")
 
-    # timings at the main path's shapes, one row
+    # timings, one row, at the main path's shapes
     one = torch.tensor([0.2], device=dev)
     q = torch.randint(-127, 128, (3, 3, 512, 512), device=dev,
                       dtype=torch.int8, generator=gen)
     n = q.numel()
     b_ms, b_by = bound(2 * n, int_ops=n * FAULTY_BITS * HASH_OPS_PER_DRAW)
     records["bitflip"].update(
-        ms=time_ms(lambda: ops.bitflip(q, 1, one, FAULTY_BITS)),
+        ms=device_ms(lambda: ops.bitflip(q, 1, one, FAULTY_BITS)),
+        wrapper_ms=time_ms(lambda: ops.bitflip(q, 1, one, FAULTY_BITS)),
+        fused_ms=device_ms(lambda: ops.bitflip(q, 1, one, FAULTY_BITS,
+                                               scale=scale)),
         plain_ms=time_ms(lambda: ref.bitflip_ref(q, 1, one, FAULTY_BITS)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, max_abs_err=0.0,
         shape="[1] x [3,3,512,512] int8")
@@ -198,29 +261,68 @@ def check_kernels(dev, records):
     n = x.numel()
     b_ms, b_by = bound(8 * n, int_ops=n * FAULTY_BITS * HASH_OPS_PER_DRAW)
     records["quant_bitflip"].update(
-        ms=time_ms(lambda: ops.quant_bitflip(x, 1, one, FAULTY_BITS, spec8)),
+        ms=device_ms(lambda: ops.quant_bitflip(x, 1, one, FAULTY_BITS, spec8)),
+        wrapper_ms=time_ms(lambda: ops.quant_bitflip(x, 1, one, FAULTY_BITS,
+                                                     spec8)),
         plain_ms=time_ms(lambda: ref.quant_bitflip_ref(x, 1, one, FAULTY_BITS,
                                                        spec8), iters=5),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, max_abs_err=0.0,
         shape="[1,512,32,32,64] float32")
     del x
-    x = torch.randn(1, 512, K, device=dev, generator=gen)
-    w = qw.float() * scale
-    b_ms, b_by = bound(4 * 512 * K + K * N + 4 * 512 * N,
-                       flops=2 * 512 * K * N,
-                       int_ops=K * N * FAULTY_BITS * HASH_OPS_PER_DRAW)
-    records["fault_matmul"].update(
-        ms=time_ms(lambda: ops.fault_matmul(x, qw, scale, 1, one,
-                                            FAULTY_BITS)),
-        plain_ms=time_ms(lambda: ref.fault_matmul_ref(x, qw, scale, 1, one,
-                                                      FAULTY_BITS)),
-        library_ms=time_ms(lambda: torch.matmul(x, w)),
-        bound_ms=b_ms, bound_by=b_by, max_abs_err=max_err,
-        shape="[1,512,4096] x [4096,1024] int8")
+    shapes = []
+    for label, M, K, N in MATMUL_SHAPES:
+        qw = torch.randint(-127, 128, (K, N), device=dev, dtype=torch.int8,
+                           generator=gen)
+        x = torch.randn(1, M, K, device=dev, generator=gen)
+        w = qw.float() * scale
+        b_ms, b_by = bound(4 * M * K + K * N + 4 * M * N,
+                           tc_flops=3 * 2 * M * K * N,
+                           int_ops=K * N * FAULTY_BITS * HASH_OPS_PER_DRAW)
+        shapes.append(dict(
+            label=label, shape=f"[1,{M},{K}] x [{K},{N}] int8",
+            ms=device_ms(lambda: ops.fault_matmul(x, qw, scale, 1, one,
+                                                  FAULTY_BITS)),
+            wrapper_ms=time_ms(lambda: ops.fault_matmul(x, qw, scale, 1, one,
+                                                        FAULTY_BITS)),
+            plain_ms=time_ms(lambda: ref.fault_matmul_ref(
+                x, qw, scale, 1, one, FAULTY_BITS)),
+            library_ms=device_ms(lambda: torch.matmul(x, w)),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=max_err[label]))
+    # the record's own numbers are those of ResNet18's fc, the shape the
+    # main path (phase 4) launches; AlexNet's fc0 rides along in "shapes"
+    records["fault_matmul"].update(shapes[0], shapes=shapes)
     for name, r in records.items():
-        log(f"phase3 time {name} at {r['shape']}: kernel {r['ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        for sr in r.get("shapes", [r]):
+            log(f"phase3 time {name} at {sr['shape']}: device {sr['ms']:.4f} "
+                f"ms, wrapper {sr['wrapper_ms']:.4f} ms, plain "
+                f"{sr['plain_ms']:.4f} ms, library {sr['library_ms']}, bound "
+                f"{sr['bound_ms']:.4f} ms ({sr['bound_by']})")
+    log(f"phase3 time bitflip fused dequant: device "
+        f"{records['bitflip']['fused_ms']:.4f} ms")
+
+
+RECORD_KEYS = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
+               "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+               "wrapper_ms", "fused_ms", "candidate_ms", "candidate_launches",
+               "shapes")
+
+
+def kernel_group(key: str) -> str:
+    """The group a profiled device kernel belongs to: one of the port's
+    three kernels, or what PyTorch and cuDNN run around them."""
+    if "quant_bitflip_kernel" in key or "amax_kernel" in key:
+        return "quant_bitflip"
+    if "bitflip_kernel" in key:
+        return "bitflip"
+    if "tc::kernel" in key or "simt::kernel" in key or "sum_splits" in key:
+        return "fault_matmul"
+    if "Memcpy" in key or "Memset" in key:
+        return "copies"
+    if "nhwcToNchw" in key or "nchwToNhwc" in key:
+        return "layout"
+    if "at::native" in key:
+        return "elementwise glue"
+    return "convolution"
 
 
 def pick_resnet_seed(dev):
@@ -336,6 +438,10 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s, launches {dict(ops.launches)}")
     if ops.launches["fault_matmul"] <= 0 or not np.isfinite(a_dacc).all():
         raise AssertionError("alexnet population did not run fault_matmul")
+    records["fault_matmul"]["shapes"][0]["launches"] = main_launches[
+        "fault_matmul"]
+    records["fault_matmul"]["shapes"][1]["launches"] = ops.launches[
+        "fault_matmul"]
 
     # phase 6: generic against kernel on one ResNet18 population
     P = np.random.default_rng(2).integers(0, 2, size=(8, ResNet18.n_units))
@@ -352,35 +458,39 @@ def main() -> int:
         raise AssertionError("generic and kernel dAcc differ by more than "
                              "2/n_eval")
 
-    # phase 7: one candidate's device time by kernel (diagnostic)
+    # phase 7: where one candidate's device time goes, by kernel
     row = np.zeros((1, ResNet18.n_units), np.int64)
     t_row = time_ms(lambda: ev._dispatch(row), iters=5, warmup=1)
     log(f"phase7 one ResNet18 candidate (kernel backend, 512 images): "
         f"{t_row:.3f} ms device time")
-    try:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            ev._dispatch(row)
-            torch.cuda.synchronize()
-        kernels_ = [a for a in prof.key_averages()
-                    if a.device_type == DeviceType.CUDA]
-        busy = sum(a.self_device_time_total for a in kernels_) / 1e3
-        log(f"phase7 profiler: kernels busy {busy:.3f} ms of {t_row:.3f} ms "
-            f"({100 * (1 - busy / t_row):.1f}% idle)")
-        for a in sorted(kernels_, key=lambda a: a.self_device_time_total,
-                        reverse=True)[:12]:
-            log(f"  {a.self_device_time_total / 1e3:8.3f} ms {a.count:4d}x "
-                f"{a.key[:90]}")
-    except Exception as e:             # diagnostic only: report and go on
-        log(f"phase7 profiler unavailable: {type(e).__name__}: {e}")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ev._dispatch(row)
+        torch.cuda.synchronize()
+    kernels_ = [a for a in prof.key_averages()
+                if a.device_type == DeviceType.CUDA]
+    if not kernels_:
+        raise AssertionError("the profiler recorded no device kernel")
+    busy = sum(a.self_device_time_total for a in kernels_) / 1e3
+    log(f"phase7 profiler: kernels busy {busy:.3f} ms of {t_row:.3f} ms "
+        f"({100 * (1 - busy / t_row):.1f}% idle)")
+    groups = {}
+    for a in kernels_:
+        g = groups.setdefault(kernel_group(a.key), [0.0, 0])
+        g[0] += a.self_device_time_total / 1e3
+        g[1] += a.count
+    for name, (ms, count) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        log(f"phase7 per candidate: {name:16s} {ms:8.3f} ms {count:4d} launches")
+    for name, r in records.items():
+        r["candidate_ms"], r["candidate_launches"] = groups.get(name, (0.0, 0))
+    for a in sorted(kernels_, key=lambda a: a.self_device_time_total,
+                    reverse=True)[:12]:
+        log(f"  {a.self_device_time_total / 1e3:8.3f} ms {a.count:4d}x "
+            f"{a.key[:90]}")
 
-    kernels = [dict(name=name, route=r["route"], source=r["source"],
-                    replaces=r["replaces"], launches=r["launches"],
-                    max_abs_err=r["max_abs_err"], ms=r["ms"],
-                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                    bound_by=r["bound_by"], library_ms=r["library_ms"])
+    kernels = [dict(name=name, **{k: r[k] for k in RECORD_KEYS if k in r})
                for name, r in records.items()]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

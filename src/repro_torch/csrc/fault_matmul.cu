@@ -8,46 +8,80 @@
 // shared (K, N) integer matrix, each row corrupts it at its own rate with
 // idx = k * N + n in the unpadded matrix; out is [R, M, N] float32.
 //
-// Design: a shared-memory tiled SGEMM.  Per BK-slice, the block loads its
-// x tile into shared memory (transposed, padded against bank conflicts),
-// loads the int8/16/32 weight tile, corrupts and dequantizes it into
-// shared memory as float, then every thread accumulates an 8x8 register
-// tile with fp32 FMAs.  Ragged edges are masked to zero on load and on
-// store.  No tensor cores: TF32 would break the fp32 tolerance.
+// int8 qw (every weight the CNN path stores) runs on the tensor cores,
+// still fp32-accurate, because the operands split exactly:
+//   * an int8 weight, corrupted or not, is exact in bf16;
+//   * a float32 x is exactly b0 + b1 + b2, three bf16 values
+//     (b0 = bf16(x), b1 = bf16(x - b0), b2 = bf16(x - b0 - b1));
+//   * each product b_i * q' (8 x 8 significant bits) is exact in fp32;
+//   * the scale is one per tensor, so it moves to the epilogue.
+// So three bf16 wgmma products into one fp32 accumulator give x @ q', and
+// __fmul_rn(acc, scale) the output.  With x = I_K every output is one
+// exact product: the kernel returns the corrupted, dequantized weights
+// bitwise.
 //
-// Split-K: at the main path's shapes (one row, M = 512) the 128x128 tiles
-// are 32 blocks for 132 SMs, so K is cut into `splits` slices, each block
-// writes its partial tile to a workspace, and a second kernel sums the
-// slices in slice order: deterministic, no atomics, and the hash work per
-// weight is unchanged (each slice hashes only its own rows of qw).
+// Bound on the H100 (int8): the hash, about 80 integer operations per
+// weight at 4 planes, once per weight, on the integer pipe; the three
+// bf16 products need less (3 * 2MKN at 989 TFLOP/s), the bytes far less.
+// The design:
+//   * one block covers all M rows (up to 512: four warpgroups of two m64
+//     tiles) of its (K-slice, N-tile), so each weight is corrupted once per
+//     call (once per 512-row chunk beyond that).  The block corrupts its
+//     int8 tile into shared memory as bf16, in the K-major layout wgmma
+//     reads B from, with faultmodel.cuh's integer threshold;
+//   * x arrives through a three-stage cp.async ring in shared memory; each
+//     thread splits its A fragment in registers and issues the three
+//     products (wgmma m64nNk16, A from registers, B from shared memory);
+//   * while the tensor cores run step k, the threads corrupt step k + 1's
+//     weights (prefetched into registers a step earlier) into the other B
+//     buffer, so the products hide under the hash instead of stalling it;
+//   * the N tile follows N: 16 for a narrow head (ResNet18's fc), else 64
+//     (512 x 64 fp32 accumulators fill a quarter of the register file);
+//   * split-K: each K-slice is one block writing a partial tile; a second
+//     kernel sums the slices in slice order (deterministic, no atomics).
+// What holds it back on the card (PERF.md, PR 12): per k-step the split,
+// the issue of loads and products, and the hash run one after the other
+// on the integer and float pipes; the products only hide under the hash.
+// At 512 threads a block has 128 registers a thread and one block an SM,
+// which leaves no room to give the hash warps of its own.
+// Rows of a [R] call share the hash and differ only in their threshold;
+// each row is its own block here and recomputes it (the main path calls
+// with R = 1).  Reusing it across rows means keeping the 24-bit draws of
+// a tile and comparing them with every row's threshold.
 //
-// Bound on the H100: the fp32 FMA rate (67 TFLOP/s without tensor cores)
-// for the product, plus the hash, which this design recomputes once per
-// 128-row block of x (M / 128 times per weight); both are far above the
-// bytes.  With x = I_K every output is one exact product, so the kernel
-// returns the corrupted, dequantized weights bitwise.
+// int16 and int32 qw keep the SIMT body below: their values are not exact
+// in bf16.  The CNN path never stores them; this is dispatch by storage
+// type, and nothing catches a failure of the tensor-core path.  That body
+// is a 128x128x8 shared-memory SGEMM that corrupts and dequantizes each
+// weight tile in shared memory (once per 128-row block of x), with fp32
+// FMAs and the same split-K.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "faultmodel.cuh"
 
 namespace {
 
+// ---------------------------------------------------------------------
+// SIMT body (int16, int32)
+namespace simt {
+
 constexpr int BM = 128, BN = 128, BK = 8, TM = 8, TN = 8, THREADS = 256;
 constexpr int APAD = BM + 4;  // row stride of the transposed x tile
 
 template <typename T, int MODEL>
 __global__ void __launch_bounds__(THREADS)
-fault_matmul_kernel(const float* __restrict__ x, const T* __restrict__ qw,
-                    float* __restrict__ out, const float* __restrict__ scale_p,
-                    const float* __restrict__ rate_p, int rows, int M, int K,
-                    int N, int k_chunk, uint32_t seed, int faulty_bits,
-                    int mbu_width) {
+kernel(const float* __restrict__ x, const T* __restrict__ qw,
+       float* __restrict__ out, const float* __restrict__ scale_p,
+       const float* __restrict__ rate_p, int rows, int M, int K, int N,
+       int k_chunk, uint32_t seed, int faulty_bits, int mbu_width) {
   __shared__ __align__(16) float As[BK][APAD];
   __shared__ __align__(16) float Bs[BK][BN];
   const int row = blockIdx.z % rows, split = blockIdx.z / rows;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int k_begin = split * k_chunk, k_end = min(K, k_begin + k_chunk);
-  const float scale = *scale_p, rate = rate_p[row];
+  const float scale = *scale_p;
+  const uint32_t thresh = afp::rate_threshold(rate_p[row]);
   const float* xr = x + static_cast<int64_t>(row) * M * K;
   // slice `split` of the partial sums (the output itself when unsplit)
   float* outr = out + (static_cast<int64_t>(split) * rows + row) * M * N;
@@ -75,7 +109,7 @@ fault_matmul_kernel(const float* __restrict__ x, const T* __restrict__ qw,
       if (k < k_end && n < N) {
         const int64_t flat = static_cast<int64_t>(k) * N + n;
         const T q = afp::apply_fault<MODEL>(qw[flat], static_cast<uint32_t>(flat),
-                                            seed, rate, faulty_bits, mbu_width);
+                                            seed, thresh, faulty_bits, mbu_width);
         w = __fmul_rn(static_cast<float>(q), scale);
       }
       Bs[kk][nn] = w;
@@ -111,13 +145,352 @@ fault_matmul_kernel(const float* __restrict__ x, const T* __restrict__ qw,
   }
 }
 
-// out[i] = sum over s of partial[s][i], in slice order.
+}  // namespace simt
+
+// ---------------------------------------------------------------------
+// Tensor-core body (int8)
+namespace tc {
+
+constexpr int WGS = 4;                 // warpgroups, all of them consumers
+constexpr int THREADS = 128 * WGS;
+constexpr int MT = 2;                  // m64 tiles per warpgroup
+constexpr int BM = 64 * MT * WGS;      // rows per block: 512
+constexpr int BK = 16;                 // one wgmma k-step per stage
+constexpr int XS = 3;                  // stages of the x ring
+constexpr int XLD = BK + 8;            // x row stride in floats: 96 B, so
+                                       // the fragment reads miss no bank
+constexpr int X_STAGE = BM * XLD;      // floats per x stage
+
+// Bytes of one B tile: BN x 16 bf16 in the no-swizzle K-major layout,
+// core matrices of 8 n-rows x 16 bytes (8 k), the two k-halves 128 B
+// apart (LBO), successive 8-row groups 256 B apart (SBO).
+template <int BN> constexpr int B_BYTES = BN * BK * 2;
+template <int BN> constexpr int SMEM_BYTES = 2 * B_BYTES<BN> + XS * X_STAGE * 4;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t b_offset(int n, int k) {
+  return (n & 7) * 16 + (n >> 3) * 256 + (k >> 3) * 128 + (k & 7) * 2;
+}
+
+__device__ __forceinline__ uint64_t b_desc(const void* tile) {
+  return static_cast<uint64_t>((smem_addr(tile) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(128 >> 4) << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pin accumulator registers at this point of the program, so the compiler
+// moves no read of them across a wgmma wait.
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// d += A (64x16 bf16, registers) @ B (16xBN bf16, shared memory).
+template <int BN> struct Mma;
+
+template <> struct Mma<16> {
+  static constexpr int R = 8;
+  static __device__ __forceinline__ void run(float (&d)[R],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, "
+        "p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <> struct Mma<64> {
+  static constexpr int R = 32;
+  static __device__ __forceinline__ void run(float (&d)[R],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Split two floats exactly into three bf16x2 words: v = h0 + h1 + h2
+// elementwise (the low half holds v.x, as the A fragment wants).
+__device__ __forceinline__ void split3(float2 v, uint32_t& h0, uint32_t& h1,
+                                       uint32_t& h2) {
+  const __nv_bfloat162 b0 = __float22bfloat162_rn(v);
+  const float2 f0 = __bfloat1622float2(b0);
+  const float2 r1 = make_float2(__fsub_rn(v.x, f0.x), __fsub_rn(v.y, f0.y));
+  const __nv_bfloat162 b1 = __float22bfloat162_rn(r1);
+  const float2 f1 = __bfloat1622float2(b1);
+  const float2 r2 = make_float2(__fsub_rn(r1.x, f1.x), __fsub_rn(r1.y, f1.y));
+  h0 = bf16x2_bits(b0);
+  h1 = bf16x2_bits(b1);
+  h2 = bf16x2_bits(__float22bfloat162_rn(r2));
+}
+
+// grid: (N tiles, M chunks of BM, rows * splits); THREADS threads;
+// SMEM_BYTES<BN> of dynamic shared memory.
+template <int BN, int MODEL>
+__global__ void __launch_bounds__(THREADS, 1)
+kernel(const float* __restrict__ x, const int8_t* __restrict__ qw,
+       float* __restrict__ out, const float* __restrict__ scale_p,
+       const float* __restrict__ rate_p, int rows, int M, int K, int N,
+       int k_chunk, bool x_vec, uint32_t seed, int faulty_bits,
+       int mbu_width) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* bt = smem;                                   // 2 B tiles
+  float* xs = reinterpret_cast<float*>(smem + 2 * B_BYTES<BN>);
+
+  const int row = blockIdx.z % rows, split = blockIdx.z / rows;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int k_begin = split * k_chunk, k_end = min(K, k_begin + k_chunk);
+  const int nk = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+  const uint32_t thresh = afp::rate_threshold(rate_p[row]);
+  const float* xr = x + static_cast<int64_t>(row) * M * K;
+  const int t = threadIdx.x;
+  const int wg = t / 128, warp = (t / 32) % 4, lane = t % 32;
+  const int g = lane / 4, tq = lane % 4;
+
+  // x stage s -> ring slot s % XS.  Thread t copies the 16-byte chunks
+  // of rows t / 4 + i THREADS / 4, k 4 (t % 4) + 0..3 of the stage.  Rows
+  // past M and k past the slice arrive as zeros.
+  constexpr int ROW_STEP = THREADS / 4;
+  const int xk = 4 * (t % 4);
+  const float* x_src = xr + static_cast<int64_t>(m0 + t / 4) * K + k_begin + xk;
+  auto load_x = [&](int s) {
+    const float* src = x_src + s * BK;
+    float* dst = xs + (s % XS) * X_STAGE + (t / 4) * XLD + xk;
+    const int k = k_begin + s * BK + xk;
+#pragma unroll
+    for (int i = 0; i < BM / ROW_STEP; ++i) {
+      const bool row_ok = m0 + t / 4 + i * ROW_STEP < M;
+      if (x_vec) {
+        const bool ok = row_ok && k < k_end;
+        cp_async16(dst, ok ? src : xr, ok);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = row_ok && k + e < k_end;
+          cp_async4(dst + e, ok ? src + e : xr, ok);
+        }
+      }
+      src += static_cast<int64_t>(ROW_STEP) * K;
+      dst += ROW_STEP * XLD;
+    }
+  };
+
+  // The weights: thread t < 8 * BN owns the pair (k, k + 1) = 2 * (t / BN)
+  // + {0, 1} at column n = t % BN of every stage.
+  const bool owner = t < 8 * BN;
+  const int wn = t % BN, wk = 2 * (t / BN);
+  auto load_q = [&](int s, int8_t (&q)[2]) {
+    const int k = k_begin + s * BK + wk, n = n0 + wn;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      q[j] = (k + j < k_end && n < N)
+                 ? qw[static_cast<int64_t>(k + j) * N + n] : int8_t(0);
+  };
+  auto corrupt_q = [&](int s, const int8_t (&q)[2]) {
+    const int k = k_begin + s * BK + wk, n = n0 + wn;
+    float f[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const uint32_t idx = static_cast<uint32_t>(k + j) * static_cast<uint32_t>(N)
+                           + static_cast<uint32_t>(n);
+      f[j] = static_cast<float>(afp::apply_fault<MODEL>(
+          q[j], idx, seed, thresh, faulty_bits, mbu_width));
+    }
+    *reinterpret_cast<uint32_t*>(bt + (s % 2) * B_BYTES<BN> +
+                                 b_offset(wn, wk)) =
+        bf16x2_bits(__floats2bfloat162_rn(f[0], f[1]));
+  };
+
+  constexpr int R = Mma<BN>::R;
+  float acc[MT][R];
+#pragma unroll
+  for (int j = 0; j < MT; ++j)
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[j][i] = 0.0f;
+
+  // prologue: x stages 0 and 1 in flight, B tile 0 corrupted, the raw
+  // weights of stage 1 in registers
+  int8_t qn[2] = {0, 0};
+#pragma unroll
+  for (int s = 0; s < XS - 1; ++s) {
+    if (s < nk) load_x(s);
+    cp_async_commit();
+  }
+  if (owner && nk > 0) {
+    load_q(0, qn);
+    corrupt_q(0, qn);
+    if (nk > 1) load_q(1, qn);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+
+  for (int s = 0; s < nk; ++s) {
+    cp_async_wait<XS - 2>();
+    __syncthreads();  // x stage s and B tile s are in; slot (s + 2) % XS
+                      // and B tile (s + 1) % 2 are free
+    if (s + XS - 1 < nk) load_x(s + XS - 1);
+    cp_async_commit();
+
+    const float* xt = xs + (s % XS) * X_STAGE;
+    const uint64_t desc = b_desc(bt + (s % 2) * B_BYTES<BN>);
+    uint32_t a[MT][3][4];
+#pragma unroll
+    for (int j = 0; j < MT; ++j) {
+      if (m0 + wg * 128 + j * 64 >= M) continue;  // uniform per warpgroup
+      const int r = wg * 128 + j * 64 + warp * 16 + g;
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {   // (row, col) = (r, 2tq) (r+8, 2tq)
+                                      //  (r, 2tq+8) (r+8, 2tq+8)
+        const float2 v = *reinterpret_cast<const float2*>(
+            xt + (r + (h & 1) * 8) * XLD + 2 * tq + (h >> 1) * 8);
+        split3(v, a[j][0][h], a[j][1][h], a[j][2][h]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int p = 0; p < 3; ++p) Mma<BN>::run(acc[j], a[j][p], desc);
+    }
+    wgmma_commit();
+
+    // overlap the tensor cores: corrupt the next B tile, fetch the raw
+    // weights of the one after
+    if (owner && s + 1 < nk) {
+      corrupt_q(s + 1, qn);
+      if (s + 2 < nk) load_q(s + 2, qn);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    wgmma_wait_all();
+#pragma unroll
+    for (int j = 0; j < MT; ++j) fence_acc(acc[j]);
+  }
+
+  // epilogue: d[4c + e] of an m64nN tile is (row 16 warp + g + 8 (e / 2),
+  // col 8c + 2tq + e % 2), so d[2i], d[2i + 1] are neighbours in a row and
+  // go out as one 8-byte store where N is even; + 0.0f turns a -0 sum of
+  // zeros into +0
+  const float scale = *scale_p;
+  float* dst = out + (static_cast<int64_t>(split) * rows + row) * M * N;
+  auto fin = [&](float v) { return __fmul_rn(__fadd_rn(v, 0.0f), scale); };
+#pragma unroll
+  for (int j = 0; j < MT; ++j) {
+#pragma unroll
+    for (int i = 0; i < R; i += 2) {
+      const int m = m0 + wg * 128 + j * 64 + warp * 16 + g + 8 * ((i / 2) % 2);
+      const int n = n0 + 8 * (i / 4) + 2 * tq;
+      if (m >= M) continue;
+      float* o = dst + static_cast<int64_t>(m) * N + n;
+      if (N % 2 == 0 && n + 1 < N) {
+        *reinterpret_cast<float2*>(o) =
+            make_float2(fin(acc[j][i]), fin(acc[j][i + 1]));
+      } else {
+        if (n < N) o[0] = fin(acc[j][i]);
+        if (n + 1 < N) o[1] = fin(acc[j][i + 1]);
+      }
+    }
+  }
+}
+
+template <int BN, int MODEL>
+cudaError_t launch(const float* x, const int8_t* qw, float* dst,
+                   const float* scale, const float* rate, int rows, int M,
+                   int K, int N, int splits, int k_chunk, uint32_t seed,
+                   int faulty_bits, int mbu_width, cudaStream_t s) {
+  constexpr int smem = SMEM_BYTES<BN>;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel<BN, MODEL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  const bool x_vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, rows * splits);
+  kernel<BN, MODEL><<<grid, THREADS, smem, s>>>(
+      x, qw, dst, scale, rate, rows, M, K, N, k_chunk, x_vec, seed,
+      faulty_bits, mbu_width);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+// out[i] = sum over s of partial[s][i], in slice order; four elements a
+// thread per step where n % 4 == 0 (the buffers are 16-byte aligned).
 __global__ void sum_splits_kernel(const float* __restrict__ partial,
                                   float* __restrict__ out, int64_t n,
                                   int splits) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (n % 4 == 0) {
+    const float4* p = reinterpret_cast<const float4*>(partial);
+    for (int64_t i = tid; i < n / 4; i += stride) {
+      float4 acc = p[i];
+      for (int s = 1; s < splits; ++s) {
+        const float4 v = p[s * (n / 4) + i];
+        acc.x += v.x; acc.y += v.y; acc.z += v.z; acc.w += v.w;
+      }
+      reinterpret_cast<float4*>(out)[i] = acc;
+    }
+    return;
+  }
+  for (int64_t i = tid; i < n; i += stride) {
     float acc = partial[i];
     for (int s = 1; s < splits; ++s) acc += partial[s * n + i];
     out[i] = acc;
@@ -128,7 +501,10 @@ __global__ void sum_splits_kernel(const float* __restrict__ partial,
 
 // x: rows x M x K float32; qw: K x N integers of `qbytes` bytes; out:
 // rows x M x N float32; scale: one float32; rate: rows float32.  With
-// splits > 1, partial is a splits x rows x M x N float32 workspace.
+// splits > 1, partial is a splits x rows x M x N float32 workspace.  int8
+// runs the tensor-core body (N tile 16 for N <= 16, else 64), int16 and
+// int32 the SIMT body; K is cut into `splits` slices of whole k-steps
+// (16 of K on the tensor cores, 8 on the SIMT body).
 extern "C" int afp_fault_matmul(const float* x, const void* qw, float* out,
                                 float* partial, const float* scale,
                                 const float* rate, int64_t rows, int64_t M,
@@ -139,24 +515,53 @@ extern "C" int afp_fault_matmul(const float* x, const void* qw, float* out,
   if (splits < 1 || rows * splits > 65535 || M > (1LL << 30) ||
       K > (1LL << 30) || N > (1LL << 30) || K * N > 0xFFFFFFFFLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t k_steps = (K + BK - 1) / BK;
-  const int k_chunk = static_cast<int>((k_steps + splits - 1) / splits * BK);
-  const dim3 grid(static_cast<unsigned>((N + BN - 1) / BN),
-                  static_cast<unsigned>((M + BM - 1) / BM),
-                  static_cast<unsigned>(rows * splits));
-  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int bk = qbytes == 1 ? tc::BK : simt::BK;
+  const int bm = qbytes == 1 ? tc::BM : simt::BM;
+  if ((M + bm - 1) / bm > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t k_steps = (K + bk - 1) / bk;
+  const int k_chunk = static_cast<int>((k_steps + splits - 1) / splits * bk);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* dst = splits > 1 ? partial : out;
-  AFP_DISPATCH_INT(qbytes, AFP_DISPATCH_MODEL(model,
-      fault_matmul_kernel<QT, MODEL><<<grid, THREADS, 0, s>>>(
-          x, static_cast<const QT*>(qw), dst, scale, rate,
-          static_cast<int>(rows), static_cast<int>(M), static_cast<int>(K),
-          static_cast<int>(N), k_chunk, seed, faulty_bits, mbu_width)));
-  cudaError_t err = cudaGetLastError();
+  const int r = static_cast<int>(rows), m = static_cast<int>(M),
+            k = static_cast<int>(K), n = static_cast<int>(N);
+  cudaError_t err = cudaSuccess;
+  if (qbytes == 1) {
+    const int8_t* q = static_cast<const int8_t*>(qw);
+    if (N <= 16) {
+      AFP_DISPATCH_MODEL(model, err = tc::launch<16, MODEL>(
+          x, q, dst, scale, rate, r, m, k, n, splits, k_chunk, seed,
+          faulty_bits, mbu_width, s));
+    } else {
+      AFP_DISPATCH_MODEL(model, err = tc::launch<64, MODEL>(
+          x, q, dst, scale, rate, r, m, k, n, splits, k_chunk, seed,
+          faulty_bits, mbu_width, s));
+    }
+  } else {
+    const dim3 grid(static_cast<unsigned>((N + simt::BN - 1) / simt::BN),
+                    static_cast<unsigned>((M + simt::BM - 1) / simt::BM),
+                    static_cast<unsigned>(rows * splits));
+    switch (qbytes) {
+      case 2:
+        AFP_DISPATCH_MODEL(model,
+            simt::kernel<int16_t, MODEL><<<grid, simt::THREADS, 0, s>>>(
+                x, static_cast<const int16_t*>(qw), dst, scale, rate, r, m,
+                k, n, k_chunk, seed, faulty_bits, mbu_width));
+        break;
+      case 4:
+        AFP_DISPATCH_MODEL(model,
+            simt::kernel<int32_t, MODEL><<<grid, simt::THREADS, 0, s>>>(
+                x, static_cast<const int32_t*>(qw), dst, scale, rate, r, m,
+                k, n, k_chunk, seed, faulty_bits, mbu_width));
+        break;
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const int64_t n = rows * M * N;
-  const int64_t blocks = (n + 255) / 256;
+  const int64_t total = rows * M * N;
+  const int64_t blocks = (total + 255) / 256;
   sum_splits_kernel<<<static_cast<unsigned>(blocks < 132 * 8 ? blocks : 132 * 8),
-                      256, 0, s>>>(partial, out, n, splits);
+                      256, 0, s>>>(partial, out, total, splits);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,9 +6,14 @@
 //
 // Exactness rules that keep every kernel bitwise equal to the oracle:
 //   * all hash arithmetic is uint32 with wraparound;
-//   * (u >> 8) < 2^24 converts to float exactly, and * 2^-24 is exact;
-//   * the rate compare is float32 against float32;
-//   * the MBU start is min(int(float32(u_pos * span)), span - 1).
+//   * the oracle's draw is float(u >> 8) * 2^-24 < rate.  Both sides of
+//     that compare scale exactly by 2^24, so it is the integer compare
+//     (u >> 8) < T with T = rate > 0 ? min(ceil(rate * 2^24), 2^24) : 0
+//     (rate_threshold; NaN and rates <= 0 give 0, so no plane fires).
+//     A kernel computes T once per row, and a draw costs no int-to-float
+//     conversion: the hash runs on the integer pipe alone;
+//   * the MBU start keeps the float arithmetic of the oracle:
+//     min(int(float32(float(u_pos >> 8) * 2^-24 * span)), span - 1).
 #pragma once
 #include <cstdint>
 
@@ -32,33 +37,44 @@ __device__ __forceinline__ uint32_t lowbias32(uint32_t x) {
   return x;
 }
 
-__device__ __forceinline__ float uniform01(uint32_t idx, uint32_t seed,
-                                           uint32_t plane) {
+// The draw's 24 random bits for (idx, seed, plane).
+__device__ __forceinline__ uint32_t draw24(uint32_t idx, uint32_t seed,
+                                          uint32_t plane) {
   const uint32_t h = lowbias32(idx + plane * kGolden);
-  const uint32_t u = lowbias32(h ^ seed);
-  return static_cast<float>(u >> 8) * 5.9604644775390625e-08f;  // 2^-24
+  return lowbias32(h ^ seed) >> 8;
 }
 
-// int32 mask of the bits a fault touches at flat index idx.
+// The row's integer threshold: draw24(...) < T exactly when the oracle's
+// float(draw24) * 2^-24 < rate.  rate * 2^24 and ceilf are exact.
+__device__ __forceinline__ uint32_t rate_threshold(float rate) {
+  if (!(rate > 0.0f)) return 0u;
+  const float t = ceilf(__fmul_rn(rate, 16777216.0f));
+  return t >= 16777216.0f ? 16777216u : static_cast<uint32_t>(t);
+}
+
+// int32 mask of the bits a fault touches at flat index idx, for a row
+// whose threshold is thresh = rate_threshold(rate).
 template <int MODEL>
 __device__ __forceinline__ int32_t fault_mask(uint32_t idx, uint32_t seed,
-                                              float rate, int faulty_bits,
+                                              uint32_t thresh, int faulty_bits,
                                               int mbu_width) {
   if (MODEL == kMbu) {
     const int width = max(1, min(mbu_width, faulty_bits));
     const int span = faulty_bits - width + 1;
-    const float u_ev = uniform01(idx, seed, kMbuEventPlane);
-    const float u_pos = uniform01(idx, seed, kMbuPosPlane);
+    const float u_pos = __fmul_rn(
+        static_cast<float>(draw24(idx, seed, kMbuPosPlane)),
+        5.9604644775390625e-08f);  // 2^-24
     const float pos = __fmul_rn(u_pos, static_cast<float>(span));
     const int start = min(static_cast<int>(pos), span - 1);
     const uint32_t window = faulty_bits >= 32 ? 0xFFFFFFFFu
                                               : ((1u << faulty_bits) - 1u);
     const uint32_t burst = (((1u << width) - 1u) << start) & window;
-    return u_ev < rate ? static_cast<int32_t>(burst) : 0;
+    return draw24(idx, seed, kMbuEventPlane) < thresh
+               ? static_cast<int32_t>(burst) : 0;
   }
   uint32_t mask = 0;
   for (int i = 0; i < faulty_bits; ++i)
-    if (uniform01(idx, seed, static_cast<uint32_t>(i)) < rate) mask |= 1u << i;
+    if (draw24(idx, seed, static_cast<uint32_t>(i)) < thresh) mask |= 1u << i;
   return static_cast<int32_t>(mask);
 }
 
@@ -66,11 +82,11 @@ __device__ __forceinline__ int32_t fault_mask(uint32_t idx, uint32_t seed,
 // and the mask is narrowed to it first, as q ^ mask.astype(q.dtype).
 template <int MODEL, typename T>
 __device__ __forceinline__ T apply_fault(T q, uint32_t idx, uint32_t seed,
-                                         float rate, int faulty_bits,
+                                         uint32_t thresh, int faulty_bits,
                                          int mbu_width) {
   if (faulty_bits <= 0) return q;
   const T m = static_cast<T>(
-      fault_mask<MODEL>(idx, seed, rate, faulty_bits, mbu_width));
+      fault_mask<MODEL>(idx, seed, thresh, faulty_bits, mbu_width));
   if (MODEL == kStuck0) return static_cast<T>(q & ~m);
   if (MODEL == kStuck1) return static_cast<T>(q | m);
   return static_cast<T>(q ^ m);

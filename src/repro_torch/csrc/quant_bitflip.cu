@@ -21,7 +21,8 @@
 //
 // Bound on the H100: two reads and one write per element (12 B for fp32),
 // plus the hash's integer work per bit plane, which at 4 planes outweighs
-// the bytes.  Both passes use 16-byte accesses and grid-stride loops; the
+// the bytes.  The rate enters as faultmodel.cuh's integer threshold,
+// computed once per row.  Both passes use 16-byte accesses and grid-stride loops; the
 // random bits never leave registers.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,12 +83,12 @@ __global__ void amax_kernel(const T* __restrict__ x, float* __restrict__ amax,
 template <typename T, int MODEL>
 __device__ __forceinline__ T quant_fault(T v, uint32_t idx, float scale,
                                          float qmin, float qmax,
-                                         uint32_t seed, float rate,
+                                         uint32_t seed, uint32_t thresh,
                                          int faulty_bits, int mbu_width) {
   float r = rintf(__fdiv_rn(to_f32(v), scale));
   r = fminf(fmaxf(r, qmin), qmax);
   const int32_t q = afp::apply_fault<MODEL>(static_cast<int32_t>(r), idx, seed,
-                                            rate, faulty_bits, mbu_width);
+                                            thresh, faulty_bits, mbu_width);
   return from_f32<T>(__fmul_rn(static_cast<float>(q), scale));
 }
 
@@ -103,7 +104,7 @@ __global__ void quant_bitflip_kernel(const T* __restrict__ x,
   const int64_t row = blockIdx.y;
   const float scale = __fmul_rn(fmaxf(amax[row], FLT_MIN),
                                 __frcp_rn(static_cast<float>(qmax)));
-  const float r = rate[row];
+  const uint32_t thresh = afp::rate_threshold(rate[row]);
   const float lo = static_cast<float>(qmin), hi = static_cast<float>(qmax);
   const T* xr = x + row * n;
   T* o = out + row * n;
@@ -117,13 +118,13 @@ __global__ void quant_bitflip_kernel(const T* __restrict__ x,
     for (int j = 0; j < VEC; ++j)
       e[j] = quant_fault<T, MODEL>(e[j],
                                        static_cast<uint32_t>(v * VEC + j),
-                                       scale, lo, hi, seed, r, faulty_bits,
+                                       scale, lo, hi, seed, thresh, faulty_bits,
                                        mbu_width);
     reinterpret_cast<int4*>(o)[v] = *reinterpret_cast<const int4*>(e);
   }
   for (int64_t i = nvec * VEC + tid; i < n; i += stride)
     o[i] = quant_fault<T, MODEL>(xr[i], static_cast<uint32_t>(i), scale, lo,
-                                 hi, seed, r, faulty_bits, mbu_width);
+                                 hi, seed, thresh, faulty_bits, mbu_width);
 }
 
 template <typename T>

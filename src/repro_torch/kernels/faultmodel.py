@@ -16,6 +16,10 @@ planes ``MBU_EVENT_PLANE`` and ``MBU_POS_PLANE``).
 tensor of per-row rates against a ``[n...]`` index, giving ``[R, n...]``
 masks.  The hash itself depends only on (index, seed, plane), so it is
 computed once and shared by every row.
+
+``rate_threshold`` mirrors how ``csrc/faultmodel.cuh`` reads a rate: the
+draw ``float(u >> 8) * 2^-24 < rate`` is the integer compare
+``(u >> 8) < rate_threshold(rate)``, so a kernel converts no draw to float.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ import torch
 
 __all__ = ["M1", "M2", "GOLDEN", "INV24", "FAULT_MODELS",
            "MBU_EVENT_PLANE", "MBU_POS_PLANE", "seed_u32", "lowbias32",
-           "uniform01", "fault_mask", "apply_fault"]
+           "uniform01", "rate_threshold", "fault_mask", "apply_fault"]
 
 M1 = 0x7FEB352D
 M2 = 0x846CA68B
@@ -66,6 +70,16 @@ def uniform01(idx: torch.Tensor, seed, plane: int) -> torch.Tensor:
     h = lowbias32(idx + ((plane * GOLDEN) & MASK32))
     u = lowbias32(h ^ seed_u32(seed))
     return (u >> 8).to(torch.float32) * INV24
+
+
+def rate_threshold(rate) -> torch.Tensor:
+    """int64 ``T`` with ``(u >> 8) < T`` exactly when ``float(u >> 8) *
+    2^-24 < rate``: ``min(ceil(rate * 2^24), 2^24)`` for ``rate > 0``, else
+    0 (NaN included).  ``rate * 2^24`` and the ceiling are exact in
+    float32."""
+    r = torch.as_tensor(rate, dtype=torch.float32)
+    t = torch.ceil(r * float(1 << 24)).clamp_max(float(1 << 24))
+    return torch.where(r > 0, t, 0.0).to(torch.int64)
 
 
 def fault_mask(idx: torch.Tensor, seed, rate, faulty_bits: int, *,

@@ -1,0 +1,77 @@
+"""Device time of ``fault_matmul`` across shapes, split counts and the
+hash on or off, on one NVIDIA card.
+
+    PYTHONPATH=src python -m repro_torch.kernels.matmul_sweep
+
+Each line is one configuration: the mean device time of 20 calls captured
+in a CUDA graph and replayed 10 times between events (no host cost).
+``faulty_bits=0`` skips the hash, so the difference to ``faulty_bits=4``
+is what the hash costs; a K sweep at fixed M and N separates the cost of
+one 16-deep k-step from the fixed cost of a call; N=64 at 8 slices puts
+8 blocks on the card against 128 at N=1024, which tells time spent inside
+an SM from contention for L2.  Prints the card's name and power limit
+first.
+"""
+from __future__ import annotations
+
+import subprocess
+
+import torch
+
+from repro_torch.kernels import ops
+
+SHAPES = ((512, 512, 16), (512, 256, 1024), (512, 1024, 1024),
+          (512, 4096, 1024), (512, 4096, 64))
+
+
+def device_ms(fn, launches: int = 20, replays: int = 10) -> float:
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (launches * replays)
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("matmul_sweep needs an NVIDIA card")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    scale = torch.tensor(0.0123, device=dev)
+    one = torch.tensor([0.2], device=dev)
+    default_splits = ops._k_splits
+    for M, K, N in SHAPES:
+        qw = torch.randint(-127, 128, (K, N), device=dev, dtype=torch.int8,
+                           generator=gen)
+        x = torch.randn(1, M, K, device=dev, generator=gen)
+        own = default_splits(1, M, K, N, 1, dev)
+        for splits in sorted({own, 8}):
+            ops._k_splits = lambda *_, s=splits: s
+            for bits in (4, 0):
+                t = device_ms(lambda: ops.fault_matmul(x, qw, scale, 1, one,
+                                                       bits))
+                print(f"[1,{M},{K}] x [{K},{N}] int8 splits {splits}"
+                      f"{' (default)' if splits == own else ''} faulty_bits "
+                      f"{bits}: {t:.4f} ms", flush=True)
+        ops._k_splits = default_splits
+
+
+if __name__ == "__main__":
+    main()

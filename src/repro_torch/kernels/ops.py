@@ -32,7 +32,8 @@ _INT_BYTES = {torch.int8: 1, torch.int16: 2, torch.int32: 4}
 _P, _I64, _I32, _U32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                         ctypes.c_uint32)
 _SIGNATURES = {
-    "afp_bitflip": [_P, _P, _P, _I64, _I64, _I32, _I32, _U32, _I32, _I32, _P],
+    "afp_bitflip": [_P, _P, _P, _P, _I64, _I64, _I32, _I32, _U32, _I32, _I32,
+                    _P],
     "afp_quant_bitflip": [_P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I32,
                           _U32, _I32, _I32, _P],
     "afp_fault_matmul": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
@@ -93,27 +94,52 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _k_splits(R: int, M: int, K: int, N: int, device: torch.device) -> int:
-    """K slices for ``fault_matmul``: enough 128x128-tile blocks for two
-    per SM, each slice at least 16 k-steps (128 of K) long."""
-    tiles = R * -(-M // 128) * -(-N // 128)
-    want = -(-2 * _sm_count(device.index or 0) // tiles)
-    return max(1, min(want, -(-K // 8) // 16, 65535 // R))
+def _k_splits(R: int, M: int, K: int, N: int, qbytes: int,
+              device: torch.device) -> int:
+    """K slices for ``fault_matmul`` (``csrc/fault_matmul.cu``).
+
+    int8, the tensor-core body: blocks of 512 rows x an N tile of 16 (N <=
+    16) or 64, one block per SM (512 threads, ~150 KB of shared memory), so
+    as many slices as leave one wave: at most one block per SM, each slice
+    at least one k-step (16 of K) long.  ResNet18's fc (K = 512) thus
+    runs 32 blocks, AlexNet's fc0 128.  int16/int32, the SIMT body:
+    128x128 tiles, two blocks per SM, each slice at least 16 k-steps (128
+    of K) long."""
+    sms = _sm_count(device.index or 0)
+    if qbytes == 1:
+        tiles = R * -(-M // 512) * -(-N // (16 if N <= 16 else 64))
+        want, steps = sms // tiles, -(-K // 16)
+    else:
+        tiles = R * -(-M // 128) * -(-N // 128)
+        want, steps = -(-2 * sms // tiles), -(-K // 8) // 16
+    return max(1, min(want, steps, 65535 // R))
 
 
 def bitflip(q: torch.Tensor, seed, rate, faulty_bits: int, *,
-            fault_model: str = "flip", mbu_width: int = 2) -> torch.Tensor:
+            fault_model: str = "flip", mbu_width: int = 2,
+            scale=None) -> torch.Tensor:
     """Corrupt the ``faulty_bits`` LSBs of integer tensor ``q``; with a
-    ``[R]`` rate, returns ``[R, *q.shape]`` (``q`` shared by the rows)."""
+    ``[R]`` rate, returns ``[R, *q.shape]`` (``q`` shared by the rows).
+    With a one-element float32 ``scale`` the kernel also dequantizes in the
+    same pass and returns float32 ``float(q') * scale``."""
     if not _is_cuda(q):
         return _ref.bitflip_ref(q, seed, rate, faulty_bits,
-                                fault_model=fault_model, mbu_width=mbu_width)
+                                fault_model=fault_model, mbu_width=mbu_width,
+                                scale=scale)
     _check(q.dtype in _INT_BYTES, f"bitflip takes int8/16/32, got {q.dtype}")
     _check(q.is_contiguous(), "bitflip needs a contiguous q")
     rates, per_row = _ref.row_rates(rate, q.device)
-    out = torch.empty((rates.numel(), *q.shape), dtype=q.dtype, device=q.device)
+    scale_ptr = None
+    if scale is not None:
+        scale_t = torch.as_tensor(scale, dtype=torch.float32, device=q.device)
+        _check(scale_t.numel() == 1, "bitflip takes one per-tensor scale")
+        scale_t = scale_t.contiguous()
+        scale_ptr = scale_t.data_ptr()
+    out = torch.empty((rates.numel(), *q.shape),
+                      dtype=q.dtype if scale is None else torch.float32,
+                      device=q.device)
     _launch("afp_bitflip", q.data_ptr(), out.data_ptr(), rates.data_ptr(),
-            q.numel(), rates.numel(), _INT_BYTES[q.dtype],
+            scale_ptr, q.numel(), rates.numel(), _INT_BYTES[q.dtype],
             _model_id(fault_model, faulty_bits), seed_u32(seed), faulty_bits, mbu_width,
             _stream(q.device))
     launches["bitflip"] += 1
@@ -172,7 +198,7 @@ def fault_matmul(x: torch.Tensor, qw: torch.Tensor, scale, seed, rate,
     K, N = qw.shape
     M = x.shape[:-1].numel() // R
     out = torch.empty((*x.shape[:-1], N), dtype=torch.float32, device=x.device)
-    splits = _k_splits(R, M, K, N, x.device)
+    splits = _k_splits(R, M, K, N, _INT_BYTES[qw.dtype], x.device)
     partial = torch.empty((splits, R, M, N) if splits > 1 else (0,),
                           dtype=torch.float32, device=x.device)
     _launch("afp_fault_matmul", x.data_ptr(), qw.data_ptr(), out.data_ptr(),

@@ -10,7 +10,7 @@ always the C-order flat index within ONE row's tensor, and every row
 shares the seed, exactly as under ``vmap``.
 
   * ``bitflip_ref(q, ...)``: ``q`` is shared by the rows; a ``[R]`` rate
-    returns ``[R, *q.shape]``.
+    returns ``[R, *q.shape]``, dequantized to float32 by ``scale`` if given.
   * ``quant_bitflip_ref(x, ...)``: with a ``[R]`` rate ``x`` is
     ``[R, ...]`` and each row gets its own amax and scale.
   * ``fault_matmul_ref(x, qw, ...)``: with a ``[R]`` rate ``x`` is
@@ -37,8 +37,10 @@ def row_rates(rate, device) -> tuple[torch.Tensor, bool]:
 
 
 def bitflip_ref(q: torch.Tensor, seed, rate, faulty_bits: int,
-                fault_model: str = "flip", mbu_width: int = 2) -> torch.Tensor:
-    """Corrupt the ``faulty_bits`` LSBs of integer tensor ``q``."""
+                fault_model: str = "flip", mbu_width: int = 2,
+                scale=None) -> torch.Tensor:
+    """Corrupt the ``faulty_bits`` LSBs of integer tensor ``q``; with a
+    ``scale``, return the float32 dequantization ``float(q') * scale``."""
     if q.is_floating_point() or q.is_complex():
         raise TypeError(f"bitflip needs an integer tensor, got {q.dtype}")
     rates, per_row = row_rates(rate, q.device)
@@ -47,6 +49,9 @@ def bitflip_ref(q: torch.Tensor, seed, rate, faulty_bits: int,
                       faulty_bits, fault_model=fault_model,
                       mbu_width=mbu_width)
     out = torch.broadcast_to(out, (rates.numel(), q.numel()))
+    if scale is not None:
+        out = out.to(torch.float32) * torch.as_tensor(
+            scale, dtype=torch.float32, device=q.device)
     return out.reshape(rates.numel(), *q.shape) if per_row \
         else out.reshape(q.shape)
 
@@ -79,10 +84,8 @@ def fault_matmul_ref(x: torch.Tensor, qw: torch.Tensor, scale, seed, rate,
         raise ValueError(f"contraction mismatch: x {tuple(x.shape)} "
                          f"@ qw {tuple(qw.shape)}")
     rates, per_row = row_rates(rate, x.device)
-    qf = bitflip_ref(qw, seed, rates if per_row else rate, faulty_bits,
-                     fault_model=fault_model, mbu_width=mbu_width)
-    w = qf.to(torch.float32) * torch.as_tensor(scale, dtype=torch.float32,
-                                               device=x.device)
+    w = bitflip_ref(qw, seed, rates if per_row else rate, faulty_bits,
+                    fault_model=fault_model, mbu_width=mbu_width, scale=scale)
     if not per_row:
         return torch.matmul(x.to(torch.float32), w).to(x.dtype)
     R, K, N = rates.numel(), qw.shape[0], qw.shape[1]

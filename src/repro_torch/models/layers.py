@@ -148,9 +148,10 @@ def maybe_corrupt(x, rate, seed, bits: int | None = None,
             return FaultedQ(qw=x.qw, scale=x.scale, dtype=x.dtype, rate=rate,
                             seed=seed, faulty_bits=faulty_bits,
                             fault_model=fault_model, mbu_width=mbu_width)
-        qf = kops.bitflip(x.qw, seed, rate, faulty_bits,
-                          fault_model=fault_model, mbu_width=mbu_width)
-        return (qf.to(torch.float32) * x.scale).to(x.dtype)
+        # the kernel dequantizes in the same pass: float(q') * scale
+        return kops.bitflip(x.qw, seed, rate, faulty_bits,
+                            fault_model=fault_model, mbu_width=mbu_width,
+                            scale=x.scale).to(x.dtype)
     if rate is None:
         return x
     bits = FAULT_BITS if bits is None else bits

@@ -72,3 +72,41 @@ def test_fault_matmul_kernel(dev, model):
     tol = 2 * K * 2.0 ** -24 * torch.matmul(x.abs(), w[:, None].abs())
     assert bool(((got - want).abs() <= tol).all())
     assert np.isfinite(got.cpu().numpy()).all()
+
+
+@pytest.mark.parametrize("model", FAULT_MODELS)
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16, torch.int32])
+def test_bitflip_kernel_fused_dequant(dev, model, dtype):
+    """With a scale the kernel writes float(q') * scale in the same pass,
+    bitwise the cast and multiply of the integer output."""
+    rates = torch.tensor([0.0, 1e-3, 0.3], device=dev)
+    scale = torch.tensor(0.0123, device=dev)
+    for shape in ((1,), (130,), (3, 3, 64, 32)):
+        q = torch.randint(-100, 100, shape, dtype=dtype, device=dev)
+        k = ops.bitflip(q, 11, rates, 4, fault_model=model, scale=scale)
+        want = ref.bitflip_ref(q, 11, rates, 4, fault_model=model).float() * scale
+        assert k.dtype == torch.float32 and _same_bits(k, want)
+        assert _same_bits(k, ref.bitflip_ref(q, 11, rates, 4, fault_model=model,
+                                             scale=scale))
+
+
+@pytest.mark.parametrize("shape", [(512, 512, 16), (135, 300, 77),
+                                   (45, 301, 5), (600, 64, 130)])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16, torch.int32])
+def test_fault_matmul_kernel_shapes(dev, shape, dtype):
+    """ResNet18's fc (M=512, K=512, N=16), ragged K and N (K % 4 != 0
+    takes the 4-byte x loads), and M past one 512-row block; int8 runs the
+    tensor-core body, int16/int32 the SIMT one."""
+    M, K, N = shape
+    hi = {torch.int8: 127, torch.int16: 2 ** 14, torch.int32: 2 ** 20}[dtype]
+    qw = torch.randint(-hi, hi, (K, N), dtype=dtype, device=dev)
+    rates = torch.tensor([0.2, 1e-3], device=dev)
+    scale = torch.tensor(0.0123, device=dev)
+    w = ref.bitflip_ref(qw, 3, rates, 4).float() * scale
+    eye = torch.eye(K, device=dev).expand(2, K, K).contiguous()
+    assert _same_bits(ops.fault_matmul(eye, qw, scale, 3, rates, 4), w)
+    x = torch.randn(2, M, K, device=dev)
+    got = ops.fault_matmul(x, qw, scale, 3, rates, 4)
+    want = ref.fault_matmul_ref(x, qw, scale, 3, rates, 4)
+    tol = 2 * K * 2.0 ** -24 * torch.matmul(x.abs(), w.abs())
+    assert bool(((got - want).abs() <= tol).all())
