@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Phases (any failure raises, and the process exits nonzero):
-  1. fp32 everywhere: TF32 off for matmuls and cuDNN convolutions.
+  1. PyTorch's TF32 flags are left as PyTorch sets them: the port runs its
+     float path with TF32 off by itself (``fp32_exact``), which phase 8
+     shows.
   2. The card's name and power limit; build every CUDA kernel of
      ``src/repro_torch/csrc`` with nvcc (one process per source, in
      parallel) and print ptxas' register and spill counts.
@@ -21,10 +23,10 @@ Phases (any failure raises, and the process exits nonzero):
      launches replayed between events, so no host cost), its wrapper time
      (events around back-to-back Python calls), its plain version's, the
      library call's where one exists, and the bound.
-  4. The main path: ResNet18 at width 1.0 (channels 64-512), img 32, 16
-     classes, n_eval=512, labels = the clean model's own argmax;
+  4. The whole-forward path: ResNet18 at width 1.0 (channels 64-512), img
+     32, 16 classes, n_eval=512, labels = the clean model's own argmax;
      ``AFarePart`` (NSGA-II pop 24, 3 generations) under the kernel backend
-     and the whole-forward strategy, then ``FaultUnawareBaseline``.  The
+     and ``eval_strategy="full"``, then ``FaultUnawareBaseline``.  The
      launch counters are zeroed just before and read just after; all three
      kernels must have launched.
   5. One ΔAcc population on AlexNet at width 1.0 (fc0 is 512x4096x1024),
@@ -32,8 +34,22 @@ Phases (any failure raises, and the process exits nonzero):
   6. Generic against kernel ΔAcc on one ResNet18 population.
   7. Where the time of one ResNet18 candidate goes (torch.profiler): each
      kernel's total per candidate and the elementwise glue.
-The lines before the last are the ``{"kernels": [...]}`` record and the
-card's ``nvidia-smi`` name and power limit; the last line is
+  8. The staged path, the default: the same ``AFarePart`` search through
+     the chain-fused staged engine (kernel backend, ``eval_batch_size=
+     "auto"``, a 16 GiB activation store), its launches counted as in
+     phase 4; its front and every evaluated row's ΔAcc bitwise equal to
+     phase 4's, its wall time beside a warm rerun of the full search, the
+     engine's counters, the store's peak bytes and the allocator's peak.
+     Then one population fused against unfused in turns (bitwise), the
+     reference's default tables + staged against kernel + staged (within
+     2/n_eval), a profile of the fused walk (its idle share), one
+     candidate under PyTorch's default TF32 flags against the flags off
+     (equal), the cost per row of an 8-row whole forward against a 1-row
+     one, and ``python -m repro_torch.quickstart`` at 20 training steps
+     and 2 generations.
+The lines before the last are the ``{"kernels": [...]}`` record (its
+``launches`` are the staged path's, phase 8; ``full_launches`` phase 4's)
+and the card's ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 
 Bounds: the least time for the same work is the larger of the bytes each
@@ -304,7 +320,7 @@ def check_kernels(dev, records):
 RECORD_KEYS = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
                "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
                "wrapper_ms", "fused_ms", "candidate_ms", "candidate_launches",
-               "shapes")
+               "full_launches", "shapes")
 
 
 def kernel_group(key: str) -> str:
@@ -340,6 +356,184 @@ def pick_resnet_seed(dev):
     raise AssertionError("no ResNet18 init seed gave a working probe")
 
 
+STORE_BYTES = 16 << 30         # phase 8's activation-store cap
+N_EVAL = 512                   # calibration images, the paper's batch
+
+
+def staged_phase(dev, params, labels, spec, layers, cfg, full_plan, full_rows,
+                 full_ev, records):
+    """Phase 8: the staged, chain-fused engine on the main path, held
+    bitwise against phase 4's whole-forward search."""
+    from repro_torch import quickstart
+    from repro_torch.cnn_setup import eval_batch, make_evaluator
+    from repro_torch.core import PAPER_DEVICES, AFarePart
+    from repro_torch.core.eval_engine import device_memory_budget
+    from repro_torch.kernels import ops
+    from repro_torch.models.cnn import ResNet18
+
+    def evaluator(**kw):
+        kw.setdefault("fault_backend", "kernel")
+        kw.setdefault("max_store_bytes", STORE_BYTES)
+        return make_evaluator("resnet18", params, spec, n_eval=N_EVAL,
+                              labels=labels, device=dev, **kw)
+
+    # the search, staged and fused, against a warm rerun of the full one
+    s_ev = evaluator(eval_batch_size="auto")
+    chunk = s_ev.eval_batch_size
+    log(f"phase8 eval_batch_size='auto' -> {chunk} rows: peak bytes of a "
+        f"1- and a 2-row dispatch {s_ev.auto_probe_bytes}, store cap "
+        f"{STORE_BYTES} reserved, budget now "
+        f"{device_memory_budget(device=dev)} bytes")
+    if not chunk or chunk < 2:
+        raise AssertionError(f"auto chunk {chunk}: expected several rows")
+    f_ev = evaluator(eval_strategy="full", eval_batch_size=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f_plan = AFarePart(layers, PAPER_DEVICES, acc_evaluator=f_ev,
+                       nsga2_config=cfg).optimize()
+    torch.cuda.synchronize()
+    full_wall = time.perf_counter() - t0
+    del f_ev
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    plan = AFarePart(layers, PAPER_DEVICES, acc_evaluator=s_ev,
+                     nsga2_config=cfg).optimize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    st = s_ev.staged_stats()
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"phase8 AFarePart staged+fused: {wall:.3f} s wall against "
+        f"{full_wall:.3f} s for the full search rerun warm (phase 4, cold: "
+        f"see above); launches {launches}")
+    log(f"phase8 staged stats {json.dumps(st)}; peak store bytes "
+        f"{s_ev._prefix_engine.store.peak_nbytes}; max_memory_allocated "
+        f"{peak}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel never launched on the staged path: "
+                             f"{launches}")
+    if dict(s_ev._cache) != full_rows:
+        bad = [k for k in full_rows if s_ev._cache.get(k) != full_rows[k]]
+        raise AssertionError(f"staged rows differ from the full path: "
+                             f"{len(bad)} of {len(full_rows)} "
+                             f"(rows {len(s_ev._cache)}), e.g. {bad[:3]}")
+    for p in (plan, f_plan):
+        if not (np.array_equal(p.front, full_plan.front)
+                and np.array_equal(p.front_objs, full_plan.front_objs)):
+            raise AssertionError("the front differs from phase 4's")
+    log(f"phase8 staged = full bitwise: {len(full_rows)} rows' accuracies "
+        f"and the front ({len(plan.front)} points)")
+    for name, r in records.items():
+        r["launches"] = launches[name]
+    records["fault_matmul"]["shapes"][0]["launches"] = launches[
+        "fault_matmul"]
+    s_ev._prefix_engine.store.clear()
+
+    # one population: fused and unfused in turns, then tables against
+    # kernel, then a profile of the fused walk (its idle share)
+    P = np.array(list(full_rows)[:24])
+    got, secs = {}, {}
+    for label in ("fused", "unfused", "unfused", "fused", "tables"):
+        kw = {"unfused": {"fuse_chains": False},
+              "tables": {"fault_backend": "tables"}}.get(label, {})
+        e = evaluator(eval_batch_size=chunk, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got[label] = e.delta_acc(P)
+        torch.cuda.synchronize()
+        secs.setdefault(label, []).append(time.perf_counter() - t0)
+        st = e.staged_stats()
+        log(f"phase8 {label:8s} {secs[label][-1]:.3f} s, "
+            f"{st['dispatches']} dispatches, {st['fused_segments']} fused "
+            f"segments, {st['unit_runs']} unit runs of "
+            f"{st['full_unit_runs']}")
+        del e
+        torch.cuda.empty_cache()
+    if not np.array_equal(got["fused"], got["unfused"]):
+        raise AssertionError("fused and unfused staged dAcc differ")
+    diff = np.abs(got["tables"] - got["fused"])
+    log(f"phase8 fused = unfused bitwise on {len(P)} rows; tables vs kernel: "
+        f"{int((diff > 0).sum())} rows differ, max {diff.max():.4f}")
+    if diff.max() > 2.0 / N_EVAL:
+        raise AssertionError("tables and kernel staged dAcc differ by more "
+                             "than 2/n_eval")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    e = evaluator(eval_batch_size=chunk)
+    e.clean_accuracy()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        e.delta_acc(P)
+        torch.cuda.synchronize()
+        t_walk = (time.perf_counter() - t0) * 1e3
+    del e
+    torch.cuda.empty_cache()
+    kern = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
+    if not kern:
+        raise AssertionError("the profiler recorded no device kernel")
+    busy = sum(a.self_device_time_total for a in kern) / 1e3
+    groups = {}
+    for a in kern:
+        g = groups.setdefault(kernel_group(a.key), [0.0, 0])
+        g[0] += a.self_device_time_total / 1e3
+        g[1] += a.count
+    log(f"phase8 profiled fused walk of {len(P)} rows: kernels busy "
+        f"{busy:.1f} ms of {t_walk:.1f} ms wall ({100 * (1 - busy / t_walk):.1f}"
+        f"% idle); " + ", ".join(f"{k} {v[0]:.1f} ms in {v[1]}" for k, v in
+                                 sorted(groups.items(), key=lambda kv:
+                                        -kv[1][0])))
+
+    # TF32: one candidate under PyTorch's default flags and with them off
+    row = P[:1]
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    d_default = evaluator(eval_strategy="full").delta_acc(row)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    d_off = evaluator(eval_strategy="full").delta_acc(row)
+    x, _ = eval_batch(N_EVAL, device=dev)
+    scale = np.asarray([d.fault_scale for d in PAPER_DEVICES], np.float32)
+    wr = torch.as_tensor(0.2 * scale[row], device=dev)
+    with torch.no_grad():
+        off = ResNet18.apply(params, x, wr, wr, 0)
+        torch.backends.cudnn.allow_tf32 = True
+        on = ResNet18.apply(params, x, wr, wr, 0)
+    torch.backends.cudnn.allow_tf32, \
+        torch.backends.cuda.matmul.allow_tf32 = flags
+    log(f"phase8 TF32 flags by default (cudnn, matmul) {flags}: dAcc "
+        f"{d_default.tolist()} = {d_off.tolist()} with both off; unguarded, "
+        f"TF32 convolutions change {int((on != off).sum())} of {on.numel()} "
+        f"logits")
+    if not np.array_equal(d_default, d_off) or \
+            d_off[0] != max(0.0, full_ev.clean_accuracy() - full_rows[
+                tuple(int(g) for g in row[0])]):
+        raise AssertionError("dAcc depends on the caller's TF32 flags")
+
+    # the per-row conv loop at rows > 1: one 8-row forward against 1 row
+    rows8 = np.array(list(full_rows)[:8])
+    t1 = time_ms(lambda: full_ev._dispatch(rows8[:1]), iters=5, warmup=1)
+    t8 = time_ms(lambda: full_ev._dispatch(rows8), iters=3, warmup=1)
+    log(f"phase8 whole forward per row: {t1:.3f} ms at 1 row, "
+        f"{t8 / 8:.3f} ms at 8 rows")
+
+    # the quickstart, shortened
+    t0 = time.perf_counter()
+    out = quickstart.main(["--steps", "20", "--generations", "2"])
+    objs = out["plan"].front_objs
+    q_stats = out["evaluator"].staged_stats()
+    if not (np.isfinite(objs).all() and (objs[:, 2] >= 0).all()
+            and out["evaluator"].eval_strategy == "staged"
+            and q_stats["unit_runs_avoided"] > 0):
+        raise AssertionError(f"quickstart front out of range or no unit "
+                             f"run saved: {objs}, {q_stats}")
+    log(f"phase8 quickstart: {time.perf_counter() - t0:.2f} s, staged stats "
+        f"{json.dumps(q_stats)}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -354,9 +548,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
-    # phase 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # phase 1: nothing to set (see the docstring)
     # phase 2
     smi = nvidia_smi()
     log("card:", smi, "| torch", torch.__version__, "cuda", torch.version.cuda)
@@ -389,18 +581,20 @@ def main() -> int:
     layers = ResNet18.layer_infos(num_classes=16, width=1.0, img=32)
     cfg = NSGA2Config(population=24, generations=3, seed=0)
     ev = make_evaluator("resnet18", params, spec, n_eval=512,
-                        fault_backend="kernel", labels=labels, device=dev)
+                        fault_backend="kernel", labels=labels,
+                        eval_strategy="full", device=dev)
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
     plan = AFarePart(layers, PAPER_DEVICES, acc_evaluator=ev,
                      nsga2_config=cfg).optimize()
-    base = FaultUnawareBaseline(layers, PAPER_DEVICES,
-                                nsga2_config=cfg).optimize()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    full_rows = dict(ev._cache)
+    base = FaultUnawareBaseline(layers, PAPER_DEVICES,
+                                nsga2_config=cfg).optimize()
     main_launches = dict(ops.launches)
-    log(f"phase4 AFarePart + baseline: {wall:.2f} s wall, "
+    log(f"phase4 AFarePart (full): {wall:.3f} s wall, "
         f"{ev.dispatches} dispatches, {ev._engine.rows_evaluated} rows, "
         f"launches {main_launches}")
     if min(main_launches.values()) <= 0:
@@ -422,7 +616,7 @@ def main() -> int:
             f"top-1 under 20% faults={acc:.4f} lat={p.latency * 1e3:.3f}ms "
             f"energy={p.energy * 1e3:.3f}mJ")
     for name, r in records.items():
-        r["launches"] = main_launches[name]
+        r["full_launches"] = main_launches[name]
 
     # phase 5: AlexNet at width 1.0
     a_params = AlexNet.init(0, 16, width=1.0, img=32, device=dev)
@@ -438,8 +632,6 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s, launches {dict(ops.launches)}")
     if ops.launches["fault_matmul"] <= 0 or not np.isfinite(a_dacc).all():
         raise AssertionError("alexnet population did not run fault_matmul")
-    records["fault_matmul"]["shapes"][0]["launches"] = main_launches[
-        "fault_matmul"]
     records["fault_matmul"]["shapes"][1]["launches"] = ops.launches[
         "fault_matmul"]
 
@@ -489,6 +681,10 @@ def main() -> int:
                     reverse=True)[:12]:
         log(f"  {a.self_device_time_total / 1e3:8.3f} ms {a.count:4d}x "
             f"{a.key[:90]}")
+
+    # phase 8: the staged path
+    staged_phase(dev, params, labels, spec, layers, cfg, plan, full_rows, ev,
+                 records)
 
     kernels = [dict(name=name, **{k: r[k] for k in RECORD_KEYS if k in r})
                for name, r in records.items()]

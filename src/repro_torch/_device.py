@@ -1,5 +1,8 @@
-"""Device resolution shared by every entry point of the port."""
+"""Device resolution and the fp32 guard shared by every entry point of the
+port."""
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -13,3 +16,20 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             "device='cuda' requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+@contextlib.contextmanager
+def fp32_exact():
+    """Run the float path in IEEE fp32: TF32 off for cuDNN convolutions and
+    for matmuls, whatever the caller's globals say (PyTorch's default lets
+    cuDNN use TF32, which is not what the reference computes).  The
+    caller's settings are put back on exit.  Usable as a decorator."""
+    conv, mm = torch.backends.cudnn.allow_tf32, \
+        torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv
+        torch.backends.cuda.matmul.allow_tf32 = mm

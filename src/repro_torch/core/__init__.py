@@ -1,15 +1,23 @@
 """AFarePart core, the counterpart of ``repro.core``: fault model, cost
-model, NSGA-II, the population engine, ΔAcc objectives, partitioners."""
+model, NSGA-II, the population and staged engines, ΔAcc objectives,
+partitioners."""
 from repro_torch.core.costmodel import (CostModel, DeviceProfile, LayerInfo,
                                         EYERISS, SIMBA, TPU_V5E,
                                         TPU_V5E_LOWVOLT, TPU_V5E_MID,
                                         TPU_V5E_ECC, PAPER_DEVICES, POD_TIERS,
                                         POD_TIERS_4)
-from repro_torch.core.eval_engine import PopulationEvalEngine
+from repro_torch.core.eval_engine import (ActivationStore,
+                                          PopulationEvalEngine,
+                                          PrefixEvalEngine, PrefixRef,
+                                          StackedView, auto_eval_batch_size,
+                                          device_memory_budget)
 from repro_torch.core.fault import FaultSpec, FaultContext, PAPER_FAULT_SPEC
 from repro_torch.core.nsga2 import (NSGA2Config, nsga2, nsga2_steps,
                                     fast_non_dominated_sort)
-from repro_torch.core.objectives import InferenceAccuracyEvaluator, ObjectiveFn
+from repro_torch.core.objectives import (InferenceAccuracyEvaluator,
+                                         ObjectiveFn,
+                                         SurrogateAccuracyEvaluator,
+                                         profile_layer_sensitivity)
 from repro_torch.core.partitioner import (AFarePart, CNNPartedLike,
                                           FaultUnawareBaseline, PartitionPlan,
                                           contiguous_stages)
@@ -18,9 +26,12 @@ __all__ = [
     "CostModel", "DeviceProfile", "LayerInfo", "EYERISS", "SIMBA",
     "TPU_V5E", "TPU_V5E_LOWVOLT", "TPU_V5E_MID", "TPU_V5E_ECC",
     "PAPER_DEVICES", "POD_TIERS", "POD_TIERS_4",
-    "PopulationEvalEngine", "FaultSpec", "FaultContext", "PAPER_FAULT_SPEC",
+    "PopulationEvalEngine", "PrefixEvalEngine", "ActivationStore",
+    "PrefixRef", "StackedView", "auto_eval_batch_size",
+    "device_memory_budget", "FaultSpec", "FaultContext", "PAPER_FAULT_SPEC",
     "NSGA2Config", "nsga2", "nsga2_steps", "fast_non_dominated_sort",
-    "InferenceAccuracyEvaluator", "ObjectiveFn",
+    "InferenceAccuracyEvaluator", "SurrogateAccuracyEvaluator",
+    "ObjectiveFn", "profile_layer_sensitivity",
     "AFarePart", "CNNPartedLike", "FaultUnawareBaseline", "PartitionPlan",
     "contiguous_stages",
 ]

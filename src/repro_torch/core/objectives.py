@@ -1,16 +1,26 @@
-"""Objective evaluation for partition chromosomes, the counterpart of the
-whole-forward part of ``repro/core/objectives.py``.
+"""Objective evaluation for partition chromosomes, the counterpart of
+``repro/core/objectives.py``.
 
 Three objectives (paper Eq. 2), all minimised: ``[Latency(P), Energy(P),
 ΔAcc(P)]``.  Latency and energy come from the analytic ``CostModel``;
 ΔAcc from :class:`InferenceAccuracyEvaluator`, which runs the quantized
 model on a calibration batch with faults injected on the units mapped to
-fault-prone devices and measures the Top-1 drop.
+fault-prone devices and measures the Top-1 drop, or from the calibrated
+:class:`SurrogateAccuracyEvaluator`.
 
 Population batching: ``delta_acc`` deduplicates the ``[N, L]`` population
-and runs the unique uncached rows through ``PopulationEvalEngine``; one
-chunk is one ``apply_fn`` call over ``R`` rows (the reference's
-``jit(vmap)`` becomes the explicit row axis of the models and kernels).
+and evaluates the unique uncached rows in chunks; the reference's
+``jit(vmap)`` becomes the explicit row axis of the models and kernels.
+
+Strategies (bitwise identical; cost only):
+  * ``"staged"`` (the default when ``step_fn`` is given): the
+    ``PrefixEvalEngine`` walks the model unit by unit and evaluates each
+    unique gene prefix once, reusing stored activations across rows and
+    generations; with ``fuse_chains`` non-branching runs of the prefix
+    tree go out as one segment call each.  A segment is a plain
+    composition of the unit steps (seed ``base_seed + 7919·i``, depth 0 on
+    the calibration batch, accuracy folded in at the last unit).
+  * ``"full"``: every unique row runs the whole forward.
 
 Fault backends (all value-identical; bitwise on the CPU):
   * ``"generic"``: quantize -> corrupt -> dequantize every weight and
@@ -20,32 +30,88 @@ Fault backends (all value-identical; bitwise on the CPU):
   * ``"kernel"``: the counterpart of the reference's ``"pallas"``: one
     resident integer copy of the weights (``quant_params``), conv weights
     corrupted by ``bitflip`` and fc weights inside ``fault_matmul``.
-    The per-device rate arrays and the seed are read at call time, so a
-    ``device_fault_scale`` change rebuilds nothing.
+    The per-device rate tensors and the seed are read at call time
+    through a weakref, so a ``device_fault_scale`` change rebuilds
+    nothing.
 
-Clean accuracy always runs the generic float path at zero rates.
+Every ΔAcc and accuracy computation runs in IEEE fp32 (``fp32_exact``:
+TF32 off for cuDNN and matmuls whatever the caller's globals say).  Clean
+accuracy runs the generic float path at zero rates.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
+import weakref
+from typing import Callable
 
 import numpy as np
 import torch
 
-from repro_torch._device import resolve_device
+from repro_torch._device import fp32_exact, resolve_device
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.core.costmodel import CostModel
-from repro_torch.core.eval_engine import PopulationEvalEngine
+from repro_torch.core.eval_engine import (PopulationEvalEngine,
+                                          PrefixEvalEngine,
+                                          auto_eval_batch_size, chunked_rows,
+                                          peak_memory_bytes)
 from repro_torch.core.fault import FaultSpec
 
-__all__ = ["InferenceAccuracyEvaluator", "ObjectiveFn", "FAULT_BACKENDS"]
+__all__ = ["InferenceAccuracyEvaluator", "SurrogateAccuracyEvaluator",
+           "ObjectiveFn", "profile_layer_sensitivity", "FAULT_BACKENDS"]
 
 FAULT_BACKENDS = ("generic", "tables", "kernel")
-_STAGED_TODO = ("eval_strategy='staged' is not ported yet (ROADMAP.md "
-                "Queue A item 8, the staged chain-fused engine); "
-                "use eval_strategy='full'")
 _DEVICES_TODO = ("devices > 1 is not ported yet (ROADMAP.md Queue A item 9, "
                  "multi-GPU scheduling)")
+
+# Segment functions per evaluator, weakly keyed: dropping the evaluator
+# drops its entry, and ObjectiveFn/partitioner rebuilds that reuse one
+# evaluator keep its segments.  A cached function must not hold the
+# evaluator (it would keep its own key, and the CUDA tensors, alive).
+_SEGMENT_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _kernel_env(ref):
+    """The evaluator's CURRENT fault environment, ``(w_rates_by_device,
+    a_rates_by_device, base_seed)`` as device tensors and an int, read at
+    call time through the weakref ``ref`` (the kernel backend's
+    counterpart of the reference's ``_pallas_env_args``)."""
+    ev = ref()
+    return ev._w_dev, ev._a_dev, int(ev.base_seed)
+
+
+def _accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-row Top-1 of ``logits [R, B, classes]`` -> ``[R]``."""
+    pred = torch.argmax(logits, dim=-1)
+    return (pred == labels).to(torch.float32).mean(dim=-1)
+
+
+def _compose(step, start: int, length: int, params, tables, x0, labels,
+             env: Callable[[], tuple]) -> Callable:
+    """``fn(acts, genes [U, length])`` running units
+    ``start..start+length-1`` exactly as the whole forward runs them: unit
+    ``i`` at seed ``base + 7919·i`` and its row's device rates, weights
+    gathered from ``tables`` (rate None) when given, depth 0 on the
+    calibration batch ``x0``, the Top-1 accuracy folded in after the last
+    unit of the model.  ``env()`` gives ``(w_dev, a_dev, base)``."""
+    final = start + length == len(params if tables is None else tables)
+
+    @torch.no_grad()
+    @fp32_exact()
+    def fn(acts, genes):
+        w_dev, a_dev, base = env()
+        x = x0.expand(genes.shape[0], *x0.shape) if acts is None else acts
+        for k in range(length):
+            i, d = start + k, genes[:, k]
+            if tables is not None:
+                p = tree_map(lambda t: t.index_select(0, d), tables[i])
+                wr = None
+            else:
+                p, wr = params[i], w_dev[d]
+            x = step(i, p, x, wr, a_dev[d], base + 7919 * i)
+        return _accuracy(x, labels) if final else x
+
+    return fn
 
 
 class InferenceAccuracyEvaluator:
@@ -58,31 +124,44 @@ class InferenceAccuracyEvaluator:
     Args:
       params: per-unit float params on ``device``.
       x, labels: calibration images (NHWC) and labels, numpy or tensors.
-      eval_batch_size: max rows per dispatch (None = one dispatch).
+      eval_batch_size: max rows per dispatch (None = one dispatch;
+        ``"auto"`` = probe the memory of a 1- and a 2-row dispatch and
+        take the largest power-of-two chunk that fits the card, see
+        ``eval_engine.auto_eval_batch_size``; None off the card).
       weight_tables / quant_params: the ``tables`` / ``kernel`` backends'
         fault state.
       fault_backend: ``"generic"``, ``"tables"``, ``"kernel"`` or
         ``"auto"`` (``tables`` iff tables are given, else ``generic``).
-      eval_strategy: ``"full"`` (``"auto"`` resolves to it); ``"staged"``
-        raises NotImplementedError until the staged engine is ported.
+      step_fn: per-unit forward ``step(i, params_i, x, wr, ar, seed)``
+        (the CNN models' ``step``); enables the staged engine.
+      eval_strategy: ``"staged"`` (needs ``step_fn``), ``"full"``, or
+        ``"auto"`` (staged iff ``step_fn`` is given).
+      max_store_bytes: LRU cap of the staged activation store (None =
+        unbounded); eviction recomputes, it never changes a value.
+      shared_carry_fields: staged-engine interning spec (carry-dict field
+        -> keying depth), as in the reference.
+      fuse_chains: staged-path chain fusion (default on).
       devices: 1 (``"auto"`` resolves to 1); more raises.
       device: where evaluation runs, ``"cuda"`` by default.
     """
 
     def __init__(self, apply_fn, params, x, labels, spec: FaultSpec,
                  device_fault_scale, base_seed: int = 0,
-                 eval_batch_size: int | None = None,
+                 eval_batch_size: int | str | None = None,
                  weight_tables: list | None = None,
                  quant_params: list | None = None,
                  fault_backend: str | None = "auto",
-                 eval_strategy: str = "full",
+                 step_fn: Callable | None = None,
+                 eval_strategy: str = "auto",
                  n_units: int | None = None,
-                 devices: int | str | None = 1, device="cuda"):
+                 max_store_bytes: int | None = 256 << 20,
+                 devices: int | str | None = 1,
+                 shared_carry_fields: dict | None = None,
+                 fuse_chains: bool = True, device="cuda"):
         self.device = resolve_device(device)
         if quant_params is not None and weight_tables is not None:
             raise ValueError("pass quant_params (kernel backend) or "
                              "weight_tables (tables backend), not both")
-        self.eval_strategy = eval_strategy
         self.devices = devices
         self.spec = spec
         self.base_seed = base_seed
@@ -92,28 +171,44 @@ class InferenceAccuracyEvaluator:
         self._params = params
         self._x = torch.as_tensor(x, device=self.device)
         self.labels = torch.as_tensor(labels, device=self.device)
+        self._step_fn = step_fn
         if n_units is None and isinstance(params, (list, tuple)):
             n_units = len(params)
         self._n_units = n_units
+        self.max_store_bytes = max_store_bytes
+        self.shared_carry_fields = dict(shared_carry_fields or {})
+        self._fuse_chains = bool(fuse_chains)
+        self._built_unit_fns = None
+        self._prefix_engine = None
         self._fault_env_rebuilds = 0
+        self.auto_probe_bytes: dict[int, int] = {}
         self._engine = PopulationEvalEngine(self._dispatch)
         self._cache = self._engine._cache
         self._clean: float | None = None
         self._fault_backend = None
         self.fault_backend = fault_backend
-        self.eval_batch_size = eval_batch_size
+        self.eval_strategy = eval_strategy
         self.device_fault_scale = device_fault_scale
+        self.eval_batch_size = eval_batch_size  # "auto" probes the card
 
+    # -- knobs ---------------------------------------------------------------
     @property
     def eval_strategy(self) -> str:
-        return "full"
+        return self._strategy
 
     @eval_strategy.setter
     def eval_strategy(self, value: str):
-        if value == "staged":
-            raise NotImplementedError(_STAGED_TODO)
-        if value not in ("full", "auto"):
+        if value == "auto":
+            value = "staged" if self._step_fn is not None else "full"
+        if value not in ("staged", "full"):
             raise ValueError(f"unknown eval_strategy {value!r}")
+        if value == "staged" and (self._step_fn is None
+                                  or not self._n_units):
+            raise ValueError("eval_strategy='staged' needs step_fn and "
+                             "per-unit params (n_units)")
+        self._strategy = value
+        if value == "staged":
+            self._ensure_prefix_engine()
 
     @property
     def devices(self) -> int:
@@ -125,16 +220,30 @@ class InferenceAccuracyEvaluator:
             raise NotImplementedError(_DEVICES_TODO)
 
     @property
+    def fuse_chains(self) -> bool:
+        """Whether the staged path fuses non-branching prefix chains into
+        single segment calls."""
+        return self._fuse_chains
+
+    @fuse_chains.setter
+    def fuse_chains(self, value: bool):
+        self._fuse_chains = bool(value)
+        if self._prefix_engine is not None:
+            self._prefix_engine.segment_fn = \
+                self._segment_dispatch if self._fuse_chains else None
+
+    @property
     def eval_batch_size(self) -> int | None:
         return self._engine.eval_batch_size
 
     @eval_batch_size.setter
-    def eval_batch_size(self, value: int | None):
+    def eval_batch_size(self, value: int | str | None):
+        self._ebs_auto = value == "auto"
         if value == "auto":
-            raise NotImplementedError(
-                "eval_batch_size='auto' is not ported yet (ROADMAP.md "
-                "Queue A item 8, with the memory probe)")
+            value = self._auto_eval_batch_size()
         self._engine.eval_batch_size = value
+        if self._prefix_engine is not None:
+            self._prefix_engine.eval_batch_size = value
 
     @property
     def fault_backend(self) -> str:
@@ -143,18 +252,27 @@ class InferenceAccuracyEvaluator:
     @fault_backend.setter
     def fault_backend(self, value: str | None):
         """Switch the injection path (a cost decision: the backends are
-        value-identical); cached rows are dropped."""
+        value-identical); the path's unit and segment functions, cached
+        rows and stored activations are dropped."""
         if value in (None, "auto"):
             value = "tables" if self.weight_tables is not None else "generic"
         if value not in FAULT_BACKENDS:
             raise ValueError(f"unknown fault_backend {value!r}")
+        if value == self._fault_backend:
+            return
         if value == "kernel" and self._qparams is None:
             raise ValueError("fault_backend='kernel' needs quant_params")
         if value == "tables" and self.weight_tables is None:
             raise ValueError("fault_backend='tables' needs weight_tables")
-        if value != self._fault_backend:
-            self._fault_backend = value
-            self._engine._cache.clear()
+        self._fault_backend = value
+        self._built_unit_fns = None
+        _SEGMENT_CACHE.pop(self, None)
+        self._engine._cache.clear()
+        if self._prefix_engine is not None:
+            self._prefix_engine.store.clear()
+        if getattr(self, "_ebs_auto", False):
+            # the probed chunk was fitted to the old backend's footprint
+            self.eval_batch_size = "auto"
 
     @property
     def device_fault_scale(self) -> np.ndarray:
@@ -162,10 +280,13 @@ class InferenceAccuracyEvaluator:
 
     @device_fault_scale.setter
     def device_fault_scale(self, value):
-        """Refresh the fault environment.  The row cache is dropped; under
-        ``tables`` the tables (which encode the old rates) are dropped too
-        and the backend degrades to ``generic``; the kernel backend reads
-        the new rates on its next call and rebuilds nothing."""
+        """Refresh the fault environment.  Cached rows and stored
+        activations encode the old rates and are dropped.  The kernel
+        backend rebuilds nothing (its functions read the rate tensors at
+        call time); under generic and tables the unit and segment
+        functions, which hold the rates, are dropped, the tables too (the
+        backend degrades to generic), and ``_fault_env_rebuilds`` counts
+        it."""
         value = np.asarray(value, np.float32)
         changed = (getattr(self, "_device_fault_scale", None) is not None
                    and not np.array_equal(self._device_fault_scale, value))
@@ -174,15 +295,145 @@ class InferenceAccuracyEvaluator:
             self.spec.weight_fault_rate * value, np.float32)
         self.a_rates_by_device = np.asarray(
             self.spec.act_fault_rate * value, np.float32)
-        if changed:
-            self._engine._cache.clear()
-            if self._fault_backend == "kernel":
-                return
-            self._fault_env_rebuilds += 1
-            self.weight_tables = None
-            if self._fault_backend == "tables":
-                self._fault_backend = "generic"
+        self._w_dev = torch.as_tensor(self.w_rates_by_device,
+                                      device=self.device)
+        self._a_dev = torch.as_tensor(self.a_rates_by_device,
+                                      device=self.device)
+        if not changed:
+            return
+        self._engine._cache.clear()
+        if self._prefix_engine is not None:
+            self._prefix_engine.store.clear()
+        if self._fault_backend == "kernel":
+            return
+        self._fault_env_rebuilds += 1
+        self.weight_tables = None
+        if self._fault_backend == "tables":
+            self._fault_backend = "generic"
+        self._built_unit_fns = None
+        _SEGMENT_CACHE.pop(self, None)
 
+    # -- staged (prefix-reuse) machinery --------------------------------------
+    def _ensure_prefix_engine(self) -> PrefixEvalEngine:
+        """Build the staged engine once; it shares the full path's row
+        cache so the strategies interoperate."""
+        if self._prefix_engine is None:
+            L = self._n_units
+            self._prefix_engine = PrefixEvalEngine(
+                [lambda acts, devs, i=i: self._unit_dispatch(i, acts, devs)
+                 for i in range(L)],
+                L, eval_batch_size=self._engine.eval_batch_size,
+                max_store_bytes=self.max_store_bytes,
+                shared_fields=self.shared_carry_fields,
+                segment_fn=self._segment_dispatch if self._fuse_chains
+                else None, device=self.device)
+            self._prefix_engine._cache = self._engine._cache
+        return self._prefix_engine
+
+    def _unit_dispatch(self, i: int, acts, devs):
+        """Engine unit callable: unit ``i`` over the fresh prefixes'
+        (parent activation, device) rows."""
+        if self._built_unit_fns is None:
+            self._built_unit_fns = self._build_unit_fns()
+        return self._built_unit_fns[i](acts, devs)
+
+    def _segment_dispatch(self, start: int, length: int) -> Callable:
+        """Engine ``segment_fn``: the composed function of units
+        ``start..start+length-1``, built once per (start, length) and
+        kept in ``_SEGMENT_CACHE``."""
+        cache = _SEGMENT_CACHE.get(self)
+        if cache is None:
+            cache = _SEGMENT_CACHE[self] = {}
+        fn = cache.get((start, length))
+        if fn is None:
+            fn = cache[(start, length)] = \
+                self._build_segment_fn(start, length)
+        return fn
+
+    def _generic_env(self) -> Callable[[], tuple]:
+        """The generic/tables environment: today's rate tensors, held by
+        the functions (a rate change drops them)."""
+        w, a, base = self._w_dev, self._a_dev, int(self.base_seed)
+        return lambda: (w, a, base)
+
+    def _build_unit_fns(self) -> list:
+        """One function per unit depth, ``fn(acts, devs [U])``: the
+        generic path, or the tables gather (``weight_tables``)."""
+        if self._fault_backend == "kernel":
+            return self._build_unit_fns_kernel()
+        tables = self.weight_tables if self._fault_backend == "tables" \
+            else None
+        env = self._generic_env()
+        return [self._unit_fn(i, self._params, tables, env)
+                for i in range(self._n_units)]
+
+    def _build_unit_fns_kernel(self) -> list:
+        """Unit functions of the kernel backend: the resident integer
+        params, the environment read at call time through a weakref."""
+        env = lambda r=weakref.ref(self): _kernel_env(r)   # noqa: E731
+        return [self._unit_fn(i, self._qparams, None, env)
+                for i in range(self._n_units)]
+
+    def _unit_fn(self, i, params, tables, env) -> Callable:
+        fn = _compose(self._step_fn, i, 1, params, tables, self._x,
+                      self.labels, env)
+        return lambda acts, devs, f=fn: f(acts, devs[:, None])
+
+    def _build_segment_fn(self, start: int, length: int) -> Callable:
+        """Units ``start..start+length-1`` composed (see ``_compose``).
+        Length-1 segments reuse the unit functions.  The result holds no
+        reference to ``self``: it lives in the weak-keyed cache."""
+        if length == 1:
+            if self._built_unit_fns is None:
+                self._built_unit_fns = self._build_unit_fns()
+            unit = self._built_unit_fns[start]
+            return lambda acts, genes, f=unit: f(acts, genes[:, 0])
+        if self._fault_backend == "kernel":
+            return self._build_segment_fn_kernel(start, length)
+        tables = self.weight_tables if self._fault_backend == "tables" \
+            else None
+        return _compose(self._step_fn, start, length, self._params, tables,
+                        self._x, self.labels, self._generic_env())
+
+    def _build_segment_fn_kernel(self, start: int, length: int) -> Callable:
+        env = lambda r=weakref.ref(self): _kernel_env(r)   # noqa: E731
+        return _compose(self._step_fn, start, length, self._qparams, None,
+                        self._x, self.labels, env)
+
+    def staged_stats(self) -> dict:
+        """Prefix-reuse accounting (unit runs, hits, evictions, ...)."""
+        if self._prefix_engine is None:
+            return {}
+        return self._prefix_engine.stats()
+
+    # -- memory probe ---------------------------------------------------------
+    def _auto_eval_batch_size(self) -> int | None:
+        """Resolve ``eval_batch_size="auto"``: run a 1-row and a 2-row
+        whole-forward dispatch of the current backend, read the
+        allocator's peak above what was allocated before each, and fit the
+        largest power-of-two chunk into the card's budget with the staged
+        store cap reserved.  The staged unit and segment calls touch less
+        than a whole forward per row, so the probe bounds them.  The row
+        cache, the store and the evaluator's counters are left as they
+        were.  Off the card the probe reads 0 and the result is None."""
+        L = self._n_units
+        if not L:
+            return None
+
+        readings = self.auto_probe_bytes = {}      # rows -> bytes, kept
+
+        def probe(n: int) -> int:
+            rows = np.zeros((n, L), np.int64)
+            readings[n] = peak_memory_bytes(lambda: self._dispatch(rows),
+                                            self.device)
+            return readings[n]
+
+        reserved = (self.max_store_bytes or 0) \
+            if self._strategy == "staged" else 0
+        return auto_eval_batch_size(probe, reserved=reserved,
+                                    device=self.device)
+
+    # -- fault state ----------------------------------------------------------
     def fault_table_bytes(self) -> int:
         """Resident bytes of pre-corrupted weight tables (0 without)."""
         if self.weight_tables is None:
@@ -201,18 +452,20 @@ class InferenceAccuracyEvaluator:
                        if isinstance(q, QTensor))
         return self.fault_table_bytes()
 
+    # -- evaluation -----------------------------------------------------------
     @property
     def dispatches(self) -> int:
-        return self._engine.dispatches
-
-    def _accuracy(self, logits: torch.Tensor) -> torch.Tensor:
-        pred = torch.argmax(logits, dim=-1)
-        return (pred == self.labels).to(torch.float32).mean(dim=-1)
+        """Dispatches sent so far by both engines (cache hits cost 0)."""
+        n = self._engine.dispatches
+        if self._prefix_engine is not None:
+            n += self._prefix_engine.dispatches
+        return n
 
     @torch.no_grad()
+    @fp32_exact()
     def _dispatch(self, rows: np.ndarray) -> torch.Tensor:
-        """``[U, L]`` device ids -> ``[U]`` faulty accuracies (a device
-        tensor; the engine syncs once per call)."""
+        """``[U, L]`` device ids -> ``[U]`` faulty accuracies over the
+        whole forward (a device tensor; the engine syncs once per call)."""
         rows = np.asarray(rows, np.int64)
         dev = self.device
         AR = torch.as_tensor(self.a_rates_by_device[rows], device=dev)
@@ -227,53 +480,107 @@ class InferenceAccuracyEvaluator:
             params = self._qparams if self._fault_backend == "kernel" \
                 else self._params
             logits = self._apply_fn(params, self._x, WR, AR, seed)
-        return self._accuracy(logits)
+        return _accuracy(logits, self.labels)
 
     @torch.no_grad()
-    def clean_accuracy(self) -> float:
-        """Accuracy of the quantized-but-unflipped model: the generic
-        float params at zero rates."""
+    @fp32_exact()
+    def _clean_for(self, n: int) -> float:
         if self._clean is None:
-            z = torch.zeros((1, self._n_units), dtype=torch.float32,
-                            device=self.device)
+            z = torch.zeros((1, n), dtype=torch.float32, device=self.device)
             logits = self._apply_fn(self._params, self._x, z, z,
                                     int(self.base_seed))
-            self._clean = float(self._accuracy(logits)[0])
+            self._clean = float(_accuracy(logits, self.labels)[0])
         return self._clean
 
+    def clean_accuracy(self, n_layers: int | None = None) -> float:
+        """Accuracy of the quantized-but-unflipped model (zero rates, the
+        generic float params).
+
+        The layer count is the model's own unit count.  ``n_layers`` is
+        DEPRECATED: passing it warns, and a value that disagrees with
+        ``n_units`` raises."""
+        if n_layers is not None:
+            warnings.warn(
+                "clean_accuracy(n_layers) is deprecated; the layer count "
+                "is derived from the model's n_units", DeprecationWarning,
+                stacklevel=2)
+            if self._n_units is not None and n_layers != self._n_units:
+                raise ValueError(
+                    f"n_layers={n_layers} does not match the model's "
+                    f"n_units={self._n_units}")
+        n = self._n_units or n_layers
+        if not n:
+            raise ValueError(
+                "unit count unknown: construct the evaluator with "
+                "n_units= (or per-unit list params)")
+        return self._clean_for(n)
+
     def delta_acc(self, P: np.ndarray) -> np.ndarray:
-        """``P [N, L]`` device ids -> ΔAcc per candidate."""
+        """``P [N, L]`` device ids -> ΔAcc per candidate (bitwise the same
+        under either strategy)."""
         P = np.asarray(P)
         if self._n_units is not None and P.shape[1] != self._n_units:
             raise ValueError(f"population rows have {P.shape[1]} genes "
                              f"but the model has {self._n_units} units")
-        if self._n_units is None:
-            self._n_units = P.shape[1]
-        clean = self.clean_accuracy()
-        faulty = self._engine.evaluate(P)
+        clean = self._clean_for(self._n_units or P.shape[1])
+        if self._strategy == "staged":
+            faulty = self._ensure_prefix_engine().evaluate(P)
+        else:
+            faulty = self._engine.evaluate(P)
         return np.maximum(0.0, clean - faulty)
+
+
+class SurrogateAccuracyEvaluator:
+    """ΔAcc ≈ Σ_l sensitivity_l · fault_scale[P_l], calibrated.
+
+    ``calibrate(true_fn, samples)`` fits a single multiplicative factor
+    against true fault-injected evaluations so the surrogate is in ΔAcc
+    units rather than arbitrary sensitivity units.
+    """
+
+    def __init__(self, cost_model: CostModel):
+        self.cm = cost_model
+        self.calibration = 1.0
+
+    def calibrate(self, true_delta_acc_fn: Callable[[np.ndarray], np.ndarray],
+                  n_samples: int = 8, seed: int = 0):
+        rng = np.random.default_rng(seed)
+        L, D = len(self.cm.layers), len(self.cm.devices)
+        P = rng.integers(0, D, size=(n_samples, L))
+        true = np.asarray(true_delta_acc_fn(P))
+        sur = self.cm.sensitivity_surrogate(P)
+        denom = float((sur * sur).sum())
+        if denom > 0:
+            self.calibration = float((true * sur).sum()) / denom
+        return self.calibration
+
+    def delta_acc(self, P: np.ndarray) -> np.ndarray:
+        return self.cm.sensitivity_surrogate(P) * self.calibration
 
 
 @dataclasses.dataclass
 class ObjectiveFn:
     """The ``[N, 3]`` (or ``[N, 2]`` without an accuracy evaluator)
-    objective matrix handed to ``nsga2``; a non-None ``eval_batch_size``,
-    ``eval_strategy``, ``devices`` or ``fault_backend`` overrides the
-    evaluator's own setting at construction."""
+    objective matrix handed to ``nsga2``.  A non-None ``devices``,
+    ``eval_strategy``, ``fuse_chains``, ``fault_backend`` or
+    ``eval_batch_size`` overrides the evaluator's own setting at
+    construction, in that order (``"auto"`` chunks are sized for the
+    strategy and backend set before them); None leaves it alone."""
 
     cost_model: CostModel
     acc_evaluator: object | None
     latency_weight: float = 1.0
     energy_weight: float = 1.0
-    eval_batch_size: int | None = None
+    eval_batch_size: int | str | None = None
     eval_strategy: str | None = None
     devices: int | str | None = None
+    fuse_chains: bool | None = None
     fault_backend: str | None = None
 
     def __post_init__(self):
         ev = self.acc_evaluator
-        for name in ("devices", "eval_strategy", "fault_backend",
-                     "eval_batch_size"):
+        for name in ("devices", "eval_strategy", "fuse_chains",
+                     "fault_backend", "eval_batch_size"):
             value = getattr(self, name)
             if value is not None and hasattr(ev, name):
                 setattr(ev, name, value)
@@ -292,3 +599,34 @@ class ObjectiveFn:
 
     def violation(self, P: np.ndarray) -> np.ndarray:
         return self.cost_model.violation(P)
+
+
+@torch.no_grad()
+@fp32_exact()
+def profile_layer_sensitivity(apply_fn, params, x, labels, n_layers: int,
+                              spec: FaultSpec, base_seed: int = 0,
+                              eval_batch_size: int | None = None,
+                              device="cuda") -> np.ndarray:
+    """Paper Sec. V-C strategy 1: layer-wise fault sweeping.
+
+    Injects faults into ONE layer at a time (weights and activations at
+    the spec's base rates) and records the Top-1 drop.  The clean row and
+    the L one-hot rows form one ``[L+1, L]`` batch of rate rows, run in
+    chunks of ``eval_batch_size`` rows (one chunk when None)."""
+    dev = resolve_device(device)
+    x = torch.as_tensor(x, device=dev)
+    labels = torch.as_tensor(labels, device=dev)
+    # row 0 = clean; row 1+l = faults on layer l only
+    WR = np.zeros((n_layers + 1, n_layers), np.float32)
+    AR = np.zeros((n_layers + 1, n_layers), np.float32)
+    WR[1:][np.diag_indices(n_layers)] = np.float32(spec.weight_fault_rate)
+    AR[1:][np.diag_indices(n_layers)] = np.float32(spec.act_fault_rate)
+    chunks = []
+    for start, stop, _ in chunked_rows(n_layers + 1, eval_batch_size):
+        logits = apply_fn(params, x,
+                          torch.as_tensor(WR[start:stop], device=dev),
+                          torch.as_tensor(AR[start:stop], device=dev),
+                          int(base_seed))
+        chunks.append(_accuracy(logits, labels))
+    accs = torch.cat(chunks).cpu().numpy().astype(np.float64)
+    return np.maximum(0.0, accs[0] - accs[1:])

@@ -70,9 +70,10 @@ class _BasePartitioner:
                  acc_evaluator=None,
                  nsga2_config: NSGA2Config = NSGA2Config(),
                  batch: int = 1,
-                 eval_batch_size: int | None = None,
+                 eval_batch_size: int | str | None = None,
                  eval_strategy: str | None = None,
                  eval_devices: int | str | None = None,
+                 fuse_chains: bool | None = None,
                  fault_backend: str | None = None):
         self.layers = layers
         self.devices = devices
@@ -82,8 +83,9 @@ class _BasePartitioner:
                                     include_link_costs=self.include_link_costs,
                                     batch=batch)
         # `devices` is the partitioning target ladder; `eval_devices` is how
-        # many cards the ΔAcc evaluation may use.  None leaves the
-        # evaluator's own setting; none of these changes results.
+        # many cards the ΔAcc evaluation may use; `fuse_chains` toggles the
+        # staged path's chain fusion.  None leaves the evaluator's own
+        # setting; none of these changes results.
         self.objective = ObjectiveFn(
             self.cost_model,
             acc_evaluator if self.uses_accuracy else None,
@@ -92,6 +94,7 @@ class _BasePartitioner:
             eval_batch_size=eval_batch_size,
             eval_strategy=eval_strategy,
             devices=eval_devices,
+            fuse_chains=fuse_chains,
             fault_backend=fault_backend)
 
     def optimize(self, initial_pop: np.ndarray | None = None,

@@ -45,9 +45,11 @@
 // At 512 threads a block has 128 registers a thread and one block an SM,
 // which leaves no room to give the hash warps of its own.
 // Rows of a [R] call share the hash and differ only in their threshold;
-// each row is its own block here and recomputes it (the main path calls
-// with R = 1).  Reusing it across rows means keeping the 24-bit draws of
-// a tile and comparing them with every row's threshold.
+// each row is its own block here and recomputes it (the whole-forward
+// path calls with R = 1, the staged path with a chunk of fresh prefixes).
+// Reusing it across rows means keeping the 24-bit draws of a tile and
+// comparing them with every row's threshold.  The K-slice count is chosen
+// per row (ops._k_splits), so a row sums in the same order whatever R is.
 //
 // int16 and int32 qw keep the SIMT body below: their values are not exact
 // in bf16.  The CNN path never stores them; this is dispatch by storage

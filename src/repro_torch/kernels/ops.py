@@ -41,6 +41,7 @@ _SIGNATURES = {
 }
 
 launches = {"bitflip": 0, "quant_bitflip": 0, "fault_matmul": 0}
+_MAX_GRID_Z = 65535          # fault_matmul's grid.z is rows x K slices
 
 
 def reset_launches():
@@ -94,25 +95,29 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _k_splits(R: int, M: int, K: int, N: int, qbytes: int,
+def _k_splits(M: int, K: int, N: int, qbytes: int,
               device: torch.device) -> int:
-    """K slices for ``fault_matmul`` (``csrc/fault_matmul.cu``).
+    """K slices for ``fault_matmul`` (``csrc/fault_matmul.cu``), chosen for
+    ONE row: the slices are summed in slice order, so a row's result
+    depends on their count, and a count fixed per row gives every row of
+    an R-row call what a one-row call gives (the staged engine's chunks
+    against the whole-forward path's single rows).
 
     int8, the tensor-core body: blocks of 512 rows x an N tile of 16 (N <=
     16) or 64, one block per SM (512 threads, ~150 KB of shared memory), so
-    as many slices as leave one wave: at most one block per SM, each slice
-    at least one k-step (16 of K) long.  ResNet18's fc (K = 512) thus
-    runs 32 blocks, AlexNet's fc0 128.  int16/int32, the SIMT body:
-    128x128 tiles, two blocks per SM, each slice at least 16 k-steps (128
-    of K) long."""
+    as many slices as leave one row one wave: at most one block per SM,
+    each slice at least one k-step (16 of K) long.  ResNet18's fc (K = 512)
+    thus runs 32 blocks a row, AlexNet's fc0 128.  int16/int32, the SIMT
+    body: 128x128 tiles, two blocks per SM, each slice at least 16 k-steps
+    (128 of K) long."""
     sms = _sm_count(device.index or 0)
     if qbytes == 1:
-        tiles = R * -(-M // 512) * -(-N // (16 if N <= 16 else 64))
+        tiles = -(-M // 512) * -(-N // (16 if N <= 16 else 64))
         want, steps = sms // tiles, -(-K // 16)
     else:
-        tiles = R * -(-M // 128) * -(-N // 128)
+        tiles = -(-M // 128) * -(-N // 128)
         want, steps = -(-2 * sms // tiles), -(-K // 8) // 16
-    return max(1, min(want, steps, 65535 // R))
+    return max(1, min(want, steps, _MAX_GRID_Z))
 
 
 def bitflip(q: torch.Tensor, seed, rate, faulty_bits: int, *,
@@ -198,13 +203,18 @@ def fault_matmul(x: torch.Tensor, qw: torch.Tensor, scale, seed, rate,
     K, N = qw.shape
     M = x.shape[:-1].numel() // R
     out = torch.empty((*x.shape[:-1], N), dtype=torch.float32, device=x.device)
-    splits = _k_splits(R, M, K, N, _INT_BYTES[qw.dtype], x.device)
-    partial = torch.empty((splits, R, M, N) if splits > 1 else (0,),
-                          dtype=torch.float32, device=x.device)
-    _launch("afp_fault_matmul", x.data_ptr(), qw.data_ptr(), out.data_ptr(),
-            partial.data_ptr(), scale_t.contiguous().data_ptr(),
-            rates.data_ptr(), R, M, K, N, splits, _INT_BYTES[qw.dtype],
-            _model_id(fault_model, faulty_bits), seed_u32(seed), faulty_bits, mbu_width,
-            _stream(x.device))
-    launches["fault_matmul"] += 1
+    splits = _k_splits(M, K, N, _INT_BYTES[qw.dtype], x.device)
+    step = _MAX_GRID_Z // splits       # rows a launch, within the grid
+    partial = torch.empty((splits, min(R, step), M, N) if splits > 1
+                          else (0,), dtype=torch.float32, device=x.device)
+    scale_p = scale_t.contiguous().data_ptr()
+    for r0 in range(0, R, step):
+        rows = min(step, R - r0)
+        _launch("afp_fault_matmul", x.data_ptr() + r0 * M * K * 4,
+                qw.data_ptr(), out.data_ptr() + r0 * M * N * 4,
+                partial.data_ptr(), scale_p, rates.data_ptr() + r0 * 4, rows,
+                M, K, N, splits, _INT_BYTES[qw.dtype],
+                _model_id(fault_model, faulty_bits), seed_u32(seed),
+                faulty_bits, mbu_width, _stream(x.device))
+        launches["fault_matmul"] += 1
     return out

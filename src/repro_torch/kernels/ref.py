@@ -78,8 +78,8 @@ def quant_bitflip_ref(x: torch.Tensor, seed, rate, faulty_bits: int,
 def fault_matmul_ref(x: torch.Tensor, qw: torch.Tensor, scale, seed, rate,
                      faulty_bits: int, fault_model: str = "flip",
                      mbu_width: int = 2) -> torch.Tensor:
-    """``x @ dequant(corrupt(qw))``: corrupt, dequantize, then one fp32
-    ``torch.matmul`` (batched over rows for a ``[R]`` rate)."""
+    """``x @ dequant(corrupt(qw))``: corrupt, dequantize, then an fp32
+    ``torch.matmul`` (one per row for a ``[R]`` rate)."""
     if qw.ndim != 2 or x.shape[-1] != qw.shape[0]:
         raise ValueError(f"contraction mismatch: x {tuple(x.shape)} "
                          f"@ qw {tuple(qw.shape)}")
@@ -91,5 +91,8 @@ def fault_matmul_ref(x: torch.Tensor, qw: torch.Tensor, scale, seed, rate,
     R, K, N = rates.numel(), qw.shape[0], qw.shape[1]
     if x.shape[0] != R:
         raise ValueError(f"x {tuple(x.shape)} has no leading row axis of {R}")
-    out = torch.matmul(x.to(torch.float32).reshape(R, -1, K), w)
+    xr = x.to(torch.float32).reshape(R, -1, K)
+    # one matmul per row: a batched one may sum a row in another order
+    # depending on R (threads on the CPU), and rows must not depend on R
+    out = torch.stack([torch.matmul(xr[r], w[r]) for r in range(R)])
     return out.to(x.dtype).reshape(*x.shape[:-1], N)

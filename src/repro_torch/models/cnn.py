@@ -13,8 +13,9 @@ activation carries a leading row axis ``[R, B, H, W, C]`` and rates are
 ``[R]`` tensors (or None).  Each row's conv weights may differ, so the conv
 runs one ``F.conv2d`` per row.  A loop rather than a grouped conv: it
 keeps each row's computation the very call a one-row dispatch makes, so
-row batching and chunking never change a value, and the evaluator's
-full-size path dispatches one row per chunk anyway.
+row batching and chunking never change a value (the staged engine's
+chunks of fresh prefixes against the whole-forward path's single rows,
+bitwise).  The global average pool loops over rows for the same reason.
 
 Seed contract (``repro/models/cnn.py:100-136``): unit ``i`` uses
 ``seed + 7919 * i``, its input activations ``+ 1``, and weight leaf ``j``
@@ -108,7 +109,9 @@ def _maxpool(x, k=2, s=2):
 
 
 def _gap(x):
-    return x.mean(dim=(2, 3))
+    """Global average pool, one reduction per row like the conv loop: the
+    reduction's launch shape then never depends on the row count."""
+    return torch.stack([x[r].mean(dim=(1, 2)) for r in range(x.shape[0])])
 
 
 def _dense(p, x):

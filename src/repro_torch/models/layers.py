@@ -188,4 +188,8 @@ def fault_dense(x: torch.Tensor, w) -> torch.Tensor:
                                  mbu_width=w.mbu_width)
     if isinstance(w, QTensor):
         w = w.dequant()
+    if w.ndim == 3:      # per-row weights: one matmul per row, like the
+        # conv loop, so a row never depends on how many rows share the call
+        return torch.stack([torch.matmul(x[r], w[r])
+                            for r in range(w.shape[0])])
     return torch.matmul(x, w)

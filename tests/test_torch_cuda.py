@@ -110,3 +110,77 @@ def test_fault_matmul_kernel_shapes(dev, shape, dtype):
     want = ref.fault_matmul_ref(x, qw, scale, 3, rates, 4)
     tol = 2 * K * 2.0 ** -24 * torch.matmul(x.abs(), w.abs())
     assert bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16])
+def test_fault_matmul_rows_match_one_row_calls(dev, dtype):
+    """Each row of an R-row call sums in the order a one-row call does (the
+    K-slice count is chosen per row): bitwise, at ResNet18's fc and at a
+    shape whose slice count would have changed with R."""
+    for M, K, N in ((512, 512, 16), (512, 4096, 1024)):
+        qw = torch.randint(-100, 100, (K, N), dtype=dtype, device=dev)
+        rates = torch.tensor([0.2, 0.0, 1e-3, 0.2, 0.1], device=dev)
+        scale = torch.tensor(0.0123, device=dev)
+        x = torch.randn(5, M, K, device=dev)
+        many = ops.fault_matmul(x, qw, scale, 9, rates, 4)
+        for r in range(5):
+            one = ops.fault_matmul(x[r:r + 1].contiguous(), qw, scale, 9,
+                                   rates[r:r + 1], 4)
+            assert _same_bits(many[r:r + 1], one)
+
+
+@pytest.mark.parametrize("name", ["alexnet", "squeezenet", "resnet18"])
+def test_model_rows_match_one_row_calls(dev, name):
+    """A whole forward over R rows gives, in each row, the logits of that
+    row run alone (kernel backend: per-row conv weights from ``bitflip``,
+    ``quant_bitflip`` per row, ``fault_matmul``), bitwise."""
+    from repro_torch import cnn_setup
+    from repro_torch.models import cnn as tcnn
+
+    m = tcnn.CNN_MODELS[name]
+    params = m.init(1, 16, width=0.25, img=32, device=dev)
+    qp = tcnn.quantize_unit_params(params)
+    x, _ = cnn_setup.eval_batch(64, device=dev)
+    g = torch.Generator(device="cpu").manual_seed(0)
+    wr = (torch.rand(6, m.n_units, generator=g) * 0.3).to(dev)
+    ar = (torch.rand(6, m.n_units, generator=g) * 0.1).to(dev)
+    with torch.no_grad():
+        many = m.apply(qp, x, wr, ar, 5)
+        for r in range(6):
+            assert _same_bits(many[r:r + 1],
+                              m.apply(qp, x, wr[r:r + 1], ar[r:r + 1], 5))
+
+
+@pytest.mark.parametrize("name", ["alexnet", "squeezenet", "resnet18"])
+def test_staged_matches_full_bitwise_on_card(dev, name):
+    """Staged (fused and unfused, chunks of up to 4 rows) against the whole
+    forward (one row a chunk), kernel backend, bitwise ΔAcc; the model's
+    kernels launch on the staged path (SqueezeNet has no dense layer, so
+    no ``fault_matmul``)."""
+    from repro_torch import cnn_setup
+    from repro_torch.core import FaultSpec
+    from repro_torch.models import cnn as tcnn
+
+    m = tcnn.CNN_MODELS[name]
+    params = m.init(2, 16, width=0.25, img=32, device=dev)
+    labels = cnn_setup.clean_argmax_labels(name, params, 64, device=dev)
+    spec = FaultSpec(weight_fault_rate=0.2, act_fault_rate=0.2)
+    rng = np.random.default_rng(3)
+    P = rng.integers(0, 2, size=(10, m.n_units))
+    P[5:, :4] = P[0, :4]                  # shared prefixes
+    res = {}
+    for strategy, fuse, ebs in (("full", True, 1), ("staged", False, 4),
+                                ("staged", True, 4)):
+        ev = cnn_setup.make_evaluator(name, params, spec, n_eval=64,
+                                      eval_batch_size=ebs, labels=labels,
+                                      eval_strategy=strategy,
+                                      fuse_chains=fuse, device=dev)
+        ops.reset_launches()
+        res[(strategy, fuse)] = ev.delta_acc(P)
+        if strategy == "staged":
+            used = [k for k in ops.launches
+                    if k != "fault_matmul" or name != "squeezenet"]
+            assert min(ops.launches[k] for k in used) > 0, ops.launches
+            assert ev.staged_stats()["unit_runs_avoided"] > 0
+    for key, v in res.items():
+        np.testing.assert_array_equal(v, res[("full", True)], err_msg=str(key))

@@ -45,8 +45,9 @@ def test_scan_sees_every_kernel_source_module():
 
 def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    from repro_torch import cnn_setup, convert
-    from repro_torch.core import FaultSpec, InferenceAccuracyEvaluator
+    from repro_torch import cnn_setup, convert, quickstart
+    from repro_torch.core import (FaultSpec, InferenceAccuracyEvaluator,
+                                  profile_layer_sensitivity)
     from repro_torch.models.cnn import CNN_MODELS
 
     for model in CNN_MODELS.values():
@@ -68,6 +69,10 @@ def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
             "alexnet", params, np.zeros(8, np.int64), 0.1, 0.1, n_eval=2),
         lambda: convert.params_from_jax({"w": np.zeros(2, np.float32)}),
         lambda: convert.quant_params_from_jax({"w": np.zeros(2, np.float32)}),
+        lambda: profile_layer_sensitivity(CNN_MODELS["alexnet"].apply, params,
+                                          x, y, 8, FaultSpec()),
+        lambda: cnn_setup.get_trained("alexnet", steps=1),
+        lambda: quickstart.main(["--steps", "1"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
