@@ -22,7 +22,20 @@ Phases (any failure raises, and the process exits nonzero):
      Then each kernel's times: its device time (a CUDA graph of 20
      launches replayed between events, so no host cost), its wrapper time
      (events around back-to-back Python calls), its plain version's, the
-     library call's where one exists, and the bound.
+     library call's where one exists, and the bound.  ``fault_matmul`` on
+     bf16 x (the transformer path) at olmo-1b's three projection shapes
+     with M = B S = 2048 (2048x2048, 2048x8192, 8192x2048), int8 and int32
+     weights, all four fault models: bitwise bf16(q' scale) at x = I_K,
+     and at random bf16 x within 2 K 2^-24 (|x| @ |w|) + 2^-8 (|k| + |p|)
+     (1 + 2^-7): both sides sum exact products in fp32 in some order, then
+     round once to bf16 (half an ulp, at most 2^-8 of the magnitude); its
+     device time beside ``torch.matmul`` on the same bf16 shapes; and
+     ``quant_bitflip``'s times at the transformer's unit input, one row of
+     [8, 256, 2048] bf16, after checking it bitwise against its plain
+     version there for all four fault models on signed bf16 x, four rows
+     at rates 0.2 / 0 / 4e-3 / 0.1.  The bf16 checks, times and bounds
+     use phase 9's 6 faulty bits; the others the CNN path's 4 (and
+     ``bitflip`` is checked at 4, 6 and 8).
   4. The whole-forward path: ResNet18 at width 1.0 (channels 64-512), img
      32, 16 classes, n_eval=512, labels = the clean model's own argmax;
      ``AFarePart`` (NSGA-II pop 24, 3 generations) under the kernel backend
@@ -47,9 +60,34 @@ Phases (any failure raises, and the process exits nonzero):
      (equal), the cost per row of an 8-row whole forward against a 1-row
      one, and ``python -m repro_torch.quickstart`` at 20 training steps
      and 2 generations.
+  9. The dense transformer path: olmo-1b at its published widths (16
+     layers, d_model 2048, 16 heads, d_ff 8192, vocab 50304, bf16, depth
+     uncut), weights from ``init_lm`` with a seeded generator on the card,
+     B = 8 sequences of S = 256 tokens from a numpy seed, labelled with the
+     clean model's own argmax (the label spread is printed and checked;
+     the share of labels that are their own input token is printed: with
+     random tied weights at full width it is all of them, the probe is
+     the identity, and ΔAcc counts the tokens a fault moves off
+     themselves).
+     ``FaultSpec(bits=8, faulty_bits=6)`` at 0.2/0.2 over ``POD_TIERS_4``:
+     with random weights and tied embeddings the reference replay's 4
+     LSBs move no token at full width (a probe population at 4 LSBs is
+     printed, and changes nothing), so the regime is pinned at 6.
+     ``lm_partitioner`` (pop 24, 3 generations) under the kernel backend,
+     staged and fused with ``eval_batch_size="auto"``, then the same
+     search through ``eval_strategy="full"``: every evaluated row and both
+     fronts bitwise equal, the spread of ΔAcc over the rows checked (it
+     must neither vanish nor saturate), wall times, ``staged_stats()`` and
+     launches per path printed.  One candidate profiled by kernel group;
+     generic against kernel on 4 rows; starcoder2-3b at its published
+     widths, depth cut to 4 layers, one population of 8 rows (GQA,
+     LayerNorm with bias, gelu, an untied head, ``bitflip`` on the norm
+     params).
 The lines before the last are the ``{"kernels": [...]}`` record (its
-``launches`` are the staged path's, phase 8; ``full_launches`` phase 4's)
-and the card's ``nvidia-smi`` name and power limit; the last line is
+``launches`` are the staged path's, phase 8; ``full_launches`` phase 4's;
+``lm_launches`` / ``lm_full_launches`` phase 9's staged and full olmo-1b
+searches, ``lm_shapes`` the bf16 shapes of phase 3) and the card's
+``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 
 Bounds: the least time for the same work is the larger of the bytes each
@@ -62,9 +100,11 @@ the guide's table has no integer ALU rate).
     the hash outweighs the bytes (1 + 1 B, or 4 + 4 + 4 B, an element).
   * ``fault_matmul``: the hash once per weight (K N draws per plane), and
     the product as it runs on the tensor cores: three exact bf16 products
-    of the split x, 3 x 2 M K N at 989 TFLOP/s.  Whichever is larger; at
-    AlexNet's fc0 the hash.  (The SIMT body of int16/int32 weights would
-    be bound by fp32 FMAs at 67 TFLOP/s; the main path stores int8.)
+    of the split x, 3 x 2 M K N at 989 TFLOP/s (float32 x), or one, 2 M K
+    N (bf16 x).  Whichever is larger; at AlexNet's fc0 and olmo-1b's
+    projections the hash.  (The SIMT body of int16/int32 weights with
+    float32 x would be bound by fp32 FMAs at 67 TFLOP/s; the CNN path
+    stores int8.)
 Rates are the H100 SXM's published peaks at 700 W.
 """
 from __future__ import annotations
@@ -86,7 +126,11 @@ HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
 INT32_OPS = 132 * 64 * 1.98e9
 HASH_OPS_PER_DRAW = 20
-FAULTY_BITS = 4
+FAULTY_BITS = 4                 # the CNN path's (SPEC_RATES)
+# phase 9's fault regime at bits=8: 6 faulty bits at weight and activation
+# rate 0.2.  The reference replay runs 4; with random weights 4 move no
+# token of olmo-1b at full width (see lm_phase)
+LM_FAULTY_BITS, LM_RATE = 6, 0.2
 SPEC_RATES = dict(weight_fault_rate=0.2, act_fault_rate=0.2, faulty_bits=4,
                   bits=16)
 
@@ -150,6 +194,10 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return (a.double() - b.double()).abs().max().item()
+
+
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     if a.dtype != b.dtype or a.shape != b.shape:
         return False
@@ -176,26 +224,29 @@ def check_kernels(dev, records):
 
     # bitflip: ResNet18's largest conv weight, 3x3x512x512, as stored (int8)
     # and in the wider storage types; integers out, and dequantized
+    bf_err = qb_err = 0.0
     for dtype, hi in ((torch.int8, 127), (torch.int16, 2 ** 14),
                       (torch.int32, 2 ** 20)):
         q = torch.randint(-hi, hi, (3, 3, 512, 512), device=dev, dtype=dtype,
                           generator=gen)
         for model in FAULT_MODELS:
-            for bits in (FAULTY_BITS, 8):
+            for bits in (FAULTY_BITS, LM_FAULTY_BITS, 8):
                 k = ops.bitflip(q, 7919, rates, bits, fault_model=model)
                 p = ref.bitflip_ref(q, 7919, rates, bits, fault_model=model)
+                bf_err = max(bf_err, max_abs_err(k, p))
                 if not bits_equal(k, p):
                     raise AssertionError(f"bitflip {dtype} {model} bits={bits}"
                                          " differs from its plain version")
                 k = ops.bitflip(q, 7919, rates, bits, fault_model=model,
                                 scale=scale)
+                bf_err = max(bf_err, max_abs_err(k, p.float() * scale))
                 if not bits_equal(k, p.float() * scale):
                     raise AssertionError(f"bitflip {dtype} {model} bits={bits}"
                                          " with scale differs from "
                                          "bitflip_ref(...).float() * scale")
     log("phase3 bitflip: bitwise equal to plain for int8/int16/int32 x "
-        f"{FAULT_MODELS} x bits 4,8 x rates 0,1e-3,0.2 at [3,3,512,512], "
-        "integers out and fused dequant")
+        f"{FAULT_MODELS} x bits {FAULTY_BITS},{LM_FAULTY_BITS},8 x rates "
+        "0,1e-3,0.2 at [3,3,512,512], integers out and fused dequant")
 
     # quant_bitflip: the input of ResNet18 units 1-3 at n_eval=512,
     # [R, 512, 32, 32, 64]; row 0 all zeros
@@ -209,6 +260,7 @@ def check_kernels(dev, records):
                                   fault_model=model)
             p = ref.quant_bitflip_ref(x, 7920, r4, FAULTY_BITS, spec8,
                                       fault_model=model)
+            qb_err = max(qb_err, max_abs_err(k, p))
             if not bits_equal(k, p):
                 bad = (k.float() != p.float()).sum().item()
                 raise AssertionError(f"quant_bitflip {dtype} {model}: {bad} "
@@ -271,7 +323,7 @@ def check_kernels(dev, records):
         fused_ms=device_ms(lambda: ops.bitflip(q, 1, one, FAULTY_BITS,
                                                scale=scale)),
         plain_ms=time_ms(lambda: ref.bitflip_ref(q, 1, one, FAULTY_BITS)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, max_abs_err=0.0,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, max_abs_err=bf_err,
         shape="[1] x [3,3,512,512] int8")
     x = torch.relu(torch.randn(1, 512, 32, 32, 64, device=dev, generator=gen))
     n = x.numel()
@@ -282,7 +334,7 @@ def check_kernels(dev, records):
                                                      spec8)),
         plain_ms=time_ms(lambda: ref.quant_bitflip_ref(x, 1, one, FAULTY_BITS,
                                                        spec8), iters=5),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, max_abs_err=0.0,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, max_abs_err=qb_err,
         shape="[1,512,32,32,64] float32")
     del x
     shapes = []
@@ -320,12 +372,145 @@ def check_kernels(dev, records):
 RECORD_KEYS = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
                "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
                "wrapper_ms", "fused_ms", "candidate_ms", "candidate_launches",
-               "full_launches", "shapes")
+               "full_launches", "shapes", "lm_launches", "lm_full_launches",
+               "lm_candidate_ms", "lm_candidate_launches", "lm_shapes",
+               "starcoder2_launches")
 
 
-def kernel_group(key: str) -> str:
+# fault_matmul on bf16 x at olmo-1b's projections, M = B S = 2048:
+# (label, M, K, N)
+LM_MATMUL_SHAPES = (("olmo-1b wq/wk/wv/wo", 2048, 2048, 2048),
+                    ("olmo-1b w1/w3", 2048, 2048, 8192),
+                    ("olmo-1b w2", 2048, 8192, 2048))
+
+
+def check_fault_matmul_bf16(dev, records):
+    """Phase 3, bf16 x, at phase 9's ``LM_FAULTY_BITS``: ``fault_matmul``
+    at olmo-1b's three projection shapes against its plain version (see
+    the docstring), then its times at each shape and storage type beside
+    ``torch.matmul`` and the bound; and ``quant_bitflip`` at the
+    transformer's unit input, [R, 8, 256, 2048] bf16, bitwise against its
+    plain version, then timed on one row."""
+    from repro_torch._device import fp32_exact
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.faultmodel import FAULT_MODELS
+    from repro_torch.quant import QuantSpec
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rates = torch.tensor([0.0, 1e-3, 0.2], device=dev)
+    one = torch.tensor([0.2], device=dev)
+    scale = torch.tensor(0.0123, device=dev)
+    bf16, fb = torch.bfloat16, LM_FAULTY_BITS
+    worst, out = 0.0, []
+    with torch.no_grad(), fp32_exact():
+        for label, M, K, N in LM_MATMUL_SHAPES:
+            eye = torch.eye(K, device=dev, dtype=bf16).expand(3, K, K)
+            eye = eye.contiguous()
+            x = torch.randn(3, M, K, device=dev, generator=gen).to(bf16)
+            for dtype, hi in ((torch.int8, 128), (torch.int32, 2 ** 15)):
+                qw = torch.randint(-hi, hi, (K, N), device=dev, dtype=dtype,
+                                   generator=gen)
+                err_max = 0.0
+                for model in FAULT_MODELS:
+                    w = ref.bitflip_ref(qw, 7921, rates, fb,
+                                        fault_model=model,
+                                        scale=scale).to(bf16)
+                    k = ops.fault_matmul(eye, qw, scale, 7921, rates, fb,
+                                         fault_model=model)
+                    if not bits_equal(k, w):
+                        raise AssertionError(
+                            f"fault_matmul bf16 {label} {dtype} {model}: "
+                            "x = I_K does not return bf16(q' scale) bitwise")
+                    k = ops.fault_matmul(x, qw, scale, 7921, rates, fb,
+                                         fault_model=model)
+                    p = ref.fault_matmul_ref(x, qw, scale, 7921, rates, fb,
+                                             fault_model=model)
+                    if k.dtype != bf16 or p.dtype != bf16:
+                        raise AssertionError("bf16 x must give bf16 out")
+                    k, p = k.float(), p.float()
+                    mag = torch.matmul(x.float().abs(), w.float().abs())
+                    tol = 2 * K * 2.0 ** -24 * mag \
+                        + 2.0 ** -8 * (k.abs() + p.abs()) * (1 + 2.0 ** -7)
+                    err = (k - p).abs()
+                    if not bool((err <= tol).all()):
+                        raise AssertionError(
+                            f"fault_matmul bf16 {label} {dtype} {model}: max "
+                            f"err {err.max().item():.3g} above the bound")
+                    err_max = max(err_max, err.max().item())
+                    worst = max(worst, (err / tol).max().item())
+                    del k, p, mag, tol, err, w
+                x1 = x[:1].contiguous()
+                w1 = (qw.float() * scale).to(bf16)
+                qb = qw.element_size()
+                b_ms, b_by = bound(2 * M * K + qb * K * N + 2 * M * N,
+                                   tc_flops=2 * M * K * N,
+                                   int_ops=K * N * fb * HASH_OPS_PER_DRAW)
+                out.append(dict(
+                    label=label, shape=f"[1,{M},{K}] bf16 x [{K},{N}] "
+                                       f"{str(dtype).removeprefix('torch.')}",
+                    ms=device_ms(lambda: ops.fault_matmul(
+                        x1, qw, scale, 1, one, fb)),
+                    wrapper_ms=time_ms(lambda: ops.fault_matmul(
+                        x1, qw, scale, 1, one, fb), iters=10),
+                    plain_ms=time_ms(lambda: ref.fault_matmul_ref(
+                        x1, qw, scale, 1, one, fb), iters=3, warmup=1),
+                    library_ms=device_ms(lambda: torch.matmul(x1, w1)),
+                    bound_ms=b_ms, bound_by=b_by, max_abs_err=err_max))
+                del qw, w1
+            del eye, x
+            torch.cuda.empty_cache()
+
+        # quant_bitflip at the unit input: signed activations, one row a
+        # rate of phase 9's tiers (0.2 x fault scale) and one clean row
+        spec8 = QuantSpec(bits=8)
+        x = torch.randn(4, 8, 256, 2048, device=dev, generator=gen).to(bf16)
+        r4 = torch.tensor([0.2, 0.0, 4e-3, 0.1], device=dev)
+        qb_err = 0.0
+        for model in FAULT_MODELS:
+            k = ops.quant_bitflip(x, 7922, r4, fb, spec8, fault_model=model)
+            p = ref.quant_bitflip_ref(x, 7922, r4, fb, spec8,
+                                      fault_model=model)
+            qb_err = max(qb_err, max_abs_err(k, p))
+            if not bits_equal(k, p):
+                bad = (k.float() != p.float()).sum().item()
+                raise AssertionError(f"quant_bitflip bf16 [4,8,256,2048] "
+                                     f"{model}: {bad} elements differ from "
+                                     "the plain version")
+        del k, p
+        log(f"phase3 quant_bitflip bf16: bitwise equal to plain for "
+            f"{FAULT_MODELS} at {fb} faulty bits, [4,8,256,2048] signed x, "
+            "rates 0.2,0,4e-3,0.1")
+        x = x[:1].contiguous()
+        n = x.numel()
+        b_ms, b_by = bound(2 * n + 2 * n,
+                           int_ops=n * fb * HASH_OPS_PER_DRAW)
+        records["quant_bitflip"]["lm_shapes"] = [dict(
+            label="olmo-1b unit input", shape="[1,8,256,2048] bfloat16",
+            ms=device_ms(lambda: ops.quant_bitflip(x, 1, one, fb, spec8)),
+            wrapper_ms=time_ms(lambda: ops.quant_bitflip(x, 1, one, fb,
+                                                         spec8)),
+            plain_ms=time_ms(lambda: ref.quant_bitflip_ref(
+                x, 1, one, fb, spec8), iters=5),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            max_abs_err=qb_err)]
+    records["fault_matmul"]["lm_shapes"] = out
+    log(f"phase3 fault_matmul bf16 x at {fb} faulty bits: x=I_K bitwise; "
+        f"random x within 2K2^-24(|x|@|w|) + 2^-8(|k|+|p|)(1+2^-7) (worst "
+        f"ratio to it {worst:.3g}), at {[s[0] for s in LM_MATMUL_SHAPES]} x "
+        f"int8/int32 x {FAULT_MODELS}")
+    for r in out + records["quant_bitflip"]["lm_shapes"]:
+        log(f"phase3 time {r['label']} at {r['shape']}: device "
+            f"{r['ms']:.4f} ms, wrapper {r['wrapper_ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max |err| "
+            f"{r['max_abs_err']:.3g}")
+
+
+def kernel_group(key: str, other: str = "convolution") -> str:
     """The group a profiled device kernel belongs to: one of the port's
-    three kernels, or what PyTorch and cuDNN run around them."""
+    three kernels, or what PyTorch and the libraries run around them
+    (``other``: cuDNN's convolutions on the CNN path, cuBLAS's products on
+    the transformer path)."""
     if "quant_bitflip_kernel" in key or "amax_kernel" in key:
         return "quant_bitflip"
     if "bitflip_kernel" in key:
@@ -338,7 +523,7 @@ def kernel_group(key: str) -> str:
         return "layout"
     if "at::native" in key:
         return "elementwise glue"
-    return "convolution"
+    return other
 
 
 def pick_resnet_seed(dev):
@@ -534,6 +719,227 @@ def staged_phase(dev, params, labels, spec, layers, cfg, full_plan, full_rows,
         f"{json.dumps(q_stats)}")
 
 
+LM_B, LM_S = 8, 256             # phase 9's calibration batch
+LM_STORE_BYTES = 16 << 30      # phase 9's activation-store cap
+STARCODER_LAYERS = 4
+
+
+def _spread_problem(dacc: np.ndarray, tokens: int) -> str | None:
+    """Why a ΔAcc sample cannot tell candidates apart, or None: it
+    vanishes (every row within 2 tokens of 0), or saturates (every row
+    within 2 tokens of the largest drop), or has fewer than 3 values."""
+    if dacc.max() <= 2.0 / tokens:
+        return "vanishes"
+    if dacc.max() - dacc.min() <= 2.0 / tokens:
+        return "saturates"
+    if len(np.unique(dacc)) < 3:
+        return "saturates"
+    return None
+
+
+def lm_phase(dev, records, cfg=None, sc_cfg=None, B=LM_B, S=LM_S,
+             nsga=None):
+    """Phase 9: the dense transformer ΔAcc path (see the docstring).  The
+    arguments other than ``dev`` and ``records`` let a rehearsal on the
+    CPU run it at a small size."""
+    import dataclasses
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import (POD_TIERS_4, FaultSpec, NSGA2Config,
+                                  lm_partitioner, make_lm_accuracy_evaluator)
+    from repro_torch.kernels import ops
+    from repro_torch.lm_setup import calibration_batch, self_labels
+    from repro_torch.models.graph import lm_eval_strategy
+    from repro_torch.models.transformer import init_lm
+
+    cfg = cfg or get_config("olmo-1b")
+    sc_cfg = sc_cfg or dataclasses.replace(get_config("starcoder2-3b"),
+                                           n_layers=STARCODER_LAYERS)
+    nsga = nsga or NSGA2Config(population=24, generations=3, seed=0)
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    tokens = B * S
+    strategy = lm_eval_strategy(cfg, device=dev)
+    log(f"phase9 {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"{cfg.dtype}, {cfg.param_count() / 1e9:.3f} B params; "
+        f"lm_eval_strategy -> {strategy!r}")
+    if strategy != "staged":
+        raise AssertionError(f"lm_eval_strategy gave {strategy!r}")
+    t0 = time.perf_counter()
+    params = init_lm(cfg, seed=0, device=dev)
+    batch = calibration_batch(cfg, B, S, seed=7, device=dev)
+    labels = self_labels(cfg, params, batch)
+    sync()
+    counts = torch.bincount(labels.reshape(-1), minlength=cfg.vocab)
+    distinct, top = int((counts > 0).sum()), int(counts.max())
+    # with random weights and tied embeddings the clean argmax at full
+    # width is the input token itself (its logit leads by a margin that
+    # grows with d_model): the probe is then the identity on this batch,
+    # and dAcc counts the tokens a fault moves off themselves.  That is
+    # printed; what must not degenerate is the spread of dAcc, checked on
+    # the search rows below
+    own = (labels == batch["tokens"]).sum().item()
+    log(f"phase9 init + self-labels {time.perf_counter() - t0:.2f} s; "
+        f"labels: {distinct} distinct tokens of {tokens}, the most common "
+        f"{top} times; {own} of {tokens} ({own / tokens:.4f}) are their own "
+        "input token" + (": the probe is the identity on this batch"
+                         if own == tokens else ""))
+    if distinct < tokens // 16 or top > tokens // 4:
+        raise AssertionError("degenerate self-labels")
+    scale = np.array([d.fault_scale for d in POD_TIERS_4], np.float32)
+    L = cfg.n_layers
+
+    def evaluator(c=cfg, p=params, b=batch, y=labels,
+                  faulty_bits=LM_FAULTY_BITS, **kw):
+        kw.setdefault("fault_backend", "kernel")
+        kw.setdefault("max_store_bytes", LM_STORE_BYTES)
+        spec = FaultSpec(bits=8, faulty_bits=faulty_bits,
+                         weight_fault_rate=LM_RATE, act_fault_rate=LM_RATE)
+        return make_lm_accuracy_evaluator(c, p, b, y, spec, scale,
+                                          device=dev, **kw), spec
+
+    # the reference replay's 4 LSBs, printed only: with random weights the
+    # input token's logit leads by a margin 4 of 8 bits do not close
+    probe = np.random.default_rng(5).integers(0, len(scale), size=(8, L))
+    ev, _ = evaluator(faulty_bits=4, eval_strategy="full", eval_batch_size=1)
+    d = ev.delta_acc(probe)
+    log(f"phase9 probe at the reference replay's 4 faulty bits, rates "
+        f"{LM_RATE}/{LM_RATE}: clean accuracy {ev.clean_accuracy():.4f}, "
+        f"dAcc {np.round(d, 4).tolist()} (not used)")
+    del ev
+    log(f"phase9 fault regime: FaultSpec(bits=8, faulty_bits={LM_FAULTY_BITS})"
+        f" at {LM_RATE}/{LM_RATE} over POD_TIERS_4 (fault scales "
+        f"{scale.tolist()})")
+
+    # the search, staged and fused, then through the whole forward
+    s_ev, spec = evaluator(eval_batch_size="auto")
+    log(f"phase9 eval_batch_size='auto' -> {s_ev.eval_batch_size} rows: "
+        f"peak bytes of a 1- and a 2-row dispatch {s_ev.auto_probe_bytes}, "
+        f"store cap {LM_STORE_BYTES}")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    plan = lm_partitioner(cfg, s_ev, fault_spec=spec, fault_backend="kernel",
+                          nsga2_config=nsga).optimize()
+    sync()
+    s_wall = time.perf_counter() - t0
+    s_launches = dict(ops.launches)
+    st = s_ev.staged_stats()
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    f_ev, _ = evaluator(eval_strategy="full", eval_batch_size=1)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    f_plan = lm_partitioner(cfg, f_ev, fault_spec=spec, fault_backend="kernel",
+                            eval_strategy="full", nsga2_config=nsga).optimize()
+    sync()
+    f_wall = time.perf_counter() - t0
+    f_launches = dict(ops.launches)
+    log(f"phase9 lm_partitioner staged+fused: {s_wall:.3f} s wall, launches "
+        f"{s_launches}; full: {f_wall:.3f} s wall, launches {f_launches}")
+    log(f"phase9 staged stats {json.dumps(st)}; peak store bytes "
+        f"{s_ev._prefix_engine.store.peak_nbytes}; max_memory_allocated "
+        f"{peak}")
+    for name in ("quant_bitflip", "fault_matmul"):
+        if on_card and min(s_launches[name], f_launches[name]) <= 0:
+            raise AssertionError(f"{name} never launched on the LM path")
+    s_rows, f_rows = dict(s_ev._cache), dict(f_ev._cache)
+    if s_rows != f_rows:
+        bad = [k for k in f_rows if s_rows.get(k) != f_rows[k]]
+        raise AssertionError(f"staged rows differ from the full path: "
+                             f"{len(bad)} of {len(f_rows)}, e.g. {bad[:2]}")
+    if not (np.array_equal(plan.front, f_plan.front)
+            and np.array_equal(plan.front_objs, f_plan.front_objs)):
+        raise AssertionError("the staged front differs from the full one")
+    clean = f_ev.clean_accuracy()
+    dacc = np.maximum(0.0, clean - np.array(list(f_rows.values())))
+    log(f"phase9 staged = full bitwise: {len(f_rows)} rows' accuracies and "
+        f"the front ({len(plan.front)} points); clean accuracy {clean:.4f}; "
+        f"dAcc over the rows min {dacc.min():.4f} max {dacc.max():.4f}, "
+        f"{len(np.unique(dacc))} distinct values")
+    why = _spread_problem(dacc, tokens)
+    if why:
+        raise AssertionError(f"dAcc over the evaluated rows {why}")
+    for row, o in zip(plan.front, plan.front_objs):
+        log(f"  map={''.join(map(str, row))} lat={o[0] * 1e3:.3f}ms "
+            f"energy={o[1] * 1e3:.3f}mJ dAcc={o[2]:.4f}")
+    for name, r in records.items():
+        r["lm_launches"], r["lm_full_launches"] = \
+            s_launches[name], f_launches[name]
+    del s_ev
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # one candidate by kernel group
+    row = np.array(list(f_rows)[:1])
+    t_row = time_ms(lambda: f_ev._dispatch(row), iters=3, warmup=1) \
+        if on_card else 0.0
+    with profile(activities=[ProfilerActivity.CPU]
+                 + ([ProfilerActivity.CUDA] if on_card else [])) as prof:
+        f_ev._dispatch(row)
+        sync()
+    kern = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
+    if on_card and not kern:
+        raise AssertionError("the profiler recorded no device kernel")
+    busy = sum(a.self_device_time_total for a in kern) / 1e3
+    groups = {}
+    for a in kern:
+        g = groups.setdefault(kernel_group(a.key, "cuBLAS matmul"), [0.0, 0])
+        g[0] += a.self_device_time_total / 1e3
+        g[1] += a.count
+    log(f"phase9 one {cfg.name} candidate (kernel backend, {B}x{S} tokens): "
+        f"{t_row:.3f} ms; profiler: kernels busy {busy:.3f} ms "
+        f"({100 * (1 - busy / max(t_row, 1e-9)):.1f}% idle); "
+        + ", ".join(f"{k} {v[0]:.3f} ms in {v[1]}" for k, v in
+                    sorted(groups.items(), key=lambda kv: -kv[1][0])))
+    for name, r in records.items():
+        r["lm_candidate_ms"], r["lm_candidate_launches"] = \
+            groups.get(name, (0.0, 0))
+
+    # starcoder2-3b: GQA, LayerNorm with bias, gelu, an untied head
+    t0 = time.perf_counter()
+    sc_params = init_lm(sc_cfg, seed=1, device=dev)
+    sc_batch = calibration_batch(sc_cfg, B, S, seed=7, device=dev)
+    sc_labels = self_labels(sc_cfg, sc_params, sc_batch)
+    sc_own = (sc_labels == sc_batch["tokens"]).sum().item()
+    sc_ev, _ = evaluator(c=sc_cfg, p=sc_params, b=sc_batch,
+                         y=sc_labels, eval_batch_size="auto")
+    P = np.random.default_rng(6).integers(0, len(scale),
+                                          size=(8, sc_cfg.n_layers))
+    ops.reset_launches()
+    d = sc_ev.delta_acc(P)
+    sync()
+    sc_launches = dict(ops.launches)
+    log(f"phase9 {sc_cfg.name} at depth {sc_cfg.n_layers} (d_model "
+        f"{sc_cfg.d_model}, kv heads {sc_cfg.n_kv_heads}, d_ff {sc_cfg.d_ff}, "
+        f"vocab {sc_cfg.vocab}): dAcc {np.round(d, 4).tolist()} in "
+        f"{time.perf_counter() - t0:.2f} s with set-up, launches "
+        f"{sc_launches}, {len(torch.unique(sc_labels))} distinct labels, "
+        f"{sc_own} of {tokens} their own input token")
+    if (on_card and min(sc_launches.values()) <= 0) \
+            or not np.isfinite(d).all():
+        raise AssertionError("the starcoder2-3b population missed a kernel")
+    for name, r in records.items():
+        r["starcoder2_launches"] = sc_launches[name]
+
+    # generic against kernel on 4 rows of the olmo-1b search
+    P4 = np.array(list(f_rows)[:4])
+    g_ev, _ = evaluator(fault_backend="generic", eval_strategy="full",
+                        eval_batch_size=1)
+    dk, dg = f_ev.delta_acc(P4), g_ev.delta_acc(P4)
+    diff = np.abs(dk - dg)
+    log(f"phase9 kernel {dk.tolist()} generic {dg.tolist()}: "
+        f"{int((diff > 0).sum())} of 4 rows differ, max "
+        f"{diff.max() * tokens:.0f} tokens of {tokens}")
+    del g_ev
+    if diff.max() > 1.0 / tokens:
+        raise AssertionError("generic and kernel dAcc differ by more than "
+                             "1/(B S) in a row")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -572,6 +978,7 @@ def main() -> int:
             replaces="src/repro/kernels/fault_matmul.py:61"),
     }
     check_kernels(dev, records)
+    check_fault_matmul_bf16(dev, records)
 
     # phase 4: the main path
     spec = FaultSpec(**SPEC_RATES)
@@ -685,6 +1092,11 @@ def main() -> int:
     # phase 8: the staged path
     staged_phase(dev, params, labels, spec, layers, cfg, plan, full_rows, ev,
                  records)
+    del params, ev
+    torch.cuda.empty_cache()
+
+    # phase 9: the dense transformer path
+    lm_phase(dev, records)
 
     kernels = [dict(name=name, **{k: r[k] for k in RECORD_KEYS if k in r})
                for name, r in records.items()]

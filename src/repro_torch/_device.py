@@ -20,16 +20,24 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
 
 @contextlib.contextmanager
 def fp32_exact():
-    """Run the float path in IEEE fp32: TF32 off for cuDNN convolutions and
-    for matmuls, whatever the caller's globals say (PyTorch's default lets
-    cuDNN use TF32, which is not what the reference computes).  The
-    caller's settings are put back on exit.  Usable as a decorator."""
-    conv, mm = torch.backends.cudnn.allow_tf32, \
-        torch.backends.cuda.matmul.allow_tf32
+    """Run the float path with every sum in IEEE fp32: TF32 off for cuDNN
+    convolutions and for matmuls, and no reduced-precision reduction in
+    bf16 or fp16 matmuls (cuBLAS may otherwise sum split-K partials in the
+    16-bit type), whatever the caller's globals say.  PyTorch's defaults
+    let cuDNN use TF32 and cuBLAS reduce in 16 bits; the reference does
+    neither.  The caller's settings are put back on exit.  Usable as a
+    decorator."""
+    mm = torch.backends.cuda.matmul
+    saved = (torch.backends.cudnn.allow_tf32, mm.allow_tf32,
+             mm.allow_bf16_reduced_precision_reduction,
+             mm.allow_fp16_reduced_precision_reduction)
     torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    mm.allow_tf32 = False
+    mm.allow_bf16_reduced_precision_reduction = False
+    mm.allow_fp16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = conv
-        torch.backends.cuda.matmul.allow_tf32 = mm
+        (torch.backends.cudnn.allow_tf32, mm.allow_tf32,
+         mm.allow_bf16_reduced_precision_reduction,
+         mm.allow_fp16_reduced_precision_reduction) = saved

@@ -2,7 +2,8 @@
 
 The CNN inits of the reference draw from ``jax.random``, which PyTorch
 cannot redraw, so parity tests build params with the reference and
-convert them.  Nothing here imports JAX: the input trees hold numpy
+convert them (float32, bfloat16 and integer arrays, bitwise).  Nothing
+here imports JAX: the input trees hold numpy
 arrays (``jax.tree.map(np.asarray, params)``), or, for
 :func:`quant_params_from_jax`, the reference's ``QTensor`` leaves, read by
 their attributes.  Dict keys, nesting and layouts (HWIO, (K, N)) are kept.
@@ -20,7 +21,13 @@ __all__ = ["params_from_jax", "quant_params_from_jax"]
 
 
 def _tensor(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        # torch.from_numpy refuses ml_dtypes' bfloat16: carry the bits
+        # across as uint16 and view them as bfloat16 again
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def params_from_jax(tree, device="cuda"):

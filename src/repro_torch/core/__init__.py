@@ -17,10 +17,11 @@ from repro_torch.core.nsga2 import (NSGA2Config, nsga2, nsga2_steps,
 from repro_torch.core.objectives import (InferenceAccuracyEvaluator,
                                          ObjectiveFn,
                                          SurrogateAccuracyEvaluator,
+                                         make_lm_accuracy_evaluator,
                                          profile_layer_sensitivity)
 from repro_torch.core.partitioner import (AFarePart, CNNPartedLike,
                                           FaultUnawareBaseline, PartitionPlan,
-                                          contiguous_stages)
+                                          contiguous_stages, lm_partitioner)
 
 __all__ = [
     "CostModel", "DeviceProfile", "LayerInfo", "EYERISS", "SIMBA",
@@ -31,7 +32,7 @@ __all__ = [
     "device_memory_budget", "FaultSpec", "FaultContext", "PAPER_FAULT_SPEC",
     "NSGA2Config", "nsga2", "nsga2_steps", "fast_non_dominated_sort",
     "InferenceAccuracyEvaluator", "SurrogateAccuracyEvaluator",
-    "ObjectiveFn", "profile_layer_sensitivity",
+    "ObjectiveFn", "profile_layer_sensitivity", "make_lm_accuracy_evaluator",
     "AFarePart", "CNNPartedLike", "FaultUnawareBaseline", "PartitionPlan",
-    "contiguous_stages",
+    "contiguous_stages", "lm_partitioner",
 ]

@@ -58,7 +58,8 @@ from repro_torch.core.eval_engine import (PopulationEvalEngine,
 from repro_torch.core.fault import FaultSpec
 
 __all__ = ["InferenceAccuracyEvaluator", "SurrogateAccuracyEvaluator",
-           "ObjectiveFn", "profile_layer_sensitivity", "FAULT_BACKENDS"]
+           "ObjectiveFn", "profile_layer_sensitivity",
+           "make_lm_accuracy_evaluator", "FAULT_BACKENDS"]
 
 FAULT_BACKENDS = ("generic", "tables", "kernel")
 _DEVICES_TODO = ("devices > 1 is not ported yet (ROADMAP.md Queue A item 9, "
@@ -81,9 +82,23 @@ def _kernel_env(ref):
 
 
 def _accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Per-row Top-1 of ``logits [R, B, classes]`` -> ``[R]``."""
+    """Per-row Top-1 of ``logits [R, *labels.shape, classes]`` -> ``[R]``:
+    images (``labels [B]``) or tokens (``labels [B, S]``), the mean over
+    every label of a row."""
     pred = torch.argmax(logits, dim=-1)
-    return (pred == labels).to(torch.float32).mean(dim=-1)
+    hits = (pred == labels).to(torch.float32)
+    return hits.reshape(hits.shape[0], -1).mean(dim=-1)
+
+
+def _as_input(x, device):
+    """The calibration input on ``device``: a tensor (images) or a batch
+    dict of tensors (an LM's ``{"tokens"}``)."""
+    return tree_map(lambda a: torch.as_tensor(a, device=device), x)
+
+
+def _row_input(x0, rows: int):
+    """The calibration input with a leading axis of ``rows`` (a view)."""
+    return tree_map(lambda t: t.expand(rows, *t.shape), x0)
 
 
 def _compose(step, start: int, length: int, params, tables, x0, labels,
@@ -100,7 +115,7 @@ def _compose(step, start: int, length: int, params, tables, x0, labels,
     @fp32_exact()
     def fn(acts, genes):
         w_dev, a_dev, base = env()
-        x = x0.expand(genes.shape[0], *x0.shape) if acts is None else acts
+        x = _row_input(x0, genes.shape[0]) if acts is None else acts
         for k in range(length):
             i, d = start + k, genes[:, k]
             if tables is not None:
@@ -118,12 +133,15 @@ class InferenceAccuracyEvaluator:
     """ΔAcc via true fault-injected inference (paper Alg. 1 lines 5-7).
 
     ``apply_fn(params, x, weight_rates, act_rates, seed)`` runs the model
-    on images ``x`` for rows of per-unit rates ``[R, L]`` and returns
-    logits ``[R, B, classes]`` (``models.cnn`` models' ``apply``).
+    on the calibration input ``x`` for rows of per-unit rates ``[R, L]``
+    and returns logits ``[R, *labels.shape, classes]`` (``models.cnn``
+    models' ``apply``, ``LMStepModel.apply``).
 
     Args:
       params: per-unit float params on ``device``.
-      x, labels: calibration images (NHWC) and labels, numpy or tensors.
+      x, labels: calibration images (NHWC) and labels ``[B]``, or an LM's
+        batch dict (``{"tokens": [B, S]}``) and labels ``[B, S]``; numpy or
+        tensors.  Accuracy is the Top-1 over every label of a row.
       eval_batch_size: max rows per dispatch (None = one dispatch;
         ``"auto"`` = probe the memory of a 1- and a 2-row dispatch and
         take the largest power-of-two chunk that fits the card, see
@@ -169,7 +187,7 @@ class InferenceAccuracyEvaluator:
         self._qparams = quant_params
         self._apply_fn = apply_fn
         self._params = params
-        self._x = torch.as_tensor(x, device=self.device)
+        self._x = _as_input(x, self.device)
         self.labels = torch.as_tensor(labels, device=self.device)
         self._step_fn = step_fn
         if n_units is None and isinstance(params, (list, tuple)):
@@ -530,6 +548,67 @@ class InferenceAccuracyEvaluator:
         return np.maximum(0.0, clean - faulty)
 
 
+def make_lm_accuracy_evaluator(cfg, params, batch, labels, spec: FaultSpec,
+                               device_fault_scale, *, base_seed: int = 0,
+                               eval_batch_size: int | str | None = None,
+                               eval_strategy: str = "auto",
+                               max_store_bytes: int | None = 256 << 20,
+                               devices: int | str | None = 1,
+                               fuse_chains: bool = True,
+                               fault_backend: str | None = "auto",
+                               device="cuda") -> InferenceAccuracyEvaluator:
+    """Staged-capable ΔAcc evaluator for a dense ``configs.ArchConfig`` LM
+    (the counterpart of the reference's, ``objectives.py:891-972``).
+
+    The model is wrapped in ``models.transformer.LMStepModel`` (one unit
+    per layer, in ``models.graph.lm_layer_infos`` order), its stacked
+    params are sliced into the per-unit list the staged engine walks, and
+    ``apply`` (the step composition) serves the whole-forward path and
+    the clean-accuracy row.
+
+    Args:
+      cfg: the architecture (``cfg.reduced()`` for a small scale;
+        ``models.graph.lm_eval_strategy`` says whether a full config fits).
+      params: ``transformer.init_lm`` output for ``cfg`` on ``device``.
+      batch: calibration batch, ``{"tokens": [B, S]}`` (or the stub
+        frontend's ``{"embeds": [B, S, D]}``).
+      labels: ``[B, S]`` target tokens; ΔAcc is the token-level Top-1
+        drop.  The clean model's own argmax makes clean accuracy ~1.
+      eval_strategy: ``"auto"`` resolves to ``"staged"``; ``"full"`` runs
+        the whole forward (bitwise the same, cost only).
+      fault_backend: ``"generic"`` (what ``"auto"`` resolves to),
+        ``"kernel"`` (the reference's ``"pallas"``: builds
+        ``LMStepModel.quant_unit_params``, one resident integer copy, flips
+        inside ``fault_matmul``) or ``"tables"`` (builds
+        ``LMStepModel.build_weight_fault_tables``).  Value-identical.
+
+    ``spec.bits``/``spec.faulty_bits`` (and the fault model) pin the
+    fixed-point fault width of the corruption.
+    """
+    from repro_torch.models.transformer import LMStepModel
+    sm = LMStepModel(cfg, bits=spec.bits, faulty_bits=spec.faulty_bits,
+                     fault_model=spec.fault_model, mbu_width=spec.mbu_width)
+    units = sm.unit_params(params)
+    if fault_backend in (None, "auto"):
+        fault_backend = "generic"    # no LM tables unless asked for
+    quant_params = tables = None
+    if fault_backend == "kernel":
+        quant_params = sm.quant_unit_params(params)
+    elif fault_backend == "tables":
+        tables = sm.build_weight_fault_tables(
+            units, spec.weight_fault_rate * np.asarray(device_fault_scale,
+                                                       np.float32),
+            base_seed=base_seed)
+    return InferenceAccuracyEvaluator(
+        sm.apply, units, batch, labels, spec, device_fault_scale,
+        base_seed=base_seed, eval_batch_size=eval_batch_size,
+        weight_tables=tables, quant_params=quant_params,
+        fault_backend=fault_backend, step_fn=sm.step,
+        eval_strategy=eval_strategy, n_units=sm.n_units,
+        max_store_bytes=max_store_bytes, devices=devices,
+        fuse_chains=fuse_chains, device=device)
+
+
 class SurrogateAccuracyEvaluator:
     """ΔAcc ≈ Σ_l sensitivity_l · fault_scale[P_l], calibrated.
 
@@ -614,7 +693,7 @@ def profile_layer_sensitivity(apply_fn, params, x, labels, n_layers: int,
     the L one-hot rows form one ``[L+1, L]`` batch of rate rows, run in
     chunks of ``eval_batch_size`` rows (one chunk when None)."""
     dev = resolve_device(device)
-    x = torch.as_tensor(x, device=dev)
+    x = _as_input(x, dev)
     labels = torch.as_tensor(labels, device=dev)
     # row 0 = clean; row 1+l = faults on layer l only
     WR = np.zeros((n_layers + 1, n_layers), np.float32)

@@ -6,6 +6,8 @@ fault-agnostic baselines, the counterpart of ``repro/core/partitioner.py``.
   * ``FaultUnawareBaseline`` — the paper's 2-objective NSGA-II baseline.
   * ``CNNPartedLike``        — 2 objectives with link costs and a
                                latency-leaning selection.
+
+``lm_partitioner`` builds ``AFarePart`` over an LM config's layer graph.
 """
 from __future__ import annotations
 
@@ -13,13 +15,14 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.core.costmodel import CostModel, DeviceProfile, LayerInfo
+from repro_torch.core.costmodel import (POD_TIERS_4, CostModel,
+                                        DeviceProfile, LayerInfo)
 from repro_torch.core.fault import FaultSpec
 from repro_torch.core.nsga2 import NSGA2Config, NSGA2Result, nsga2
-from repro_torch.core.objectives import ObjectiveFn
+from repro_torch.core.objectives import ObjectiveFn, SurrogateAccuracyEvaluator
 
 __all__ = ["PartitionPlan", "AFarePart", "FaultUnawareBaseline",
-           "CNNPartedLike", "contiguous_stages"]
+           "CNNPartedLike", "contiguous_stages", "lm_partitioner"]
 
 
 @dataclasses.dataclass
@@ -152,3 +155,36 @@ class CNNPartedLike(_BasePartitioner):
 
     include_link_costs = True
     select_policy = "latency_energy"
+
+
+def lm_partitioner(cfg, acc_evaluator=None, *,
+                   devices: tuple[DeviceProfile, ...] = POD_TIERS_4,
+                   seq: int = 4096, fault_spec: FaultSpec = FaultSpec(),
+                   nsga2_config: NSGA2Config = NSGA2Config(),
+                   batch: int = 1,
+                   eval_batch_size: int | str | None = None,
+                   eval_strategy: str | None = None,
+                   eval_devices: int | str | None = None,
+                   fuse_chains: bool | None = None,
+                   fault_backend: str | None = None) -> AFarePart:
+    """:class:`AFarePart` over an LM config's layer graph
+    (``models.graph.lm_layer_infos``).
+
+    ``acc_evaluator`` is the ΔAcc source: the evaluator of
+    ``core.objectives.make_lm_accuracy_evaluator`` for a config that
+    ``models.graph.lm_eval_strategy`` resolves to ``"staged"`` (small
+    enough to instantiate), or None for the sensitivity surrogate over the
+    same layer infos (the cost-model-only path of the 27-480B configs,
+    numpy only).  ``eval_strategy``, ``fuse_chains``, ``fault_backend``
+    and ``eval_batch_size`` override the evaluator's settings, as in
+    :class:`AFarePart`."""
+    from repro_torch.models.graph import lm_layer_infos
+    layers = lm_layer_infos(cfg, seq=seq)
+    if acc_evaluator is None:
+        acc_evaluator = SurrogateAccuracyEvaluator(
+            CostModel(layers, devices, batch=batch))
+    return AFarePart(layers, devices, fault_spec=fault_spec,
+                     acc_evaluator=acc_evaluator, nsga2_config=nsga2_config,
+                     batch=batch, eval_batch_size=eval_batch_size,
+                     eval_strategy=eval_strategy, eval_devices=eval_devices,
+                     fuse_chains=fuse_chains, fault_backend=fault_backend)

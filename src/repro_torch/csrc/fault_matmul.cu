@@ -4,12 +4,13 @@
 // flips applied to the weight tile on chip so no corrupted weight matrix
 // is ever written to memory.
 //
-// Port shape: x is [R, M, K] float32 (one candidate per row), qw is the
-// shared (K, N) integer matrix, each row corrupts it at its own rate with
-// idx = k * N + n in the unpadded matrix; out is [R, M, N] float32.
+// Port shape: x is [R, M, K] float32 or bfloat16 (one candidate per row),
+// qw is the shared (K, N) integer matrix, each row corrupts it at its own
+// rate with idx = k * N + n in the unpadded matrix; out is [R, M, N] in
+// x's type.
 //
-// int8 qw (every weight the CNN path stores) runs on the tensor cores,
-// still fp32-accurate, because the operands split exactly:
+// float32 x with int8 qw (every weight the CNN path stores) runs on the
+// tensor cores, still fp32-accurate, because the operands split exactly:
 //   * an int8 weight, corrupted or not, is exact in bf16;
 //   * a float32 x is exactly b0 + b1 + b2, three bf16 values
 //     (b0 = bf16(x), b1 = bf16(x - b0), b2 = bf16(x - b0 - b1));
@@ -51,12 +52,31 @@
 // comparing them with every row's threshold.  The K-slice count is chosen
 // per row (ops._k_splits), so a row sums in the same order whatever R is.
 //
-// int16 and int32 qw keep the SIMT body below: their values are not exact
-// in bf16.  The CNN path never stores them; this is dispatch by storage
-// type, and nothing catches a failure of the tensor-core path.  That body
-// is a 128x128x8 shared-memory SGEMM that corrupts and dequantizes each
-// weight tile in shared memory (once per 128-row block of x), with fp32
-// FMAs and the same split-K.
+// bf16 x (the transformer path: every LM config runs in bf16) computes the
+// reference's CPU function (repro/kernels/ops.py:74-79) for a bf16 weight
+// dtype: w = bf16(fp32(q') * scale), out = bf16(x @ w) with the sum in
+// fp32.  (The TPU tile keeps w in fp32 and never rounds it; the reference's
+// tests check the CPU path, and so does the port.)  Both operands are then
+// exact bf16, so it is ONE wgmma per k-step and m64 tile, with no split
+// of x, and the fp32 accumulator is the reference's accumulation.  The
+// dequantization moves into the producer that hashes the B tile: flip,
+// times the scale in fp32, round to bf16, into shared memory; it cannot
+// wait for the epilogue, since bf16(q' s) != q' bf16(s).  As the tile in
+// shared memory is bf16 either way, int8, int16 and int32 storage all
+// feed the tensor cores here.  x arrives through the same cp.async ring
+// (16 bf16 of a row are two 16-byte chunks).  The output is bf16, rounded
+// once from the fp32 sum (after the split-K slices are summed in order).
+// Bound: at M = B S = 2048 (olmo-1b's calibration batch) a weight is
+// hashed once per 512-row block, four times a call, so the hash (integer
+// pipe) still outweighs the single bf16 product.
+//
+// int16 and int32 qw with float32 x keep the SIMT body below: their values
+// are not exact in bf16, and x is not split for them.  The CNN path never
+// stores them; this is dispatch by operand types, and nothing catches a
+// failure of the tensor-core path.  That body is a 128x128x8
+// shared-memory SGEMM that corrupts and dequantizes each weight tile in
+// shared memory (once per 128-row block of x), with fp32 FMAs and the
+// same split-K.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -150,7 +170,7 @@ kernel(const float* __restrict__ x, const T* __restrict__ qw,
 }  // namespace simt
 
 // ---------------------------------------------------------------------
-// Tensor-core body (int8)
+// Tensor-core body (float32 x with int8 qw; bfloat16 x with any qw)
 namespace tc {
 
 constexpr int WGS = 4;                 // warpgroups, all of them consumers
@@ -159,15 +179,17 @@ constexpr int MT = 2;                  // m64 tiles per warpgroup
 constexpr int BM = 64 * MT * WGS;      // rows per block: 512
 constexpr int BK = 16;                 // one wgmma k-step per stage
 constexpr int XS = 3;                  // stages of the x ring
-constexpr int XLD = BK + 8;            // x row stride in floats: 96 B, so
-                                       // the fragment reads miss no bank
-constexpr int X_STAGE = BM * XLD;      // floats per x stage
+constexpr int XLD = BK + 8;            // x row stride in elements: 96 B
+                                       // (float) or 48 B (bf16), so the
+                                       // fragment reads miss no bank
+constexpr int X_STAGE = BM * XLD;      // elements per x stage
 
 // Bytes of one B tile: BN x 16 bf16 in the no-swizzle K-major layout,
 // core matrices of 8 n-rows x 16 bytes (8 k), the two k-halves 128 B
 // apart (LBO), successive 8-row groups 256 B apart (SBO).
 template <int BN> constexpr int B_BYTES = BN * BK * 2;
-template <int BN> constexpr int SMEM_BYTES = 2 * B_BYTES<BN> + XS * X_STAGE * 4;
+template <int BN, typename XT>
+constexpr int SMEM_BYTES = 2 * B_BYTES<BN> + XS * X_STAGE * sizeof(XT);
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -183,7 +205,7 @@ __device__ __forceinline__ uint64_t b_desc(const void* tile) {
          (static_cast<uint64_t>(256 >> 4) << 32);
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
@@ -286,51 +308,86 @@ __device__ __forceinline__ void split3(float2 v, uint32_t& h0, uint32_t& h1,
   h2 = bf16x2_bits(__float22bfloat162_rn(r2));
 }
 
+// A fragment word h of m64 tile j for the thread, from x stage xt: the two
+// neighbouring k of (row, col) = (r, 2tq) (r+8, 2tq) (r, 2tq+8) (r+8, 2tq+8)
+// for h = 0..3.  float32 x gives three words (the exact bf16 split), bf16
+// x one.
+template <typename XT> struct Frag;
+
+template <> struct Frag<float> {
+  static constexpr int P = 3;
+  static __device__ __forceinline__ void load(const float* p,
+                                              uint32_t (&a)[P][4], int h) {
+    split3(*reinterpret_cast<const float2*>(p), a[0][h], a[1][h], a[2][h]);
+  }
+};
+
+template <> struct Frag<__nv_bfloat16> {
+  static constexpr int P = 1;
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              uint32_t (&a)[P][4], int h) {
+    a[0][h] = *reinterpret_cast<const uint32_t*>(p);
+  }
+};
+
 // grid: (N tiles, M chunks of BM, rows * splits); THREADS threads;
-// SMEM_BYTES<BN> of dynamic shared memory.
-template <int BN, int MODEL>
+// SMEM_BYTES<BN, XT> of dynamic shared memory.  XT float: the scale is
+// applied in the epilogue (q' is exact in bf16); XT bf16: in the producer,
+// before the rounding to bf16.  dst is [rows, M, N] in XT where splits is
+// 1, else the float32 partial sums [splits, rows, M, N].
+template <int BN, int MODEL, typename XT, typename QT>
 __global__ void __launch_bounds__(THREADS, 1)
-kernel(const float* __restrict__ x, const int8_t* __restrict__ qw,
-       float* __restrict__ out, const float* __restrict__ scale_p,
+kernel(const XT* __restrict__ x, const QT* __restrict__ qw,
+       void* __restrict__ dst_p, const float* __restrict__ scale_p,
        const float* __restrict__ rate_p, int rows, int M, int K, int N,
-       int k_chunk, bool x_vec, uint32_t seed, int faulty_bits,
+       int k_chunk, int splits, bool x_vec, uint32_t seed, int faulty_bits,
        int mbu_width) {
+  constexpr bool kBf16 = sizeof(XT) == 2;
+  constexpr int CHUNKS = BK * static_cast<int>(sizeof(XT)) / 16;  // a row
+  constexpr int CHUNK_K = 16 / static_cast<int>(sizeof(XT));
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* bt = smem;                                   // 2 B tiles
-  float* xs = reinterpret_cast<float*>(smem + 2 * B_BYTES<BN>);
+  XT* xs = reinterpret_cast<XT*>(smem + 2 * B_BYTES<BN>);
 
   const int row = blockIdx.z % rows, split = blockIdx.z / rows;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int k_begin = split * k_chunk, k_end = min(K, k_begin + k_chunk);
   const int nk = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
   const uint32_t thresh = afp::rate_threshold(rate_p[row]);
-  const float* xr = x + static_cast<int64_t>(row) * M * K;
+  const float scale = *scale_p;
+  const XT* xr = x + static_cast<int64_t>(row) * M * K;
   const int t = threadIdx.x;
   const int wg = t / 128, warp = (t / 32) % 4, lane = t % 32;
   const int g = lane / 4, tq = lane % 4;
 
-  // x stage s -> ring slot s % XS.  Thread t copies the 16-byte chunks
-  // of rows t / 4 + i THREADS / 4, k 4 (t % 4) + 0..3 of the stage.  Rows
-  // past M and k past the slice arrive as zeros.
-  constexpr int ROW_STEP = THREADS / 4;
-  const int xk = 4 * (t % 4);
-  const float* x_src = xr + static_cast<int64_t>(m0 + t / 4) * K + k_begin + xk;
+  // x stage s -> ring slot s % XS.  Thread t copies the 16-byte chunk t %
+  // CHUNKS of rows t / CHUNKS + i THREADS / CHUNKS of the stage.  Rows past
+  // M and k past the slice arrive as zeros.  Without 16-byte alignment,
+  // float32 x goes by 4-byte cp.async, bf16 x by plain loads and stores.
+  constexpr int ROW_STEP = THREADS / CHUNKS;
+  const int xk = CHUNK_K * (t % CHUNKS);
+  const XT* x_src = xr + static_cast<int64_t>(m0 + t / CHUNKS) * K + k_begin + xk;
   auto load_x = [&](int s) {
-    const float* src = x_src + s * BK;
-    float* dst = xs + (s % XS) * X_STAGE + (t / 4) * XLD + xk;
+    const XT* src = x_src + s * BK;
+    XT* dst = xs + (s % XS) * X_STAGE + (t / CHUNKS) * XLD + xk;
     const int k = k_begin + s * BK + xk;
 #pragma unroll
     for (int i = 0; i < BM / ROW_STEP; ++i) {
-      const bool row_ok = m0 + t / 4 + i * ROW_STEP < M;
+      const bool row_ok = m0 + t / CHUNKS + i * ROW_STEP < M;
       if (x_vec) {
         const bool ok = row_ok && k < k_end;
         cp_async16(dst, ok ? src : xr, ok);
+      } else if (!kBf16) {
+#pragma unroll
+        for (int e = 0; e < CHUNK_K; ++e) {
+          const bool ok = row_ok && k + e < k_end;
+          cp_async4(reinterpret_cast<float*>(dst) + e,
+                    reinterpret_cast<const float*>(ok ? src + e : xr), ok);
+        }
       } else {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool ok = row_ok && k + e < k_end;
-          cp_async4(dst + e, ok ? src + e : xr, ok);
-        }
+        for (int e = 0; e < CHUNK_K; ++e)
+          dst[e] = row_ok && k + e < k_end ? src[e] : XT(0.0f);
       }
       src += static_cast<int64_t>(ROW_STEP) * K;
       dst += ROW_STEP * XLD;
@@ -341,14 +398,14 @@ kernel(const float* __restrict__ x, const int8_t* __restrict__ qw,
   // + {0, 1} at column n = t % BN of every stage.
   const bool owner = t < 8 * BN;
   const int wn = t % BN, wk = 2 * (t / BN);
-  auto load_q = [&](int s, int8_t (&q)[2]) {
+  auto load_q = [&](int s, QT (&q)[2]) {
     const int k = k_begin + s * BK + wk, n = n0 + wn;
 #pragma unroll
     for (int j = 0; j < 2; ++j)
       q[j] = (k + j < k_end && n < N)
-                 ? qw[static_cast<int64_t>(k + j) * N + n] : int8_t(0);
+                 ? qw[static_cast<int64_t>(k + j) * N + n] : QT(0);
   };
-  auto corrupt_q = [&](int s, const int8_t (&q)[2]) {
+  auto corrupt_q = [&](int s, const QT (&q)[2]) {
     const int k = k_begin + s * BK + wk, n = n0 + wn;
     float f[2];
 #pragma unroll
@@ -357,6 +414,7 @@ kernel(const float* __restrict__ x, const int8_t* __restrict__ qw,
                            + static_cast<uint32_t>(n);
       f[j] = static_cast<float>(afp::apply_fault<MODEL>(
           q[j], idx, seed, thresh, faulty_bits, mbu_width));
+      if (kBf16) f[j] = __fmul_rn(f[j], scale);
     }
     *reinterpret_cast<uint32_t*>(bt + (s % 2) * B_BYTES<BN> +
                                  b_offset(wn, wk)) =
@@ -364,6 +422,7 @@ kernel(const float* __restrict__ x, const int8_t* __restrict__ qw,
   };
 
   constexpr int R = Mma<BN>::R;
+  constexpr int P = Frag<XT>::P;
   float acc[MT][R];
 #pragma unroll
   for (int j = 0; j < MT; ++j)
@@ -372,7 +431,7 @@ kernel(const float* __restrict__ x, const int8_t* __restrict__ qw,
 
   // prologue: x stages 0 and 1 in flight, B tile 0 corrupted, the raw
   // weights of stage 1 in registers
-  int8_t qn[2] = {0, 0};
+  QT qn[2] = {QT(0), QT(0)};
 #pragma unroll
   for (int s = 0; s < XS - 1; ++s) {
     if (s < nk) load_x(s);
@@ -392,23 +451,20 @@ kernel(const float* __restrict__ x, const int8_t* __restrict__ qw,
     if (s + XS - 1 < nk) load_x(s + XS - 1);
     cp_async_commit();
 
-    const float* xt = xs + (s % XS) * X_STAGE;
+    const XT* xt = xs + (s % XS) * X_STAGE;
     const uint64_t desc = b_desc(bt + (s % 2) * B_BYTES<BN>);
-    uint32_t a[MT][3][4];
+    uint32_t a[MT][P][4];
 #pragma unroll
     for (int j = 0; j < MT; ++j) {
       if (m0 + wg * 128 + j * 64 >= M) continue;  // uniform per warpgroup
       const int r = wg * 128 + j * 64 + warp * 16 + g;
 #pragma unroll
-      for (int h = 0; h < 4; ++h) {   // (row, col) = (r, 2tq) (r+8, 2tq)
-                                      //  (r, 2tq+8) (r+8, 2tq+8)
-        const float2 v = *reinterpret_cast<const float2*>(
-            xt + (r + (h & 1) * 8) * XLD + 2 * tq + (h >> 1) * 8);
-        split3(v, a[j][0][h], a[j][1][h], a[j][2][h]);
-      }
+      for (int h = 0; h < 4; ++h)
+        Frag<XT>::load(xt + (r + (h & 1) * 8) * XLD + 2 * tq + (h >> 1) * 8,
+                       a[j], h);
       wgmma_fence();
 #pragma unroll
-      for (int p = 0; p < 3; ++p) Mma<BN>::run(acc[j], a[j][p], desc);
+      for (int p = 0; p < P; ++p) Mma<BN>::run(acc[j], a[j][p], desc);
     }
     wgmma_commit();
 
@@ -426,11 +482,14 @@ kernel(const float* __restrict__ x, const int8_t* __restrict__ qw,
 
   // epilogue: d[4c + e] of an m64nN tile is (row 16 warp + g + 8 (e / 2),
   // col 8c + 2tq + e % 2), so d[2i], d[2i + 1] are neighbours in a row and
-  // go out as one 8-byte store where N is even; + 0.0f turns a -0 sum of
-  // zeros into +0
-  const float scale = *scale_p;
-  float* dst = out + (static_cast<int64_t>(split) * rows + row) * M * N;
-  auto fin = [&](float v) { return __fmul_rn(__fadd_rn(v, 0.0f), scale); };
+  // go out as one store where N is even; + 0.0f turns a -0 sum of zeros
+  // into +0; float32 x takes the scale here
+  const bool out_bf16 = kBf16 && splits == 1;
+  const int64_t base = (static_cast<int64_t>(split) * rows + row) * M * N;
+  auto fin = [&](float v) {
+    v = __fadd_rn(v, 0.0f);
+    return kBf16 ? v : __fmul_rn(v, scale);
+  };
 #pragma unroll
   for (int j = 0; j < MT; ++j) {
 #pragma unroll
@@ -438,45 +497,94 @@ kernel(const float* __restrict__ x, const int8_t* __restrict__ qw,
       const int m = m0 + wg * 128 + j * 64 + warp * 16 + g + 8 * ((i / 2) % 2);
       const int n = n0 + 8 * (i / 4) + 2 * tq;
       if (m >= M) continue;
-      float* o = dst + static_cast<int64_t>(m) * N + n;
-      if (N % 2 == 0 && n + 1 < N) {
-        *reinterpret_cast<float2*>(o) =
-            make_float2(fin(acc[j][i]), fin(acc[j][i + 1]));
+      const int64_t o = base + static_cast<int64_t>(m) * N + n;
+      const float v0 = fin(acc[j][i]), v1 = fin(acc[j][i + 1]);
+      if (out_bf16) {
+        __nv_bfloat16* d = static_cast<__nv_bfloat16*>(dst_p) + o;
+        if (N % 2 == 0 && n + 1 < N) {
+          *reinterpret_cast<__nv_bfloat162*>(d) = __floats2bfloat162_rn(v0, v1);
+        } else {
+          if (n < N) d[0] = __float2bfloat16_rn(v0);
+          if (n + 1 < N) d[1] = __float2bfloat16_rn(v1);
+        }
       } else {
-        if (n < N) o[0] = fin(acc[j][i]);
-        if (n + 1 < N) o[1] = fin(acc[j][i + 1]);
+        float* d = static_cast<float*>(dst_p) + o;
+        if (N % 2 == 0 && n + 1 < N) {
+          *reinterpret_cast<float2*>(d) = make_float2(v0, v1);
+        } else {
+          if (n < N) d[0] = v0;
+          if (n + 1 < N) d[1] = v1;
+        }
       }
     }
   }
 }
 
-template <int BN, int MODEL>
-cudaError_t launch(const float* x, const int8_t* qw, float* dst,
-                   const float* scale, const float* rate, int rows, int M,
-                   int K, int N, int splits, int k_chunk, uint32_t seed,
-                   int faulty_bits, int mbu_width, cudaStream_t s) {
-  constexpr int smem = SMEM_BYTES<BN>;
+template <int BN, int MODEL, typename XT, typename QT>
+cudaError_t launch(const XT* x, const QT* qw, void* dst, const float* scale,
+                   const float* rate, int rows, int M, int K, int N,
+                   int splits, int k_chunk, uint32_t seed, int faulty_bits,
+                   int mbu_width, cudaStream_t s) {
+  constexpr int smem = SMEM_BYTES<BN, XT>;
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kernel<BN, MODEL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel<BN, MODEL, XT, QT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
-  const bool x_vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  constexpr int vec = 16 / static_cast<int>(sizeof(XT));
+  const bool x_vec = K % vec == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, rows * splits);
-  kernel<BN, MODEL><<<grid, THREADS, smem, s>>>(
-      x, qw, dst, scale, rate, rows, M, K, N, k_chunk, x_vec, seed,
+  kernel<BN, MODEL, XT, QT><<<grid, THREADS, smem, s>>>(
+      x, qw, dst, scale, rate, rows, M, K, N, k_chunk, splits, x_vec, seed,
       faulty_bits, mbu_width);
   return cudaGetLastError();
 }
 
+// Both N tiles of one (x type, storage type) pair.
+template <int MODEL, typename XT, typename QT>
+cudaError_t launch_tc(const void* x, const void* qw, void* dst,
+                      const float* scale, const float* rate, int rows, int M,
+                      int K, int N, int splits, int k_chunk, uint32_t seed,
+                      int faulty_bits, int mbu_width, cudaStream_t s) {
+  const XT* xp = static_cast<const XT*>(x);
+  const QT* qp = static_cast<const QT*>(qw);
+  if (N <= 16)
+    return launch<16, MODEL, XT, QT>(xp, qp, dst, scale, rate, rows, M, K, N,
+                                     splits, k_chunk, seed, faulty_bits,
+                                     mbu_width, s);
+  return launch<64, MODEL, XT, QT>(xp, qp, dst, scale, rate, rows, M, K, N,
+                                   splits, k_chunk, seed, faulty_bits,
+                                   mbu_width, s);
+}
+
 }  // namespace tc
 
-// out[i] = sum over s of partial[s][i], in slice order; four elements a
-// thread per step where n % 4 == 0 (the buffers are 16-byte aligned).
+// out[i] = sum over s of partial[s][i], in slice order, written as float32
+// or rounded once to bf16; four elements a thread per step where n % 4 == 0
+// (the buffers are 16-byte aligned).
+__device__ __forceinline__ void store4(float* out, int64_t i, float4 v) {
+  reinterpret_cast<float4*>(out)[i] = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* out, int64_t i,
+                                       float4 v) {
+  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(out) + 2 * i;
+  o[0] = __floats2bfloat162_rn(v.x, v.y);
+  o[1] = __floats2bfloat162_rn(v.z, v.w);
+}
+__device__ __forceinline__ void store1(float* out, int64_t i, float v) {
+  out[i] = v;
+}
+__device__ __forceinline__ void store1(__nv_bfloat16* out, int64_t i,
+                                       float v) {
+  out[i] = __float2bfloat16_rn(v);
+}
+
+template <typename OT>
 __global__ void sum_splits_kernel(const float* __restrict__ partial,
-                                  float* __restrict__ out, int64_t n,
+                                  OT* __restrict__ out, int64_t n,
                                   int splits) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -488,57 +596,59 @@ __global__ void sum_splits_kernel(const float* __restrict__ partial,
         const float4 v = p[s * (n / 4) + i];
         acc.x += v.x; acc.y += v.y; acc.z += v.z; acc.w += v.w;
       }
-      reinterpret_cast<float4*>(out)[i] = acc;
+      store4(out, i, acc);
     }
     return;
   }
   for (int64_t i = tid; i < n; i += stride) {
     float acc = partial[i];
     for (int s = 1; s < splits; ++s) acc += partial[s * n + i];
-    out[i] = acc;
+    store1(out, i, acc);
   }
 }
 
 }  // namespace
 
-// x: rows x M x K float32; qw: K x N integers of `qbytes` bytes; out:
-// rows x M x N float32; scale: one float32; rate: rows float32.  With
-// splits > 1, partial is a splits x rows x M x N float32 workspace.  int8
-// runs the tensor-core body (N tile 16 for N <= 16, else 64), int16 and
-// int32 the SIMT body; K is cut into `splits` slices of whole k-steps
-// (16 of K on the tensor cores, 8 on the SIMT body).
-extern "C" int afp_fault_matmul(const float* x, const void* qw, float* out,
+// x: rows x M x K, float32 (x_bf16 0) or bfloat16 (x_bf16 1); qw: K x N
+// integers of `qbytes` bytes; out: rows x M x N in x's type; scale: one
+// float32; rate: rows float32.  With splits > 1, partial is a splits x rows
+// x M x N float32 workspace.  bf16 x and float32 x with int8 qw run the
+// tensor-core body (N tile 16 for N <= 16, else 64), float32 x with int16
+// or int32 qw the SIMT body; K is cut into `splits` slices of whole
+// k-steps (16 of K on the tensor cores, 8 on the SIMT body).
+extern "C" int afp_fault_matmul(const void* x, const void* qw, void* out,
                                 float* partial, const float* scale,
                                 const float* rate, int64_t rows, int64_t M,
                                 int64_t K, int64_t N, int splits, int qbytes,
-                                int model, uint32_t seed, int faulty_bits,
-                                int mbu_width, void* stream) {
+                                int x_bf16, int model, uint32_t seed,
+                                int faulty_bits, int mbu_width, void* stream) {
   if (rows <= 0 || M <= 0 || N <= 0) return static_cast<int>(cudaSuccess);
   if (splits < 1 || rows * splits > 65535 || M > (1LL << 30) ||
       K > (1LL << 30) || N > (1LL << 30) || K * N > 0xFFFFFFFFLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int bk = qbytes == 1 ? tc::BK : simt::BK;
-  const int bm = qbytes == 1 ? tc::BM : simt::BM;
+  const bool tensor_cores = x_bf16 || qbytes == 1;
+  const int bk = tensor_cores ? tc::BK : simt::BK;
+  const int bm = tensor_cores ? tc::BM : simt::BM;
   if ((M + bm - 1) / bm > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t k_steps = (K + bk - 1) / bk;
   const int k_chunk = static_cast<int>((k_steps + splits - 1) / splits * bk);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* dst = splits > 1 ? partial : out;
+  void* dst = splits > 1 ? static_cast<void*>(partial) : out;
   const int r = static_cast<int>(rows), m = static_cast<int>(M),
             k = static_cast<int>(K), n = static_cast<int>(N);
   cudaError_t err = cudaSuccess;
-  if (qbytes == 1) {
-    const int8_t* q = static_cast<const int8_t*>(qw);
-    if (N <= 16) {
-      AFP_DISPATCH_MODEL(model, err = tc::launch<16, MODEL>(
-          x, q, dst, scale, rate, r, m, k, n, splits, k_chunk, seed,
-          faulty_bits, mbu_width, s));
-    } else {
-      AFP_DISPATCH_MODEL(model, err = tc::launch<64, MODEL>(
-          x, q, dst, scale, rate, r, m, k, n, splits, k_chunk, seed,
-          faulty_bits, mbu_width, s));
-    }
+  if (x_bf16) {
+    AFP_DISPATCH_INT(qbytes, AFP_DISPATCH_MODEL(model,
+        err = (tc::launch_tc<MODEL, __nv_bfloat16, QT>(
+            x, qw, dst, scale, rate, r, m, k, n, splits, k_chunk, seed,
+            faulty_bits, mbu_width, s))));
+  } else if (qbytes == 1) {
+    AFP_DISPATCH_MODEL(model, err = (tc::launch_tc<MODEL, float, int8_t>(
+        x, qw, dst, scale, rate, r, m, k, n, splits, k_chunk, seed,
+        faulty_bits, mbu_width, s)));
   } else {
+    const float* xf = static_cast<const float*>(x);
+    float* df = static_cast<float*>(dst);
     const dim3 grid(static_cast<unsigned>((N + simt::BN - 1) / simt::BN),
                     static_cast<unsigned>((M + simt::BM - 1) / simt::BM),
                     static_cast<unsigned>(rows * splits));
@@ -546,13 +656,13 @@ extern "C" int afp_fault_matmul(const float* x, const void* qw, float* out,
       case 2:
         AFP_DISPATCH_MODEL(model,
             simt::kernel<int16_t, MODEL><<<grid, simt::THREADS, 0, s>>>(
-                x, static_cast<const int16_t*>(qw), dst, scale, rate, r, m,
+                xf, static_cast<const int16_t*>(qw), df, scale, rate, r, m,
                 k, n, k_chunk, seed, faulty_bits, mbu_width));
         break;
       case 4:
         AFP_DISPATCH_MODEL(model,
             simt::kernel<int32_t, MODEL><<<grid, simt::THREADS, 0, s>>>(
-                x, static_cast<const int32_t*>(qw), dst, scale, rate, r, m,
+                xf, static_cast<const int32_t*>(qw), df, scale, rate, r, m,
                 k, n, k_chunk, seed, faulty_bits, mbu_width));
         break;
       default:
@@ -563,7 +673,12 @@ extern "C" int afp_fault_matmul(const float* x, const void* qw, float* out,
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const int64_t total = rows * M * N;
   const int64_t blocks = (total + 255) / 256;
-  sum_splits_kernel<<<static_cast<unsigned>(blocks < 132 * 8 ? blocks : 132 * 8),
-                      256, 0, s>>>(partial, out, total, splits);
+  const unsigned grid = static_cast<unsigned>(blocks < 132 * 8 ? blocks : 132 * 8);
+  if (x_bf16)
+    sum_splits_kernel<__nv_bfloat16><<<grid, 256, 0, s>>>(
+        partial, static_cast<__nv_bfloat16*>(out), total, splits);
+  else
+    sum_splits_kernel<float><<<grid, 256, 0, s>>>(
+        partial, static_cast<float*>(out), total, splits);
   return static_cast<int>(cudaGetLastError());
 }

@@ -61,7 +61,7 @@ def main() -> None:
         qw = torch.randint(-127, 128, (K, N), device=dev, dtype=torch.int8,
                            generator=gen)
         x = torch.randn(1, M, K, device=dev, generator=gen)
-        own = default_splits(M, K, N, 1, dev)
+        own = default_splits(M, K, N, True, dev)
         for splits in sorted({own, 8}):
             ops._k_splits = lambda *_, s=splits: s
             for bits in (4, 0):

@@ -37,7 +37,7 @@ _SIGNATURES = {
     "afp_quant_bitflip": [_P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I32,
                           _U32, _I32, _I32, _P],
     "afp_fault_matmul": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
-                         _I32, _I32, _I32, _U32, _I32, _I32, _P],
+                         _I32, _I32, _I32, _I32, _U32, _I32, _I32, _P],
 }
 
 launches = {"bitflip": 0, "quant_bitflip": 0, "fault_matmul": 0}
@@ -95,7 +95,7 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _k_splits(M: int, K: int, N: int, qbytes: int,
+def _k_splits(M: int, K: int, N: int, tensor_cores: bool,
               device: torch.device) -> int:
     """K slices for ``fault_matmul`` (``csrc/fault_matmul.cu``), chosen for
     ONE row: the slices are summed in slice order, so a row's result
@@ -103,15 +103,16 @@ def _k_splits(M: int, K: int, N: int, qbytes: int,
     an R-row call what a one-row call gives (the staged engine's chunks
     against the whole-forward path's single rows).
 
-    int8, the tensor-core body: blocks of 512 rows x an N tile of 16 (N <=
-    16) or 64, one block per SM (512 threads, ~150 KB of shared memory), so
-    as many slices as leave one row one wave: at most one block per SM,
-    each slice at least one k-step (16 of K) long.  ResNet18's fc (K = 512)
-    thus runs 32 blocks a row, AlexNet's fc0 128.  int16/int32, the SIMT
-    body: 128x128 tiles, two blocks per SM, each slice at least 16 k-steps
-    (128 of K) long."""
+    The tensor-core body (float32 x with int8 weights, bfloat16 x with any):
+    blocks of 512 rows x an N tile of 16 (N <= 16) or 64, one block per SM
+    (512 threads), so as many slices as leave one row one wave: at most one
+    block per SM, each slice at least one k-step (16 of K) long.  ResNet18's
+    fc (K = 512) thus runs 32 blocks a row, AlexNet's fc0 128, and every
+    olmo-1b projection (M = 2048) one slice.  The SIMT body (float32 x with
+    int16/int32 weights): 128x128 tiles, two blocks per SM, each slice at
+    least 16 k-steps (128 of K) long."""
     sms = _sm_count(device.index or 0)
-    if qbytes == 1:
+    if tensor_cores:
         tiles = -(-M // 512) * -(-N // (16 if N <= 16 else 64))
         want, steps = sms // tiles, -(-K // 16)
     else:
@@ -182,14 +183,19 @@ def fault_matmul(x: torch.Tensor, qw: torch.Tensor, scale, seed, rate,
                  mbu_width: int = 2) -> torch.Tensor:
     """``x @ dequant(corrupt(qw))`` with fp32 accumulation; ``qw`` is the
     shared ``(K, N)`` integer matrix, ``scale`` its float32 scale.  With a
-    ``[R]`` rate ``x`` is ``[R, ..., K]`` and returns ``[R, ..., N]``."""
+    ``[R]`` rate ``x`` is ``[R, ..., K]`` and returns ``[R, ..., N]``.
+    The dequantized weight is cast to ``x.dtype`` before the product, as
+    the reference's ``out_dtype`` does for a model of that dtype: float32
+    x with float32 weights, or bfloat16 x with bfloat16 weights (the
+    result is then bfloat16, rounded once from the fp32 sum)."""
     if not _is_cuda(x):
         return _ref.fault_matmul_ref(x, qw, scale, seed, rate, faulty_bits,
                                      fault_model=fault_model,
                                      mbu_width=mbu_width)
     _check(qw.ndim == 2 and x.ndim >= 1 and x.shape[-1] == qw.shape[0],
            f"contraction mismatch: x {tuple(x.shape)} @ qw {tuple(qw.shape)}")
-    _check(x.dtype == torch.float32, f"fault_matmul takes float32 x, got {x.dtype}")
+    _check(x.dtype in (torch.float32, torch.bfloat16),
+           f"fault_matmul takes float32 or bfloat16 x, got {x.dtype}")
     _check(qw.dtype in _INT_BYTES, f"fault_matmul takes int8/16/32 qw, got {qw.dtype}")
     _check(x.is_contiguous() and qw.is_contiguous(),
            "fault_matmul needs contiguous x and qw")
@@ -202,18 +208,20 @@ def fault_matmul(x: torch.Tensor, qw: torch.Tensor, scale, seed, rate,
     _check(scale_t.numel() == 1, "fault_matmul takes one per-tensor scale")
     K, N = qw.shape
     M = x.shape[:-1].numel() // R
-    out = torch.empty((*x.shape[:-1], N), dtype=torch.float32, device=x.device)
-    splits = _k_splits(M, K, N, _INT_BYTES[qw.dtype], x.device)
+    x_bf16 = x.dtype == torch.bfloat16
+    out = torch.empty((*x.shape[:-1], N), dtype=x.dtype, device=x.device)
+    splits = _k_splits(M, K, N, x_bf16 or qw.dtype == torch.int8, x.device)
     step = _MAX_GRID_Z // splits       # rows a launch, within the grid
     partial = torch.empty((splits, min(R, step), M, N) if splits > 1
                           else (0,), dtype=torch.float32, device=x.device)
     scale_p = scale_t.contiguous().data_ptr()
+    size = x.element_size()
     for r0 in range(0, R, step):
         rows = min(step, R - r0)
-        _launch("afp_fault_matmul", x.data_ptr() + r0 * M * K * 4,
-                qw.data_ptr(), out.data_ptr() + r0 * M * N * 4,
+        _launch("afp_fault_matmul", x.data_ptr() + r0 * M * K * size,
+                qw.data_ptr(), out.data_ptr() + r0 * M * N * size,
                 partial.data_ptr(), scale_p, rates.data_ptr() + r0 * 4, rows,
-                M, K, N, splits, _INT_BYTES[qw.dtype],
+                M, K, N, splits, _INT_BYTES[qw.dtype], int(x_bf16),
                 _model_id(fault_model, faulty_bits), seed_u32(seed),
                 faulty_bits, mbu_width, _stream(x.device))
         launches["fault_matmul"] += 1

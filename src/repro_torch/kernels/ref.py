@@ -78,21 +78,25 @@ def quant_bitflip_ref(x: torch.Tensor, seed, rate, faulty_bits: int,
 def fault_matmul_ref(x: torch.Tensor, qw: torch.Tensor, scale, seed, rate,
                      faulty_bits: int, fault_model: str = "flip",
                      mbu_width: int = 2) -> torch.Tensor:
-    """``x @ dequant(corrupt(qw))``: corrupt, dequantize, then an fp32
-    ``torch.matmul`` (one per row for a ``[R]`` rate)."""
+    """``x @ dequant(corrupt(qw))``: corrupt, dequantize in float32, cast
+    the weights to ``x.dtype``, then one ``torch.matmul`` (one per row
+    for a ``[R]`` rate).  In bfloat16 that product sums in fp32 and
+    rounds once, the reference's CPU function
+    (``repro/kernels/ops.py:74-79``)."""
     if qw.ndim != 2 or x.shape[-1] != qw.shape[0]:
         raise ValueError(f"contraction mismatch: x {tuple(x.shape)} "
                          f"@ qw {tuple(qw.shape)}")
     rates, per_row = row_rates(rate, x.device)
     w = bitflip_ref(qw, seed, rates if per_row else rate, faulty_bits,
                     fault_model=fault_model, mbu_width=mbu_width, scale=scale)
+    w = w.to(x.dtype)
     if not per_row:
-        return torch.matmul(x.to(torch.float32), w).to(x.dtype)
+        return torch.matmul(x, w)
     R, K, N = rates.numel(), qw.shape[0], qw.shape[1]
     if x.shape[0] != R:
         raise ValueError(f"x {tuple(x.shape)} has no leading row axis of {R}")
-    xr = x.to(torch.float32).reshape(R, -1, K)
+    xr = x.reshape(R, -1, K)
     # one matmul per row: a batched one may sum a row in another order
     # depending on R (threads on the CPU), and rows must not depend on R
     out = torch.stack([torch.matmul(xr[r], w[r]) for r in range(R)])
-    return out.to(x.dtype).reshape(*x.shape[:-1], N)
+    return out.reshape(*x.shape[:-1], N)

@@ -1,0 +1,396 @@
+"""The dense decoder LM, the counterpart of ``repro/models/transformer.py``
+for the block kinds ``attn``/``local``/``global`` without MoE: olmo-1b,
+starcoder2-3b, gemma2-27b, deepseek-coder-33b and phi-3-vision-4.2b.
+
+Params keep the reference's tree: ``embed [V, D]``, ``groups`` (one entry
+``b{s}`` per slot of ``block_pattern``, every leaf stacked over the groups),
+``final_norm`` and, untied, ``lm_head [D, V]``, so a reference tree carries
+across leaf for leaf (``repro_torch.convert``).  The reference scans the
+groups; here they are a Python loop.
+
+Row axis: the reference adds the population axis with ``vmap``; here the
+hidden state is ``[R, B, S, D]`` and rates are ``[R]`` tensors (or None).
+Every computation whose algorithm could depend on the row count runs one
+row at a time (the attention einsums, the head matmul, the per-row weights
+of the generic and tables backends), and the norms reduce over the last
+axis only, so a row's logits are bitwise those of that row run alone.
+
+Fault injection (the paper's technique) enters through a ``(w_rates,
+a_rates, seed)`` triple: layer ``i`` corrupts its block at ``seed +
+7919 i`` (leaf ``j`` of the block at ``+ 977 j``) and its input at ``+ 1``;
+the embedding, the final norm and the head are never corrupted.
+
+MoE blocks, the ``rglru`` and ``ssd`` block kinds, the encoder-decoder,
+prefill/decode and the KV cache are not ported yet: they raise
+``NotImplementedError`` (ROADMAP.md Queue A item 11).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch._tree import tree_map
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+
+__all__ = ["init_lm", "forward", "embed_tokens", "unembed", "LMStepModel",
+           "check_supported"]
+
+_ATTN_KINDS = ("attn", "local", "global")
+
+
+def check_supported(cfg: ArchConfig):
+    """Raise for what the port cannot run yet."""
+    missing = []
+    if cfg.is_encdec:
+        missing.append("the encoder-decoder")
+    if cfg.is_moe:
+        missing.append("MoE blocks")
+    kinds = sorted(set(cfg.block_pattern) - set(_ATTN_KINDS))
+    if kinds:
+        missing.append(f"block kinds {kinds}")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP.md "
+            f"Queue A item 11, the transformer zoo); the port runs the "
+            f"dense attn/local/global decoders")
+
+
+# ==========================================================================
+# Parameter construction
+# ==========================================================================
+def _init_block(cfg: ArchConfig, gen: torch.Generator, dtype) -> dict:
+    d, dev = cfg.d_model, gen.device
+    return {"ln1": L.init_norm(cfg.norm_kind, d, dtype, dev),
+            "attn": L.init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                     cfg.head_dim_, dtype),
+            "ln2": L.init_norm(cfg.norm_kind, d, dtype, dev),
+            "mlp": L.init_mlp(gen, d, cfg.d_ff, cfg.act_fn, dtype)}
+
+
+def init_lm(cfg: ArchConfig, seed: int = 0, device="cuda") -> dict:
+    """Random params from a ``torch.Generator`` on ``device`` seeded with
+    ``seed`` (drawn in float32 there, cast to the config's dtype): the
+    reference's scales, not its values (``jax.random`` draws differently;
+    parity tests carry the reference's params across instead)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = cfg.torch_dtype
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = {"embed": (torch.randn(cfg.vocab, cfg.d_model, generator=gen,
+                                    device=dev) * 0.02).to(dtype)}
+    groups = {}
+    for s in range(len(cfg.block_pattern)):
+        blocks = [_init_block(cfg, gen, dtype) for _ in range(cfg.n_groups)]
+        groups[f"b{s}"] = tree_map(lambda *ls: torch.stack(ls), *blocks)
+        del blocks
+    params["groups"] = groups
+    params["final_norm"] = L.init_norm(cfg.norm_kind, cfg.d_model, dtype, dev)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab, dtype)
+    return params
+
+
+# ==========================================================================
+# Fault helpers
+# ==========================================================================
+def _row_expand(p: dict, rate: torch.Tensor) -> dict:
+    """Shared float leaves expanded to the rows of the ``[R]`` rate (the
+    row axis ``quant_bitflip`` corrupts per row); resident QTensors stay."""
+    R = rate.shape[0]
+    return tree_map(lambda w: w if isinstance(w, L.QTensor)
+                    else w.expand(R, *w.shape), p)
+
+
+# ==========================================================================
+# Block forward
+# ==========================================================================
+def _block_fwd(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor,
+               positions: torch.Tensor, *, fault_rates=None, fault_bits=None,
+               fault_model=None, kv_chunk: int = 1024) -> torch.Tensor:
+    """One attn/local/global block on ``x [R, B, S, D]``.  ``fault_bits``
+    is an optional (bits, faulty_bits) override of the corruption width,
+    ``fault_model`` an optional (model, mbu_width) override; None takes the
+    ``layers`` module defaults."""
+    wr, ar, seed = fault_rates if fault_rates is not None else (None,) * 3
+    bits, lsbs = fault_bits if fault_bits is not None else (None, None)
+    fm, mw = fault_model if fault_model is not None else (None, None)
+    if wr is not None:
+        p = L.corrupt_params(_row_expand(p, wr), wr, seed, bits=bits,
+                             faulty_bits=lsbs, fault_model=fm, mbu_width=mw)
+    else:
+        p = L.dequantize_params(p)      # no-op for plain float trees
+    if ar is not None:
+        x = L.maybe_corrupt(x, ar, seed + 1, bits=bits, faulty_bits=lsbs,
+                            fault_model=fm, mbu_width=mw)
+    window = None
+    if kind == "local" or (kind == "attn" and cfg.attn_kind == "swa"):
+        window = cfg.window
+    h = L.norm_fwd(p["ln1"], x, cfg.norm_kind)
+    x = x + L.attention_fwd(p["attn"], h, positions, n_heads=cfg.n_heads,
+                            n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim_,
+                            rope_theta=cfg.rope_theta, window=window,
+                            softcap=cfg.logit_softcap or 0.0,
+                            kv_chunk=kv_chunk)
+    h = L.norm_fwd(p["ln2"], x, cfg.norm_kind)
+    return x + L.mlp_fwd(p["mlp"], h, cfg.act_fn)
+
+
+# ==========================================================================
+# Embedding and head
+# ==========================================================================
+def _embed(cfg: ArchConfig, embed: torch.Tensor, tokens: torch.Tensor):
+    """``tokens [R, B, S]`` through the table ``[V, D]`` (or one table a
+    row, ``[R, V, D]``), times sqrt(d) in the table's dtype."""
+    if embed.ndim == 3:
+        e = torch.stack([embed[r][tokens[r]] for r in range(tokens.shape[0])])
+    else:
+        e = embed[tokens]
+    return e * torch.tensor(np.sqrt(cfg.d_model), dtype=e.dtype)
+
+
+def _embed_batch(cfg: ArchConfig, embed: torch.Tensor, batch: dict):
+    """The input batch with its row axis (``{"tokens": [R, B, S]}``, or the
+    stub frontend's ``{"embeds": [R, B, S, D]}`` as is), embedded.  The
+    embedding itself is never corrupted."""
+    if "tokens" in batch:
+        return _embed(cfg, embed, batch["tokens"])
+    return batch["embeds"].to(cfg.torch_dtype)
+
+
+def _unembed_unit(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Final norm + head of ``x [R, B, S, D]`` -> logits ``[R, B, S, V]``;
+    ``p["head"]`` is the embedding table when embeddings are tied.  The
+    head matmul runs one row at a time (its shapes then never depend on
+    R)."""
+    x = L.norm_fwd(p["final_norm"], x, cfg.norm_kind)
+    head = p["head"]
+    per_row = head.ndim == 3
+    out = None
+    for r in range(x.shape[0]):
+        h = head[r] if per_row else head
+        y = torch.matmul(x[r], h.transpose(-1, -2) if cfg.tie_embeddings
+                         else h)
+        if out is None:
+            out = y.new_empty((x.shape[0], *y.shape))
+        out[r] = y
+    if cfg.final_softcap:
+        out = torch.tanh(out / cfg.final_softcap) * cfg.final_softcap
+    return out
+
+
+def embed_tokens(cfg: ArchConfig, params: dict, tokens: torch.Tensor):
+    """``tokens [B, S]`` -> ``[B, S, D]``."""
+    return _embed(cfg, params["embed"], tokens[None])[0]
+
+
+def unembed(cfg: ArchConfig, params: dict, x: torch.Tensor):
+    """``x [B, S, D]`` -> logits ``[B, S, V]``."""
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    return _unembed_unit(cfg, {"final_norm": params["final_norm"],
+                               "head": head}, x[None])[0]
+
+
+def _rows(batch: dict, R: int) -> dict:
+    return {k: v.expand(R, *v.shape) for k, v in batch.items()}
+
+
+def _single_or_rows(rates):
+    """``[L]`` -> ``([1, L], True)``; ``[R, L]`` -> ``(rates, False)``."""
+    if rates is None:
+        return None, True
+    return (rates[None], True) if rates.ndim == 1 else (rates, False)
+
+
+def forward(params: dict, cfg: ArchConfig, batch: dict, *, fault=None,
+            kv_chunk: int = 1024) -> torch.Tensor:
+    """Full-sequence logits, the groups as a loop.
+
+    batch: ``{"tokens": [B, S]}`` or ``{"embeds": [B, S, D]}``.
+    fault: optional ``(w_rates, a_rates, seed)``; rates ``[L]`` give
+    ``[B, S, V]``, rates ``[R, L]`` run R candidates and give
+    ``[R, B, S, V]``.
+    """
+    check_supported(cfg)
+    if fault is not None:
+        wr, single = _single_or_rows(fault[0])
+        ar, _ = _single_or_rows(fault[1])
+        fault = (wr, ar, fault[2])
+        R = wr.shape[0]
+    else:
+        single, R = True, 1
+    x = _embed_batch(cfg, params["embed"], _rows(batch, R))
+    positions = torch.arange(x.shape[2], dtype=torch.int32, device=x.device)
+    P = len(cfg.block_pattern)
+    for g in range(cfg.n_groups):
+        for s, kind in enumerate(cfg.block_pattern):
+            lidx = g * P + s
+            if lidx >= cfg.n_layers:
+                continue
+            p = tree_map(lambda t: t[g], params["groups"][f"b{s}"])
+            fr = None if fault is None else _unit_rates(*fault, lidx)
+            x = _block_fwd(cfg, kind, p, x, positions, fault_rates=fr,
+                           kv_chunk=kv_chunk)
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    logits = _unembed_unit(cfg, {"final_norm": params["final_norm"],
+                                 "head": head}, x)
+    return logits[0] if single else logits
+
+
+# ==========================================================================
+# Per-unit step API (staged prefix-reuse evaluation)
+# ==========================================================================
+def _unit_rates(w_rates, a_rates, seed, i: int):
+    """Unit ``i``'s ``(wr [R], ar [R], seed + 7919 i)`` of ``[R, L]`` rate
+    rows (either may be None), the derivation ``forward`` and ``segment``
+    share, so both corrupt identically."""
+    if w_rates is None and a_rates is None:
+        return None, None, None
+    return (None if w_rates is None else w_rates[:, i],
+            None if a_rates is None else a_rates[:, i],
+            seed + 7919 * i)
+
+
+class LMStepModel:
+    """Addressable per-unit view of the LM stack, the counterpart of the
+    reference's ``LMStepModel`` (``transformer.py:420-720``) for the dense
+    decoders.
+
+    Unit *i* is layer *i* (``block_pattern`` cyclic), in the order of the
+    fault-rate vectors and ``models.graph.lm_layer_infos``.  Unit 0 also
+    owns the never-corrupted embedding, the final unit the final norm and
+    the head.  ``step(i, p, x, wr, ar, seed)`` takes ``x`` with its row
+    axis: at unit 0 the batch dict (``{"tokens": [R, B, S]}``), then
+    ``[R, B, S, D]``; the final unit returns logits ``[R, B, S, V]``.
+    ``segment`` composes a run of units and ``apply`` is the whole model,
+    so staged and whole-forward evaluation run the same code.
+
+    ``bits``/``faulty_bits`` pin the fixed-point fault width (e.g. from
+    ``FaultSpec``); None takes the ``layers`` module defaults.
+    """
+
+    def __init__(self, cfg: ArchConfig, bits: int | None = None,
+                 faulty_bits: int | None = None,
+                 fault_model: str | None = None,
+                 mbu_width: int | None = None):
+        check_supported(cfg)
+        self.cfg = cfg
+        self.fault_bits = None if bits is None and faulty_bits is None \
+            else (bits, faulty_bits)
+        self.fault_model = None \
+            if fault_model is None and mbu_width is None \
+            else (fault_model, mbu_width)
+        self.n_units = cfg.n_layers
+
+    # -- structure ----------------------------------------------------------
+    def unit_kind(self, i: int) -> str:
+        return self.cfg.block_pattern[i % len(self.cfg.block_pattern)]
+
+    def unit_params(self, params: dict) -> list[dict]:
+        """Slice the stacked tree into per-unit trees: the block under
+        ``"block"`` (what fault injection corrupts), boundary params under
+        ``embed`` / ``final_norm`` + ``head`` (never corrupted)."""
+        P = len(self.cfg.block_pattern)
+        units = []
+        for i in range(self.n_units):
+            g, s = divmod(i, P)
+            u = {"block": tree_map(lambda t, g=g: t[g],
+                                   params["groups"][f"b{s}"])}
+            if i == 0:
+                u["embed"] = params["embed"]
+            if i == self.n_units - 1:
+                u["final_norm"] = params["final_norm"]
+                u["head"] = params["embed"] if self.cfg.tie_embeddings \
+                    else params["lm_head"]
+            units.append(u)
+        return units
+
+    def quant_unit_params(self, params: dict) -> list[dict]:
+        """Per-unit params with every ``block`` float leaf quantized into
+        residence (``layers.QTensor``) for the kernel backend.  The
+        attention projections and MLP matrices (the ``fault_dense`` sites)
+        are matmul-marked, so their flips happen inside ``fault_matmul``;
+        the norm gains and biases corrupt through ``bitflip``.  Boundary
+        leaves stay floats."""
+        bits = L.FAULT_BITS if self.fault_bits is None \
+            or self.fault_bits[0] is None else self.fault_bits[0]
+
+        def matmul_pred(path, leaf):
+            if leaf.ndim != 2 or len(path) < 2:
+                return False
+            parent, key = path[-2], path[-1]
+            if parent in ("attn", "xattn"):
+                return key in ("wq", "wk", "wv", "wo")
+            if parent in ("mlp", "dense_mlp"):
+                return key in ("w1", "w2", "w3")
+            return False
+
+        return [{k: (L.quantize_params(v, bits, matmul_pred=matmul_pred)
+                     if k == "block" else v) for k, v in u.items()}
+                for u in self.unit_params(params)]
+
+    def build_weight_fault_tables(self, units: list[dict],
+                                  w_rates_by_device, base_seed: int = 0):
+        """Every unit's ``block`` corrupted once per device (the tables
+        backend): leaves stacked ``[D, ...]``, row d the block as corrupted
+        at ``w_rates_by_device[d]``, by the corruption :meth:`step` applies
+        inline (unit seed ``base_seed + 7919 i``), so tables == generic
+        bitwise.  Boundary leaves are replicated as views."""
+        bits, lsbs = self.fault_bits if self.fault_bits is not None \
+            else (None, None)
+        fm, mw = self.fault_model if self.fault_model is not None \
+            else (None, None)
+        tables = []
+        for i, u in enumerate(units):
+            leaf = u["block"]["attn"]["wq"]
+            rates = torch.as_tensor(np.asarray(w_rates_by_device, np.float32),
+                                    device=leaf.device)
+            D = rates.shape[0]
+            t = {k: tree_map(lambda w: w.expand(D, *w.shape), v)
+                 for k, v in u.items() if k != "block"}
+            t["block"] = L.corrupt_params(_row_expand(u["block"], rates),
+                                          rates, base_seed + 7919 * i,
+                                          bits=bits, faulty_bits=lsbs,
+                                          fault_model=fm, mbu_width=mw)
+            tables.append(t)
+        return tables
+
+    # -- per-unit forward ---------------------------------------------------
+    def step(self, i: int, p: dict, x, wr=None, ar=None, seed=0):
+        """Unit *i*'s fault injection + compute + boundary glue, on rows."""
+        cfg = self.cfg
+        fr = None if (wr is None and ar is None) else (wr, ar, seed)
+        if i == 0:
+            x = _embed_batch(cfg, p["embed"], x)
+        positions = torch.arange(x.shape[2], dtype=torch.int32,
+                                 device=x.device)
+        x = _block_fwd(cfg, self.unit_kind(i), p["block"], x, positions,
+                       fault_rates=fr, fault_bits=self.fault_bits,
+                       fault_model=self.fault_model)
+        if i == self.n_units - 1:
+            x = _unembed_unit(cfg, p, x)
+        return x
+
+    def segment(self, start: int, params: list[dict], x, w_rates=None,
+                a_rates=None, seed=0):
+        """Compose units ``start..start+len(params)-1``: rates ``[R, len]``
+        (local columns), seeds from the ABSOLUTE unit index."""
+        for k in range(len(params)):
+            x = self.step(start + k, params[k], x,
+                          *_unit_rates(w_rates, a_rates,
+                                       seed + 7919 * start, k))
+        return x
+
+    def apply(self, params: list[dict], batch: dict, w_rates=None,
+              a_rates=None, seed=0):
+        """Logits for ``batch`` (no row axis).  Rates ``[L]`` (or None)
+        give ``[B, S, V]``; rates ``[R, L]`` run R candidates and give
+        ``[R, B, S, V]``."""
+        wr, single = _single_or_rows(w_rates)
+        ar, single_a = _single_or_rows(a_rates)
+        single = single and single_a
+        rates = wr if wr is not None else ar
+        R = 1 if rates is None else rates.shape[0]
+        out = self.segment(0, params, _rows(batch, R), wr, ar, seed)
+        return out[0] if single else out

@@ -184,3 +184,53 @@ def test_staged_matches_full_bitwise_on_card(dev, name):
             assert ev.staged_stats()["unit_runs_avoided"] > 0
     for key, v in res.items():
         np.testing.assert_array_equal(v, res[("full", True)], err_msg=str(key))
+
+
+def _bf16_weights(qw, seed, rates, scale):
+    """bf16(fp32(q') * scale): the weights a bf16 x multiplies."""
+    return ref.bitflip_ref(qw, seed, rates, 4, scale=scale).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", [(2048, 256, 128), (135, 300, 77),
+                                   (45, 64, 5)])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
+def test_fault_matmul_bf16_x(dev, shape, dtype):
+    """bf16 x on the tensor cores with int8 and int32 weights: bf16 out,
+    bitwise bf16(q' scale) at x = I_K, and at random x within both sides'
+    fp32 accumulation error plus one bf16 rounding each (2^-8 of the
+    magnitude); ragged K and N take the plain x loads and narrow tiles."""
+    M, K, N = shape
+    hi = {torch.int8: 127, torch.int32: 2 ** 15 - 1}[dtype]
+    qw = torch.randint(-hi, hi, (K, N), dtype=dtype, device=dev)
+    rates = torch.tensor([0.2, 1e-3], device=dev)
+    scale = torch.tensor(0.0123, device=dev)
+    w = _bf16_weights(qw, 3, rates, scale)
+    eye = torch.eye(K, device=dev, dtype=torch.bfloat16).expand(2, K, K)
+    got = ops.fault_matmul(eye.contiguous(), qw, scale, 3, rates, 4)
+    assert got.dtype == torch.bfloat16 and _same_bits(got, w)
+    x = torch.randn(2, M, K, device=dev).to(torch.bfloat16)
+    got = ops.fault_matmul(x, qw, scale, 3, rates, 4).float()
+    with torch.no_grad():
+        from repro_torch._device import fp32_exact
+        with fp32_exact():
+            want = ref.fault_matmul_ref(x, qw, scale, 3, rates, 4).float()
+    mag = torch.matmul(x.float().abs(), w.float().abs())
+    tol = 2 * K * 2.0 ** -24 * mag + 2.0 ** -8 * (got.abs() + want.abs()) * 1.01
+    assert bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
+def test_fault_matmul_bf16_rows_match_one_row_calls(dev, dtype):
+    """An R-row bf16 call equals R one-row calls bitwise, at olmo-1b's
+    2048x2048 projection (one K slice a row) and at a shape that splits
+    K (M = 64)."""
+    for M, K, N in ((2048, 2048, 2048), (64, 1024, 256)):
+        qw = torch.randint(-100, 100, (K, N), dtype=dtype, device=dev)
+        rates = torch.tensor([0.2, 0.0, 1e-3], device=dev)
+        scale = torch.tensor(0.0123, device=dev)
+        x = torch.randn(3, M, K, device=dev).to(torch.bfloat16)
+        many = ops.fault_matmul(x, qw, scale, 9, rates, 4)
+        for r in range(3):
+            one = ops.fault_matmul(x[r:r + 1].contiguous(), qw, scale, 9,
+                                   rates[r:r + 1], 4)
+            assert _same_bits(many[r:r + 1], one)

@@ -40,7 +40,8 @@ def test_port_module_imports_no_jax_nor_reference(path):
 def test_scan_sees_every_kernel_source_module():
     names = {p.name for p in PORT_FILES}
     assert {"ops.py", "ref.py", "faultmodel.py", "_build.py", "cnn.py",
-            "objectives.py", "chip_smoke.py"} <= names
+            "objectives.py", "chip_smoke.py", "transformer.py", "graph.py",
+            "lm_setup.py", "registry.py", "base.py", "olmo_1b.py"} <= names
 
 
 def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
@@ -48,8 +49,15 @@ def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
     from repro_torch import cnn_setup, convert, quickstart
     from repro_torch.core import (FaultSpec, InferenceAccuracyEvaluator,
                                   profile_layer_sensitivity)
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_lm_accuracy_evaluator
+    from repro_torch.lm_setup import lm_calibration_setup
     from repro_torch.models.cnn import CNN_MODELS
+    from repro_torch.models.graph import lm_eval_strategy
+    from repro_torch.models.transformer import init_lm
 
+    lm_cfg = get_config("olmo-1b").reduced()
+    lm_params = init_lm(lm_cfg, device="cpu")
     for model in CNN_MODELS.values():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             model.init(0, 8, width=0.25, img=16)
@@ -73,6 +81,12 @@ def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
                                           x, y, 8, FaultSpec()),
         lambda: cnn_setup.get_trained("alexnet", steps=1),
         lambda: quickstart.main(["--steps", "1"]),
+        lambda: init_lm(lm_cfg),
+        lambda: lm_calibration_setup(lm_cfg),
+        lambda: lm_eval_strategy(lm_cfg),
+        lambda: make_lm_accuracy_evaluator(
+            lm_cfg, lm_params, {"tokens": np.zeros((1, 4), np.int32)},
+            np.zeros((1, 4), np.int64), FaultSpec(), [1.0, 0.5]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

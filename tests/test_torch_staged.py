@@ -370,13 +370,17 @@ def test_surrogate_calibration_matches_reference():
 
 
 def test_tf32_guard_restores_the_callers_flags(models, monkeypatch):
-    """Every ΔAcc and accuracy path runs with TF32 off, whatever the
-    caller's globals say, and puts the caller's values back."""
+    """Every ΔAcc and accuracy path runs with TF32 off and without bf16 or
+    fp16 reduced-precision reductions in matmuls, whatever the caller's
+    globals say, and puts the caller's values back."""
     seen = []
+    mm = torch.backends.cuda.matmul
+    reduced = ("allow_bf16_reduced_precision_reduction",
+               "allow_fp16_reduced_precision_reduction")
 
     def record():
-        seen.append((torch.backends.cudnn.allow_tf32,
-                     torch.backends.cuda.matmul.allow_tf32))
+        seen.append((torch.backends.cudnn.allow_tf32, mm.allow_tf32,
+                     *(getattr(mm, f) for f in reduced)))
 
     def apply_fn(params, x, wr, ar, seed):
         record()
@@ -397,6 +401,8 @@ def test_tf32_guard_restores_the_callers_flags(models, monkeypatch):
     monkeypatch.setattr(tcnn.AlexNet, "step", staticmethod(recording_step))
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    for flag in reduced:
+        monkeypatch.setattr(mm, flag, True)
     for strategy in ("full", "staged"):
         ev = InferenceAccuracyEvaluator(
             apply_fn, [{}, {}], x, labels, FaultSpec(), [0.0, 1.0],
@@ -409,7 +415,8 @@ def test_tf32_guard_restores_the_callers_flags(models, monkeypatch):
                                        0.1, 0.1, n_eval=2, device="cpu")
     assert torch.backends.cudnn.allow_tf32 is True
     assert torch.backends.cuda.matmul.allow_tf32 is True
-    assert len(seen) > 20 and set(seen) == {(False, False)}
+    assert all(getattr(mm, f) is True for f in reduced)
+    assert len(seen) > 20 and set(seen) == {(False,) * 4}
 
 
 # --------------------------------------------------------------------------
