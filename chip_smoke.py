@@ -29,7 +29,13 @@ Phases (any failure raises, and the process exits nonzero):
      and at random bf16 x within 2 K 2^-24 (|x| @ |w|) + 2^-8 (|k| + |p|)
      (1 + 2^-7): both sides sum exact products in fp32 in some order, then
      round once to bf16 (half an ulp, at most 2^-8 of the magnitude); its
-     device time beside ``torch.matmul`` on the same bf16 shapes; and
+     two kernels alone: the hash pass (``fault_weight_tiles``) bitwise
+     bf16(q' scale) for every row, the product (``matmul_tiles``) within
+     the same bound of its plain version; 9 rows at 2048x8192, two row
+     groups, each bitwise its one-row call; the call's device time beside
+     ``torch.matmul`` on the same bf16 shapes, each kernel's own times
+     beside its own bound, and an 8-row call at 2048x2048 against one
+     row; and
      ``quant_bitflip``'s times at the transformer's unit input, one row of
      [8, 256, 2048] bf16, after checking it bitwise against its plain
      version there for all four fault models on signed bf16 x, four rows
@@ -78,15 +84,21 @@ Phases (any failure raises, and the process exits nonzero):
      search through ``eval_strategy="full"``: every evaluated row and both
      fronts bitwise equal, the spread of ΔAcc over the rows checked (it
      must neither vanish nor saturate), wall times, ``staged_stats()`` and
-     launches per path printed.  One candidate profiled by kernel group;
+     launches per path printed.  One candidate's wall, 5 readings, and
+     its profile by kernel group;
      generic against kernel on 4 rows; starcoder2-3b at its published
      widths, depth cut to 4 layers, one population of 8 rows (GQA,
      LayerNorm with bias, gelu, an untied head, ``bitflip`` on the norm
      params).
-The lines before the last are the ``{"kernels": [...]}`` record (its
-``launches`` are the staged path's, phase 8; ``full_launches`` phase 4's;
-``lm_launches`` / ``lm_full_launches`` phase 9's staged and full olmo-1b
-searches, ``lm_shapes`` the bf16 shapes of phase 3) and the card's
+The lines before the last are the ``{"kernels": [...]}`` record, one
+entry a kernel wrapper, each counting its own launches (``ops.launches``):
+``launches`` are those of the kernel's main path, the CNN staged search of
+phase 8 for ``bitflip``, ``quant_bitflip`` and ``fault_matmul`` (float32
+x), phase 9's olmo-1b staged search for ``fault_weight_tiles`` and
+``matmul_tiles``, the two kernels ``fault_matmul`` runs on bf16 x, one
+each a row group; ``full_launches`` phase 4's; ``lm_launches`` /
+``lm_full_launches`` phase 9's staged and full olmo-1b searches;
+``lm_shapes`` the bf16 shapes of phase 3.  Then come the card's
 ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -105,6 +117,10 @@ the guide's table has no integer ALU rate).
     projections the hash.  (The SIMT body of int16/int32 weights with
     float32 x would be bound by fp32 FMAs at 67 TFLOP/s; the CNN path
     stores int8.)
+  * ``fault_weight_tiles`` (bf16 x's hash pass): K N planes draws, or
+    its bytes (qw read, W' written).
+  * ``matmul_tiles`` (bf16 x's product): 2 M K N at 989 TFLOP/s, or its
+    bytes (x and W' read, out written).
 Rates are the H100 SXM's published peaks at 700 W.
 """
 from __future__ import annotations
@@ -133,6 +149,11 @@ FAULTY_BITS = 4                 # the CNN path's (SPEC_RATES)
 LM_FAULTY_BITS, LM_RATE = 6, 0.2
 SPEC_RATES = dict(weight_fault_rate=0.2, act_fault_rate=0.2, faulty_bits=4,
                   bits=16)
+# the kernels (``ops.launches`` keys) of the CNN path, float32, and of the
+# transformer path, bf16, whose fault_matmul runs the hash pass
+# (fault_weight_tiles) and the product (matmul_tiles)
+CNN_KERNELS = ("bitflip", "quant_bitflip", "fault_matmul")
+LM_KERNELS = ("quant_bitflip", "fault_weight_tiles", "matmul_tiles")
 
 
 def log(*args):
@@ -359,8 +380,8 @@ def check_kernels(dev, records):
     # the record's own numbers are those of ResNet18's fc, the shape the
     # main path (phase 4) launches; AlexNet's fc0 rides along in "shapes"
     records["fault_matmul"].update(shapes[0], shapes=shapes)
-    for name, r in records.items():
-        for sr in r.get("shapes", [r]):
+    for name in CNN_KERNELS:
+        for sr in records[name].get("shapes", [records[name]]):
             log(f"phase3 time {name} at {sr['shape']}: device {sr['ms']:.4f} "
                 f"ms, wrapper {sr['wrapper_ms']:.4f} ms, plain "
                 f"{sr['plain_ms']:.4f} ms, library {sr['library_ms']}, bound "
@@ -374,7 +395,7 @@ RECORD_KEYS = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
                "wrapper_ms", "fused_ms", "candidate_ms", "candidate_launches",
                "full_launches", "shapes", "lm_launches", "lm_full_launches",
                "lm_candidate_ms", "lm_candidate_launches", "lm_shapes",
-               "starcoder2_launches")
+               "lm_rows8", "starcoder2_launches")
 
 
 # fault_matmul on bf16 x at olmo-1b's projections, M = B S = 2048:
@@ -401,7 +422,7 @@ def check_fault_matmul_bf16(dev, records):
     one = torch.tensor([0.2], device=dev)
     scale = torch.tensor(0.0123, device=dev)
     bf16, fb = torch.bfloat16, LM_FAULTY_BITS
-    worst, out = 0.0, []
+    worst, out, hash_out, prod_out = 0.0, [], [], []
     with torch.no_grad(), fp32_exact():
         for label, M, K, N in LM_MATMUL_SHAPES:
             eye = torch.eye(K, device=dev, dtype=bf16).expand(3, K, K)
@@ -410,7 +431,7 @@ def check_fault_matmul_bf16(dev, records):
             for dtype, hi in ((torch.int8, 128), (torch.int32, 2 ** 15)):
                 qw = torch.randint(-hi, hi, (K, N), device=dev, dtype=dtype,
                                    generator=gen)
-                err_max = 0.0
+                err_max = hash_err = prod_err = 0.0
                 for model in FAULT_MODELS:
                     w = ref.bitflip_ref(qw, 7921, rates, fb,
                                         fault_model=model,
@@ -438,27 +459,117 @@ def check_fault_matmul_bf16(dev, records):
                             f"err {err.max().item():.3g} above the bound")
                     err_max = max(err_max, err.max().item())
                     worst = max(worst, (err / tol).max().item())
-                    del k, p, mag, tol, err, w
+                    # the hash pass alone: every row's W' is bf16(q' s)
+                    t = ops.fault_weight_tiles(qw, scale, 7921, rates, fb,
+                                               fault_model=model)
+                    tw = ref.unpack_tiles(t, K, N)
+                    hash_err = max(hash_err, max_abs_err(tw, w))
+                    if not bits_equal(tw, w):
+                        raise AssertionError(
+                            f"fault_matmul bf16 {label} {dtype} {model}: "
+                            "the hash pass differs from bf16(q' scale)")
+                    # the product alone, within the same bound
+                    k = ops.matmul_tiles(x, t, K, N).float()
+                    p = ref.matmul_tiles_ref(x, t, K, N).float()
+                    tol = 2 * K * 2.0 ** -24 * mag \
+                        + 2.0 ** -8 * (k.abs() + p.abs()) * (1 + 2.0 ** -7)
+                    err = (k - p).abs()
+                    if not bool((err <= tol).all()):
+                        raise AssertionError(
+                            f"matmul_tiles {label} {dtype} {model}: max err "
+                            f"{err.max().item():.3g} above the bound")
+                    prod_err = max(prod_err, err.max().item())
+                    worst = max(worst, (err / tol).max().item())
+                    del k, p, mag, tol, err, w, t, tw
                 x1 = x[:1].contiguous()
                 w1 = (qw.float() * scale).to(bf16)
                 qb = qw.element_size()
+                n_tiles = ref.tile_elems(K, N)
                 b_ms, b_by = bound(2 * M * K + qb * K * N + 2 * M * N,
                                    tc_flops=2 * M * K * N,
                                    int_ops=K * N * fb * HASH_OPS_PER_DRAW)
+                h_ms, h_by = bound(qb * K * N + 2 * n_tiles,
+                                   int_ops=K * N * fb * HASH_OPS_PER_DRAW)
+                p_ms, p_by = bound(2 * M * K + 2 * n_tiles + 2 * M * N,
+                                   tc_flops=2 * M * K * N)
+                tiles = ops.fault_weight_tiles(qw, scale, 1, one, fb)
+                shape = (f"[1,{M},{K}] bf16 x [{K},{N}] "
+                         f"{str(dtype).removeprefix('torch.')}")
+                lib_ms = device_ms(lambda: torch.matmul(x1, w1))
                 out.append(dict(
-                    label=label, shape=f"[1,{M},{K}] bf16 x [{K},{N}] "
-                                       f"{str(dtype).removeprefix('torch.')}",
+                    label=label, shape=shape,
                     ms=device_ms(lambda: ops.fault_matmul(
                         x1, qw, scale, 1, one, fb)),
                     wrapper_ms=time_ms(lambda: ops.fault_matmul(
                         x1, qw, scale, 1, one, fb), iters=10),
                     plain_ms=time_ms(lambda: ref.fault_matmul_ref(
                         x1, qw, scale, 1, one, fb), iters=3, warmup=1),
-                    library_ms=device_ms(lambda: torch.matmul(x1, w1)),
-                    bound_ms=b_ms, bound_by=b_by, max_abs_err=err_max))
-                del qw, w1
+                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                    max_abs_err=err_max))
+                hash_out.append(dict(
+                    label=label, shape=f"[1] x [{K},{N}] "
+                                       f"{str(dtype).removeprefix('torch.')}",
+                    ms=device_ms(lambda: ops.fault_weight_tiles(
+                        qw, scale, 1, one, fb, out=tiles)),
+                    wrapper_ms=time_ms(lambda: ops.fault_weight_tiles(
+                        qw, scale, 1, one, fb, out=tiles), iters=10),
+                    plain_ms=time_ms(lambda: ref.fault_weight_tiles_ref(
+                        qw, scale, 1, one, fb), iters=3, warmup=1),
+                    library_ms=None, bound_ms=h_ms, bound_by=h_by,
+                    max_abs_err=hash_err))
+                prod_out.append(dict(
+                    label=label, shape=shape,
+                    ms=device_ms(lambda: ops.matmul_tiles(x1, tiles, K, N)),
+                    wrapper_ms=time_ms(lambda: ops.matmul_tiles(
+                        x1, tiles, K, N), iters=10),
+                    plain_ms=time_ms(lambda: ref.matmul_tiles_ref(
+                        x1, tiles, K, N), iters=3, warmup=1),
+                    library_ms=lib_ms, bound_ms=p_ms, bound_by=p_by,
+                    max_abs_err=prod_err))
+                del qw, w1, tiles
             del eye, x
             torch.cuda.empty_cache()
+
+        # rows across row groups: at 2048x8192 a group is 8 rows, so 9
+        # rows span two; then R = 8 rows at 2048x2048 (one group, one hash)
+        # timed against one row
+        M, K, N = LM_MATMUL_SHAPES[1][1:]
+        qw = torch.randint(-128, 128, (K, N), device=dev, dtype=torch.int8,
+                           generator=gen)
+        G = ops.row_groups(10 ** 6, K, N)[0][1]
+        x = torch.randn(G + 1, M, K, device=dev, generator=gen).to(bf16)
+        r9 = torch.linspace(0.0, 0.3, G + 1, device=dev)
+        many = ops.fault_matmul(x, qw, scale, 7923, r9, fb)
+        for r in range(G + 1):
+            if not bits_equal(many[r:r + 1], ops.fault_matmul(
+                    x[r:r + 1].contiguous(), qw, scale, 7923, r9[r:r + 1],
+                    fb)):
+                raise AssertionError(f"fault_matmul bf16 row {r} of {G + 1}"
+                                     f" (groups of {G}) differs from its "
+                                     "one-row call")
+        log(f"phase3 fault_matmul bf16 {G + 1} rows at [{K},{N}] (groups of "
+            f"{G} rows, {len(ops.row_groups(G + 1, K, N))} groups): every "
+            "row bitwise its one-row call")
+        del x, many, qw
+        M, K, N = LM_MATMUL_SHAPES[0][1:]
+        qw = torch.randint(-128, 128, (K, N), device=dev, dtype=torch.int8,
+                           generator=gen)
+        x8 = torch.randn(8, M, K, device=dev, generator=gen).to(bf16)
+        r8 = torch.full((8,), LM_RATE, device=dev)
+        b_ms, b_by = bound(8 * (2 * M * K + 2 * M * N) + K * N,
+                           tc_flops=8 * 2 * M * K * N,
+                           int_ops=K * N * fb * HASH_OPS_PER_DRAW)
+        rows8 = dict(shape=f"[8,{M},{K}] bf16 x [{K},{N}] int8",
+                     ms=device_ms(lambda: ops.fault_matmul(
+                         x8, qw, scale, 1, r8, fb), launches=5),
+                     one_row_ms=device_ms(lambda: ops.fault_matmul(
+                         x8[:1], qw, scale, 1, r8[:1], fb)),
+                     bound_ms=b_ms, bound_by=b_by)
+        records["fault_matmul"]["lm_rows8"] = rows8
+        log(f"phase3 time fault_matmul bf16 at {rows8['shape']}, 8 rows: "
+            f"device {rows8['ms']:.4f} ms against {8 * rows8['one_row_ms']:.4f}"
+            f" ms for 8 one-row calls, bound {b_ms:.4f} ms ({b_by})")
+        del x8, qw
 
         # quant_bitflip at the unit input: signed activations, one row a
         # rate of phase 9's tiers (0.2 x fault scale) and one clean row
@@ -494,16 +605,24 @@ def check_fault_matmul_bf16(dev, records):
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
             max_abs_err=qb_err)]
     records["fault_matmul"]["lm_shapes"] = out
-    log(f"phase3 fault_matmul bf16 x at {fb} faulty bits: x=I_K bitwise; "
-        f"random x within 2K2^-24(|x|@|w|) + 2^-8(|k|+|p|)(1+2^-7) (worst "
+    # the two kernels of the bf16 route: their own numbers are those of
+    # the first shape (2048x2048, int8), the others ride along
+    records["fault_weight_tiles"].update(hash_out[0], lm_shapes=hash_out)
+    records["matmul_tiles"].update(prod_out[0], lm_shapes=prod_out)
+    log(f"phase3 fault_matmul bf16 x at {fb} faulty bits: x=I_K bitwise, "
+        f"the hash pass bitwise; random x, the call and the product alone, "
+        f"within 2K2^-24(|x|@|w|) + 2^-8(|k|+|p|)(1+2^-7) (worst "
         f"ratio to it {worst:.3g}), at {[s[0] for s in LM_MATMUL_SHAPES]} x "
         f"int8/int32 x {FAULT_MODELS}")
-    for r in out + records["quant_bitflip"]["lm_shapes"]:
-        log(f"phase3 time {r['label']} at {r['shape']}: device "
-            f"{r['ms']:.4f} ms, wrapper {r['wrapper_ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max |err| "
-            f"{r['max_abs_err']:.3g}")
+    for name, rs in (("fault_matmul", out), ("fault_weight_tiles", hash_out),
+                     ("matmul_tiles", prod_out),
+                     ("quant_bitflip", records["quant_bitflip"]["lm_shapes"])):
+        for r in rs:
+            log(f"phase3 time {name} {r['label']} at {r['shape']}: device "
+                f"{r['ms']:.4f} ms, wrapper {r['wrapper_ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max |err| "
+                f"{r['max_abs_err']:.3g}")
 
 
 def kernel_group(key: str, other: str = "convolution") -> str:
@@ -515,6 +634,11 @@ def kernel_group(key: str, other: str = "convolution") -> str:
         return "quant_bitflip"
     if "bitflip_kernel" in key:
         return "bitflip"
+    if "bfp::hash_kernel" in key:
+        return "fault_weight_tiles"
+    if "bfp::product_kernel" in key or "sum_splits_kernel<__nv_bfloat16>" \
+            in key:
+        return "matmul_tiles"
     if "tc::kernel" in key or "simt::kernel" in key or "sum_splits" in key:
         return "fault_matmul"
     if "Memcpy" in key or "Memset" in key:
@@ -596,7 +720,7 @@ def staged_phase(dev, params, labels, spec, layers, cfg, full_plan, full_rows,
     log(f"phase8 staged stats {json.dumps(st)}; peak store bytes "
         f"{s_ev._prefix_engine.store.peak_nbytes}; max_memory_allocated "
         f"{peak}")
-    if min(launches.values()) <= 0:
+    if min(launches[name] for name in CNN_KERNELS) <= 0:
         raise AssertionError(f"a kernel never launched on the staged path: "
                              f"{launches}")
     if dict(s_ev._cache) != full_rows:
@@ -610,8 +734,8 @@ def staged_phase(dev, params, labels, spec, layers, cfg, full_plan, full_rows,
             raise AssertionError("the front differs from phase 4's")
     log(f"phase8 staged = full bitwise: {len(full_rows)} rows' accuracies "
         f"and the front ({len(plan.front)} points)")
-    for name, r in records.items():
-        r["launches"] = launches[name]
+    for name in CNN_KERNELS:
+        records[name]["launches"] = launches[name]
     records["fault_matmul"]["shapes"][0]["launches"] = launches[
         "fault_matmul"]
     s_ev._prefix_engine.store.clear()
@@ -843,7 +967,7 @@ def lm_phase(dev, records, cfg=None, sc_cfg=None, B=LM_B, S=LM_S,
     log(f"phase9 staged stats {json.dumps(st)}; peak store bytes "
         f"{s_ev._prefix_engine.store.peak_nbytes}; max_memory_allocated "
         f"{peak}")
-    for name in ("quant_bitflip", "fault_matmul"):
+    for name in LM_KERNELS:
         if on_card and min(s_launches[name], f_launches[name]) <= 0:
             raise AssertionError(f"{name} never launched on the LM path")
     s_rows, f_rows = dict(s_ev._cache), dict(f_ev._cache)
@@ -869,14 +993,21 @@ def lm_phase(dev, records, cfg=None, sc_cfg=None, B=LM_B, S=LM_S,
     for name, r in records.items():
         r["lm_launches"], r["lm_full_launches"] = \
             s_launches[name], f_launches[name]
+        if name not in CNN_KERNELS:          # the LM path is their main path
+            r["launches"] = s_launches[name]
     del s_ev
     if on_card:
         torch.cuda.empty_cache()
 
     # one candidate by kernel group
     row = np.array(list(f_rows)[:1])
-    t_row = time_ms(lambda: f_ev._dispatch(row), iters=3, warmup=1) \
-        if on_card else 0.0
+    # the wall of one candidate, 5 readings of 3 back-to-back dispatches:
+    # the host's share moves with what else the machine runs
+    walls = sorted(time_ms(lambda: f_ev._dispatch(row), iters=3, warmup=1)
+                   for _ in range(5)) if on_card else [0.0]
+    t_row = walls[len(walls) // 2]
+    log(f"phase9 one {cfg.name} candidate wall, 5 readings: "
+        f"{[round(w, 3) for w in walls]} ms (median {t_row:.3f})")
     with profile(activities=[ProfilerActivity.CPU]
                  + ([ProfilerActivity.CUDA] if on_card else [])) as prof:
         f_ev._dispatch(row)
@@ -891,7 +1022,7 @@ def lm_phase(dev, records, cfg=None, sc_cfg=None, B=LM_B, S=LM_S,
         g[0] += a.self_device_time_total / 1e3
         g[1] += a.count
     log(f"phase9 one {cfg.name} candidate (kernel backend, {B}x{S} tokens): "
-        f"{t_row:.3f} ms; profiler: kernels busy {busy:.3f} ms "
+        f"{t_row:.3f} ms median wall; profiler: kernels busy {busy:.3f} ms "
         f"({100 * (1 - busy / max(t_row, 1e-9)):.1f}% idle); "
         + ", ".join(f"{k} {v[0]:.3f} ms in {v[1]}" for k, v in
                     sorted(groups.items(), key=lambda kv: -kv[1][0])))
@@ -919,8 +1050,8 @@ def lm_phase(dev, records, cfg=None, sc_cfg=None, B=LM_B, S=LM_S,
         f"{time.perf_counter() - t0:.2f} s with set-up, launches "
         f"{sc_launches}, {len(torch.unique(sc_labels))} distinct labels, "
         f"{sc_own} of {tokens} their own input token")
-    if (on_card and min(sc_launches.values()) <= 0) \
-            or not np.isfinite(d).all():
+    if (on_card and min(sc_launches[k] for k in ("bitflip", *LM_KERNELS))
+            <= 0) or not np.isfinite(d).all():
         raise AssertionError("the starcoder2-3b population missed a kernel")
     for name, r in records.items():
         r["starcoder2_launches"] = sc_launches[name]
@@ -976,6 +1107,12 @@ def main() -> int:
         "fault_matmul": dict(
             route="cuda", source="src/repro_torch/csrc/fault_matmul.cu",
             replaces="src/repro/kernels/fault_matmul.py:61"),
+        "fault_weight_tiles": dict(
+            route="cuda", source="src/repro_torch/csrc/fault_matmul.cu",
+            replaces="src/repro/kernels/fault_matmul.py:61"),
+        "matmul_tiles": dict(
+            route="cuda", source="src/repro_torch/csrc/fault_matmul.cu",
+            replaces="src/repro/kernels/fault_matmul.py:61"),
     }
     check_kernels(dev, records)
     check_fault_matmul_bf16(dev, records)
@@ -1004,7 +1141,7 @@ def main() -> int:
     log(f"phase4 AFarePart (full): {wall:.3f} s wall, "
         f"{ev.dispatches} dispatches, {ev._engine.rows_evaluated} rows, "
         f"launches {main_launches}")
-    if min(main_launches.values()) <= 0:
+    if min(main_launches[name] for name in CNN_KERNELS) <= 0:
         raise AssertionError(f"a kernel never launched on the main path: "
                              f"{main_launches}")
     objs = plan.front_objs

@@ -34,6 +34,7 @@ pinned memory without blocking, so no dispatch waits for the device.
 """
 from __future__ import annotations
 
+import gc
 import os
 from collections import OrderedDict
 from typing import Callable, Sequence
@@ -719,9 +720,13 @@ class PopulationEvalEngine:
 def peak_memory_bytes(fn: Callable[[], object], device: torch.device) -> int:
     """Device bytes ``fn()`` allocates at its peak above what was already
     allocated (``torch.cuda`` allocator statistics); 0 off the card, where
-    there is no such statistic."""
+    there is no such statistic.  Garbage is collected first: tensors held
+    only by reference cycles (a dropped evaluator's) would count in the
+    baseline, and a collection the interpreter starts inside ``fn`` would
+    free them there and lower the reading by their bytes."""
     if device.type != "cuda":
         return 0
+    gc.collect()
     torch.cuda.synchronize(device)
     before = torch.cuda.memory_allocated(device)
     torch.cuda.reset_peak_memory_stats(device)

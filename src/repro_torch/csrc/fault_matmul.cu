@@ -1,13 +1,13 @@
 // Replaces the TPU kernel repro/kernels/fault_matmul.py:61
 // fault_matmul_pallas (body _fault_matmul_kernel, :25-54):
 // out = x @ (apply_fault(qw) * scale) with fp32 accumulation, the bit
-// flips applied to the weight tile on chip so no corrupted weight matrix
-// is ever written to memory.
+// flips applied to the weights on chip.
 //
 // Port shape: x is [R, M, K] float32 or bfloat16 (one candidate per row),
 // qw is the shared (K, N) integer matrix, each row corrupts it at its own
 // rate with idx = k * N + n in the unpadded matrix; out is [R, M, N] in
-// x's type.
+// x's type.  The K-slice count is chosen per row (ops._k_splits), so a row
+// sums in the same order whatever R is.
 //
 // float32 x with int8 qw (every weight the CNN path stores) runs on the
 // tensor cores, still fp32-accurate, because the operands split exactly:
@@ -19,12 +19,10 @@
 // So three bf16 wgmma products into one fp32 accumulator give x @ q', and
 // __fmul_rn(acc, scale) the output.  With x = I_K every output is one
 // exact product: the kernel returns the corrupted, dequantized weights
-// bitwise.
-//
-// Bound on the H100 (int8): the hash, about 80 integer operations per
+// bitwise.  Bound on the H100: the hash, about 80 integer operations per
 // weight at 4 planes, once per weight, on the integer pipe; the three
 // bf16 products need less (3 * 2MKN at 989 TFLOP/s), the bytes far less.
-// The design:
+// The design (tc::kernel):
 //   * one block covers all M rows (up to 512: four warpgroups of two m64
 //     tiles) of its (K-slice, N-tile), so each weight is corrupted once per
 //     call (once per 512-row chunk beyond that).  The block corrupts its
@@ -33,42 +31,52 @@
 //   * x arrives through a three-stage cp.async ring in shared memory; each
 //     thread splits its A fragment in registers and issues the three
 //     products (wgmma m64nNk16, A from registers, B from shared memory);
-//   * while the tensor cores run step k, the threads corrupt step k + 1's
-//     weights (prefetched into registers a step earlier) into the other B
-//     buffer, so the products hide under the hash instead of stalling it;
-//   * the N tile follows N: 16 for a narrow head (ResNet18's fc), else 64
-//     (512 x 64 fp32 accumulators fill a quarter of the register file);
+//   * the next B tile is corrupted while the products run;
+//   * the N tile follows N: 16 for a narrow head (ResNet18's fc), else 64;
 //   * split-K: each K-slice is one block writing a partial tile; a second
 //     kernel sums the slices in slice order (deterministic, no atomics).
-// What holds it back on the card (PERF.md, PR 12): per k-step the split,
-// the issue of loads and products, and the hash run one after the other
-// on the integer and float pipes; the products only hide under the hash.
-// At 512 threads a block has 128 registers a thread and one block an SM,
-// which leaves no room to give the hash warps of its own.
-// Rows of a [R] call share the hash and differ only in their threshold;
-// each row is its own block here and recomputes it (the whole-forward
-// path calls with R = 1, the staged path with a chunk of fresh prefixes).
-// Reusing it across rows means keeping the 24-bit draws of a tile and
-// comparing them with every row's threshold.  The K-slice count is chosen
-// per row (ops._k_splits), so a row sums in the same order whatever R is.
+// What holds it back (PERF.md §6): per k-step the split, the issue of
+// loads and products, and the hash run one after the other.  Rows of a
+// [R] call each hash again (each row is its own block).
 //
 // bf16 x (the transformer path: every LM config runs in bf16) computes the
 // reference's CPU function (repro/kernels/ops.py:74-79) for a bf16 weight
 // dtype: w = bf16(fp32(q') * scale), out = bf16(x @ w) with the sum in
 // fp32.  (The TPU tile keeps w in fp32 and never rounds it; the reference's
-// tests check the CPU path, and so does the port.)  Both operands are then
-// exact bf16, so it is ONE wgmma per k-step and m64 tile, with no split
-// of x, and the fp32 accumulator is the reference's accumulation.  The
-// dequantization moves into the producer that hashes the B tile: flip,
-// times the scale in fp32, round to bf16, into shared memory; it cannot
-// wait for the epilogue, since bf16(q' s) != q' bf16(s).  As the tile in
-// shared memory is bf16 either way, int8, int16 and int32 storage all
-// feed the tensor cores here.  x arrives through the same cp.async ring
-// (16 bf16 of a row are two 16-byte chunks).  The output is bf16, rounded
-// once from the fp32 sum (after the split-K slices are summed in order).
-// Bound: at M = B S = 2048 (olmo-1b's calibration batch) a weight is
-// hashed once per 512-row block, four times a call, so the hash (integer
-// pipe) still outweighs the single bf16 product.
+// tests check the CPU path, and so does the port.)  Both operands are
+// exact bf16, so it is ONE wgmma per k-step and m64 tile.  At olmo-1b's
+// shapes (M = B S = 2048, K and N 2048 or 8192) the hash of K N weights at
+// ~20 integer operations a draw and plane is the bound, not the 2 M K N
+// product: 0.030 ms against 0.017 ms at 2048^3 (16.7 Tops/s integer, 989
+// TFLOP/s bf16).  So the route runs two kernels, each at its own limit:
+//   1. the hash pass (bfp::hash_kernel, integer pipe, full occupancy):
+//      each weight's draws are computed ONCE per call, one draw24 per
+//      (weight, plane) (faultmodel.cuh weight_draws), and every row of
+//      the call builds its mask from them with its own threshold
+//      (row_mask), dequantizes, rounds to bf16 and writes W'[row].  Its
+//      bound is K N planes draws plus G K N 2 bytes written.  W' is laid
+//      out as 16 x 128 tiles, each tile 4 KB contiguous and already in the
+//      no-swizzle K-major core-matrix image wgmma reads B from (b_offset,
+//      b_desc), the tiles of one 128-column panel in k order: the product
+//      copies whole tiles with 16-byte cp.async and no address arithmetic,
+//      and a warp of the hash pass writes 128 contiguous bytes;
+//   2. the product (bfp::product_kernel, tensor cores): two consumer
+//      warpgroups, blocks of 128 x 128, a three-stage cp.async ring of
+//      64-deep stages (x and the stage's W' tiles), one wgmma m64n128k16
+//      per k-step and warpgroup into fp32 accumulators in k order, rounded
+//      once to bf16 (after the split-K slices are summed in order).  With
+//      the hash gone, the block no longer needs 512 rows to spread it:
+//      128 x 128 reads x N / 128 times and puts two blocks on an SM.
+// The workspace: W' is 2 K N bytes a row (K, N rounded up to 16, 128):
+// 8 MiB at 2048 x 2048, 32 MiB at 2048 x 8192.  ops.fault_matmul walks R
+// in groups whose W' fits 256 MiB (32 and 8 rows there), one hash launch
+// and one product launch a group, so the draws are shared by up to G rows
+// and a call hashes each weight ceil(R / G) times, once for R <= G.
+// What still holds the route back: the two passes run one after the other
+// (no overlap of the integer and tensor pipes), W' makes a round trip
+// through L2 or HBM (2 bytes a weight and row each way), and the product
+// waits for each stage's wgmma before the next stage's loads are issued
+// (no warp specialisation, no TMA).
 //
 // int16 and int32 qw with float32 x keep the SIMT body below: their values
 // are not exact in bf16, and x is not split for them.  The CNN path never
@@ -170,7 +178,8 @@ kernel(const float* __restrict__ x, const T* __restrict__ qw,
 }  // namespace simt
 
 // ---------------------------------------------------------------------
-// Tensor-core body (float32 x with int8 qw; bfloat16 x with any qw)
+// Tensor-core body of float32 x with int8 qw; its wgmma, cp.async and
+// B-layout helpers serve the bf16 route too
 namespace tc {
 
 constexpr int WGS = 4;                 // warpgroups, all of them consumers
@@ -179,17 +188,16 @@ constexpr int MT = 2;                  // m64 tiles per warpgroup
 constexpr int BM = 64 * MT * WGS;      // rows per block: 512
 constexpr int BK = 16;                 // one wgmma k-step per stage
 constexpr int XS = 3;                  // stages of the x ring
-constexpr int XLD = BK + 8;            // x row stride in elements: 96 B
-                                       // (float) or 48 B (bf16), so the
-                                       // fragment reads miss no bank
+constexpr int XLD = BK + 8;            // x row stride in floats: 96 B,
+                                       // so the fragment reads miss no bank
 constexpr int X_STAGE = BM * XLD;      // elements per x stage
 
 // Bytes of one B tile: BN x 16 bf16 in the no-swizzle K-major layout,
 // core matrices of 8 n-rows x 16 bytes (8 k), the two k-halves 128 B
 // apart (LBO), successive 8-row groups 256 B apart (SBO).
 template <int BN> constexpr int B_BYTES = BN * BK * 2;
-template <int BN, typename XT>
-constexpr int SMEM_BYTES = 2 * B_BYTES<BN> + XS * X_STAGE * sizeof(XT);
+template <int BN>
+constexpr int SMEM_BYTES = 2 * B_BYTES<BN> + XS * X_STAGE * 4;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -226,6 +234,12 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Make this thread's writes to shared memory (stores, completed cp.async
+// copies) visible to the tensor cores' async proxy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -289,6 +303,36 @@ template <> struct Mma<64> {
   }
 };
 
+template <> struct Mma<128> {
+  static constexpr int R = 64;
+  static __device__ __forceinline__ void run(float (&d)[R],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
@@ -308,46 +352,22 @@ __device__ __forceinline__ void split3(float2 v, uint32_t& h0, uint32_t& h1,
   h2 = bf16x2_bits(__float22bfloat162_rn(r2));
 }
 
-// A fragment word h of m64 tile j for the thread, from x stage xt: the two
-// neighbouring k of (row, col) = (r, 2tq) (r+8, 2tq) (r, 2tq+8) (r+8, 2tq+8)
-// for h = 0..3.  float32 x gives three words (the exact bf16 split), bf16
-// x one.
-template <typename XT> struct Frag;
-
-template <> struct Frag<float> {
-  static constexpr int P = 3;
-  static __device__ __forceinline__ void load(const float* p,
-                                              uint32_t (&a)[P][4], int h) {
-    split3(*reinterpret_cast<const float2*>(p), a[0][h], a[1][h], a[2][h]);
-  }
-};
-
-template <> struct Frag<__nv_bfloat16> {
-  static constexpr int P = 1;
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              uint32_t (&a)[P][4], int h) {
-    a[0][h] = *reinterpret_cast<const uint32_t*>(p);
-  }
-};
-
 // grid: (N tiles, M chunks of BM, rows * splits); THREADS threads;
-// SMEM_BYTES<BN, XT> of dynamic shared memory.  XT float: the scale is
-// applied in the epilogue (q' is exact in bf16); XT bf16: in the producer,
-// before the rounding to bf16.  dst is [rows, M, N] in XT where splits is
-// 1, else the float32 partial sums [splits, rows, M, N].
-template <int BN, int MODEL, typename XT, typename QT>
+// SMEM_BYTES<BN> of dynamic shared memory.  q' is exact in bf16, so the
+// scale waits for the epilogue.  dst is [rows, M, N] float32 where splits
+// is 1, else the partial sums [splits, rows, M, N].
+template <int BN, int MODEL>
 __global__ void __launch_bounds__(THREADS, 1)
-kernel(const XT* __restrict__ x, const QT* __restrict__ qw,
-       void* __restrict__ dst_p, const float* __restrict__ scale_p,
+kernel(const float* __restrict__ x, const int8_t* __restrict__ qw,
+       float* __restrict__ dst, const float* __restrict__ scale_p,
        const float* __restrict__ rate_p, int rows, int M, int K, int N,
-       int k_chunk, int splits, bool x_vec, uint32_t seed, int faulty_bits,
+       int k_chunk, bool x_vec, uint32_t seed, int faulty_bits,
        int mbu_width) {
-  constexpr bool kBf16 = sizeof(XT) == 2;
-  constexpr int CHUNKS = BK * static_cast<int>(sizeof(XT)) / 16;  // a row
-  constexpr int CHUNK_K = 16 / static_cast<int>(sizeof(XT));
+  constexpr int CHUNKS = BK * 4 / 16;   // 16-byte chunks of a row: 4
+  constexpr int CHUNK_K = 4;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* bt = smem;                                   // 2 B tiles
-  XT* xs = reinterpret_cast<XT*>(smem + 2 * B_BYTES<BN>);
+  float* xs = reinterpret_cast<float*>(smem + 2 * B_BYTES<BN>);
 
   const int row = blockIdx.z % rows, split = blockIdx.z / rows;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
@@ -355,21 +375,21 @@ kernel(const XT* __restrict__ x, const QT* __restrict__ qw,
   const int nk = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
   const uint32_t thresh = afp::rate_threshold(rate_p[row]);
   const float scale = *scale_p;
-  const XT* xr = x + static_cast<int64_t>(row) * M * K;
+  const float* xr = x + static_cast<int64_t>(row) * M * K;
   const int t = threadIdx.x;
   const int wg = t / 128, warp = (t / 32) % 4, lane = t % 32;
   const int g = lane / 4, tq = lane % 4;
 
   // x stage s -> ring slot s % XS.  Thread t copies the 16-byte chunk t %
   // CHUNKS of rows t / CHUNKS + i THREADS / CHUNKS of the stage.  Rows past
-  // M and k past the slice arrive as zeros.  Without 16-byte alignment,
-  // float32 x goes by 4-byte cp.async, bf16 x by plain loads and stores.
+  // M and k past the slice arrive as zeros.  Without 16-byte alignment, x
+  // goes by 4-byte cp.async.
   constexpr int ROW_STEP = THREADS / CHUNKS;
   const int xk = CHUNK_K * (t % CHUNKS);
-  const XT* x_src = xr + static_cast<int64_t>(m0 + t / CHUNKS) * K + k_begin + xk;
+  const float* x_src = xr + static_cast<int64_t>(m0 + t / CHUNKS) * K + k_begin + xk;
   auto load_x = [&](int s) {
-    const XT* src = x_src + s * BK;
-    XT* dst = xs + (s % XS) * X_STAGE + (t / CHUNKS) * XLD + xk;
+    const float* src = x_src + s * BK;
+    float* dst = xs + (s % XS) * X_STAGE + (t / CHUNKS) * XLD + xk;
     const int k = k_begin + s * BK + xk;
 #pragma unroll
     for (int i = 0; i < BM / ROW_STEP; ++i) {
@@ -377,17 +397,12 @@ kernel(const XT* __restrict__ x, const QT* __restrict__ qw,
       if (x_vec) {
         const bool ok = row_ok && k < k_end;
         cp_async16(dst, ok ? src : xr, ok);
-      } else if (!kBf16) {
+      } else {
 #pragma unroll
         for (int e = 0; e < CHUNK_K; ++e) {
           const bool ok = row_ok && k + e < k_end;
-          cp_async4(reinterpret_cast<float*>(dst) + e,
-                    reinterpret_cast<const float*>(ok ? src + e : xr), ok);
+          cp_async4(dst + e, ok ? src + e : xr, ok);
         }
-      } else {
-#pragma unroll
-        for (int e = 0; e < CHUNK_K; ++e)
-          dst[e] = row_ok && k + e < k_end ? src[e] : XT(0.0f);
       }
       src += static_cast<int64_t>(ROW_STEP) * K;
       dst += ROW_STEP * XLD;
@@ -398,14 +413,14 @@ kernel(const XT* __restrict__ x, const QT* __restrict__ qw,
   // + {0, 1} at column n = t % BN of every stage.
   const bool owner = t < 8 * BN;
   const int wn = t % BN, wk = 2 * (t / BN);
-  auto load_q = [&](int s, QT (&q)[2]) {
+  auto load_q = [&](int s, int8_t (&q)[2]) {
     const int k = k_begin + s * BK + wk, n = n0 + wn;
 #pragma unroll
     for (int j = 0; j < 2; ++j)
       q[j] = (k + j < k_end && n < N)
-                 ? qw[static_cast<int64_t>(k + j) * N + n] : QT(0);
+                 ? qw[static_cast<int64_t>(k + j) * N + n] : int8_t(0);
   };
-  auto corrupt_q = [&](int s, const QT (&q)[2]) {
+  auto corrupt_q = [&](int s, const int8_t (&q)[2]) {
     const int k = k_begin + s * BK + wk, n = n0 + wn;
     float f[2];
 #pragma unroll
@@ -414,7 +429,6 @@ kernel(const XT* __restrict__ x, const QT* __restrict__ qw,
                            + static_cast<uint32_t>(n);
       f[j] = static_cast<float>(afp::apply_fault<MODEL>(
           q[j], idx, seed, thresh, faulty_bits, mbu_width));
-      if (kBf16) f[j] = __fmul_rn(f[j], scale);
     }
     *reinterpret_cast<uint32_t*>(bt + (s % 2) * B_BYTES<BN> +
                                  b_offset(wn, wk)) =
@@ -422,7 +436,6 @@ kernel(const XT* __restrict__ x, const QT* __restrict__ qw,
   };
 
   constexpr int R = Mma<BN>::R;
-  constexpr int P = Frag<XT>::P;
   float acc[MT][R];
 #pragma unroll
   for (int j = 0; j < MT; ++j)
@@ -431,7 +444,7 @@ kernel(const XT* __restrict__ x, const QT* __restrict__ qw,
 
   // prologue: x stages 0 and 1 in flight, B tile 0 corrupted, the raw
   // weights of stage 1 in registers
-  QT qn[2] = {QT(0), QT(0)};
+  int8_t qn[2] = {0, 0};
 #pragma unroll
   for (int s = 0; s < XS - 1; ++s) {
     if (s < nk) load_x(s);
@@ -442,7 +455,7 @@ kernel(const XT* __restrict__ x, const QT* __restrict__ qw,
     corrupt_q(0, qn);
     if (nk > 1) load_q(1, qn);
   }
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  fence_proxy_async();
 
   for (int s = 0; s < nk; ++s) {
     cp_async_wait<XS - 2>();
@@ -451,20 +464,24 @@ kernel(const XT* __restrict__ x, const QT* __restrict__ qw,
     if (s + XS - 1 < nk) load_x(s + XS - 1);
     cp_async_commit();
 
-    const XT* xt = xs + (s % XS) * X_STAGE;
+    const float* xt = xs + (s % XS) * X_STAGE;
     const uint64_t desc = b_desc(bt + (s % 2) * B_BYTES<BN>);
-    uint32_t a[MT][P][4];
+    // A fragment word h of m64 tile j: the two neighbouring k of (row,
+    // col) = (r, 2tq) (r+8, 2tq) (r, 2tq+8) (r+8, 2tq+8) for h = 0..3,
+    // split exactly into three bf16 words
+    uint32_t a[MT][3][4];
 #pragma unroll
     for (int j = 0; j < MT; ++j) {
       if (m0 + wg * 128 + j * 64 >= M) continue;  // uniform per warpgroup
       const int r = wg * 128 + j * 64 + warp * 16 + g;
 #pragma unroll
       for (int h = 0; h < 4; ++h)
-        Frag<XT>::load(xt + (r + (h & 1) * 8) * XLD + 2 * tq + (h >> 1) * 8,
-                       a[j], h);
+        split3(*reinterpret_cast<const float2*>(
+                   xt + (r + (h & 1) * 8) * XLD + 2 * tq + (h >> 1) * 8),
+               a[j][0][h], a[j][1][h], a[j][2][h]);
       wgmma_fence();
 #pragma unroll
-      for (int p = 0; p < P; ++p) Mma<BN>::run(acc[j], a[j][p], desc);
+      for (int p = 0; p < 3; ++p) Mma<BN>::run(acc[j], a[j][p], desc);
     }
     wgmma_commit();
 
@@ -474,7 +491,7 @@ kernel(const XT* __restrict__ x, const QT* __restrict__ qw,
       corrupt_q(s + 1, qn);
       if (s + 2 < nk) load_q(s + 2, qn);
     }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fence_proxy_async();
     wgmma_wait_all();
 #pragma unroll
     for (int j = 0; j < MT; ++j) fence_acc(acc[j]);
@@ -483,13 +500,9 @@ kernel(const XT* __restrict__ x, const QT* __restrict__ qw,
   // epilogue: d[4c + e] of an m64nN tile is (row 16 warp + g + 8 (e / 2),
   // col 8c + 2tq + e % 2), so d[2i], d[2i + 1] are neighbours in a row and
   // go out as one store where N is even; + 0.0f turns a -0 sum of zeros
-  // into +0; float32 x takes the scale here
-  const bool out_bf16 = kBf16 && splits == 1;
+  // into +0, then the scale
   const int64_t base = (static_cast<int64_t>(split) * rows + row) * M * N;
-  auto fin = [&](float v) {
-    v = __fadd_rn(v, 0.0f);
-    return kBf16 ? v : __fmul_rn(v, scale);
-  };
+  auto fin = [&](float v) { return __fmul_rn(__fadd_rn(v, 0.0f), scale); };
 #pragma unroll
   for (int j = 0; j < MT; ++j) {
 #pragma unroll
@@ -497,70 +510,287 @@ kernel(const XT* __restrict__ x, const QT* __restrict__ qw,
       const int m = m0 + wg * 128 + j * 64 + warp * 16 + g + 8 * ((i / 2) % 2);
       const int n = n0 + 8 * (i / 4) + 2 * tq;
       if (m >= M) continue;
-      const int64_t o = base + static_cast<int64_t>(m) * N + n;
+      float* d = dst + base + static_cast<int64_t>(m) * N + n;
       const float v0 = fin(acc[j][i]), v1 = fin(acc[j][i + 1]);
-      if (out_bf16) {
-        __nv_bfloat16* d = static_cast<__nv_bfloat16*>(dst_p) + o;
-        if (N % 2 == 0 && n + 1 < N) {
-          *reinterpret_cast<__nv_bfloat162*>(d) = __floats2bfloat162_rn(v0, v1);
-        } else {
-          if (n < N) d[0] = __float2bfloat16_rn(v0);
-          if (n + 1 < N) d[1] = __float2bfloat16_rn(v1);
-        }
+      if (N % 2 == 0 && n + 1 < N) {
+        *reinterpret_cast<float2*>(d) = make_float2(v0, v1);
       } else {
-        float* d = static_cast<float*>(dst_p) + o;
-        if (N % 2 == 0 && n + 1 < N) {
-          *reinterpret_cast<float2*>(d) = make_float2(v0, v1);
-        } else {
-          if (n < N) d[0] = v0;
-          if (n + 1 < N) d[1] = v1;
-        }
+        if (n < N) d[0] = v0;
+        if (n + 1 < N) d[1] = v1;
       }
     }
   }
 }
 
-template <int BN, int MODEL, typename XT, typename QT>
-cudaError_t launch(const XT* x, const QT* qw, void* dst, const float* scale,
-                   const float* rate, int rows, int M, int K, int N,
-                   int splits, int k_chunk, uint32_t seed, int faulty_bits,
-                   int mbu_width, cudaStream_t s) {
-  constexpr int smem = SMEM_BYTES<BN, XT>;
+template <int BN, int MODEL>
+cudaError_t launch(const float* x, const int8_t* qw, float* dst,
+                   const float* scale, const float* rate, int rows, int M,
+                   int K, int N, int splits, int k_chunk, uint32_t seed,
+                   int faulty_bits, int mbu_width, cudaStream_t s) {
+  constexpr int smem = SMEM_BYTES<BN>;
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kernel<BN, MODEL, XT, QT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        kernel<BN, MODEL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
-  constexpr int vec = 16 / static_cast<int>(sizeof(XT));
-  const bool x_vec = K % vec == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool x_vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, rows * splits);
-  kernel<BN, MODEL, XT, QT><<<grid, THREADS, smem, s>>>(
-      x, qw, dst, scale, rate, rows, M, K, N, k_chunk, splits, x_vec, seed,
+  kernel<BN, MODEL><<<grid, THREADS, smem, s>>>(
+      x, qw, dst, scale, rate, rows, M, K, N, k_chunk, x_vec, seed,
       faulty_bits, mbu_width);
   return cudaGetLastError();
 }
 
-// Both N tiles of one (x type, storage type) pair.
-template <int MODEL, typename XT, typename QT>
-cudaError_t launch_tc(const void* x, const void* qw, void* dst,
-                      const float* scale, const float* rate, int rows, int M,
-                      int K, int N, int splits, int k_chunk, uint32_t seed,
-                      int faulty_bits, int mbu_width, cudaStream_t s) {
-  const XT* xp = static_cast<const XT*>(x);
-  const QT* qp = static_cast<const QT*>(qw);
-  if (N <= 16)
-    return launch<16, MODEL, XT, QT>(xp, qp, dst, scale, rate, rows, M, K, N,
-                                     splits, k_chunk, seed, faulty_bits,
-                                     mbu_width, s);
-  return launch<64, MODEL, XT, QT>(xp, qp, dst, scale, rate, rows, M, K, N,
-                                   splits, k_chunk, seed, faulty_bits,
-                                   mbu_width, s);
+}  // namespace tc
+
+// ---------------------------------------------------------------------
+// bf16 x: the hash pass and the product
+namespace bfp {
+
+using tc::b_desc;
+using tc::BK;
+using tc::cp_async16;
+using tc::cp_async_commit;
+using tc::cp_async_wait;
+using tc::fence_acc;
+using tc::fence_proxy_async;
+using tc::Mma;
+using tc::wgmma_commit;
+using tc::wgmma_fence;
+using tc::wgmma_wait_all;
+constexpr int TILE_N = 128;                 // columns of a W' tile
+constexpr int TILE = BK * TILE_N;           // elements of a W' tile (4 KB)
+
+// The hash pass.  grid: one block per W' tile (k-tile ks, column tile nt)
+// = blockIdx.x, nt * nK + ks; 256 threads, each four bf16 pairs of the
+// tile.  Pair p of a tile is the 4-byte word p of its image, the weights
+// (k, n) and (k + 1, n) with k = 2 (p & 3) + 8 ((p >> 5) & 1) and n =
+// ((p >> 2) & 7) + 8 (p >> 6): b_offset(n, k) = 4p, so a warp writes 128
+// contiguous bytes.  Each pair's draws are computed once (weight_draws)
+// and every row of the group builds its mask from them; weights past K
+// or N are written as zeros, so the product reads whole tiles.
+constexpr int HASH_THREADS = 256;
+
+template <int MODEL, typename QT>
+__global__ void __launch_bounds__(HASH_THREADS)
+hash_kernel(const QT* __restrict__ qw, __nv_bfloat16* __restrict__ tiles,
+            const float* __restrict__ scale_p, const float* __restrict__ rate,
+            int rows, int K, int N, int nK, int64_t row_elems, uint32_t seed,
+            int faulty_bits, int mbu_width) {
+  const int nt = blockIdx.x / nK, ks = blockIdx.x % nK;
+  const float scale = *scale_p;
+  __nv_bfloat16* tile = tiles + static_cast<int64_t>(blockIdx.x) * TILE;
+#pragma unroll 1
+  for (int p = threadIdx.x; p < TILE / 2; p += HASH_THREADS) {
+    const int k = ks * BK + 2 * (p & 3) + 8 * ((p >> 5) & 1);
+    const int n = nt * TILE_N + ((p >> 2) & 7) + 8 * (p >> 6);
+    bool ok[2];
+    QT q[2];
+    uint32_t d[2][afp::kMaxPlanes];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      ok[j] = k + j < K && n < N;
+      const uint32_t idx = static_cast<uint32_t>(k + j) * static_cast<uint32_t>(N)
+                           + static_cast<uint32_t>(n);
+      q[j] = ok[j] ? qw[idx] : QT(0);
+      afp::weight_draws<MODEL>(idx, seed, faulty_bits, mbu_width, d[j]);
+    }
+#pragma unroll 1
+    for (int r = 0; r < rows; ++r) {
+      const uint32_t thresh = afp::rate_threshold(rate[r]);
+      float f[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const QT v = afp::apply_mask<MODEL>(
+            q[j], afp::row_mask<MODEL>(d[j], thresh, faulty_bits));
+        f[j] = ok[j] ? __fmul_rn(static_cast<float>(v), scale) : 0.0f;
+      }
+      reinterpret_cast<__nv_bfloat162*>(tile + r * row_elems)[p] =
+          __floats2bfloat162_rn(f[0], f[1]);
+    }
+  }
 }
 
-}  // namespace tc
+// The product.  Two consumer warpgroups of one m64 tile each: blocks of
+// BM = 128 rows by BN = 128 columns, two a SM (the sweep of this shape
+// against 256 x 128 and 128 x 256 found it fastest at olmo-1b's three
+// shapes, PERF.md).  A stage is KS k-steps (64 of K): x's [BM, 64]
+// through a cp.async ring with rows XLD apart, and the stage's W' tiles,
+// copied whole (they are already the image wgmma reads).  Per k-step one
+// wgmma m64n128k16 a warpgroup, A from registers, into fp32 accumulators,
+// k in order.
+constexpr int WGS = 2;
+constexpr int THREADS = 128 * WGS;
+constexpr int BM = 64 * WGS;
+constexpr int BN = TILE_N;
+constexpr int KS = 4;                       // k-steps a stage
+constexpr int STAGES = 3;
+constexpr int XLD = KS * BK + 8;            // 144-byte x rows: the fragment
+                                            // reads miss no bank
+constexpr int X_STAGE = BM * XLD;           // bf16 elements
+constexpr int B_STAGE = KS * TILE;          // bf16 elements
+constexpr int SMEM = STAGES * (X_STAGE + B_STAGE) * 2;
+
+// grid: (N / BN, M / BM, rows * splits); dst is [rows, M, N] bf16 where
+// splits is 1, else float32 partial sums [splits, rows, M, N].  A K-slice
+// is k_tiles W' tiles (16 of K each).
+__global__ void __launch_bounds__(THREADS, 2)
+product_kernel(const __nv_bfloat16* __restrict__ x,
+               const __nv_bfloat16* __restrict__ tiles,
+               void* __restrict__ dst_p, int rows, int M, int K, int N,
+               int nK, int64_t row_elems, int k_tiles, int splits,
+               bool x_vec) {
+  constexpr int X_CHUNKS = KS * BK / 8;       // 16-byte chunks of a row: 8
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* bs = xs + STAGES * X_STAGE;
+
+  const int row = blockIdx.z % rows, split = blockIdx.z / rows;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int ks0 = split * k_tiles, ks_end = min(nK, ks0 + k_tiles);
+  const int k_end = min(K, ks_end * BK);
+  const int nst = ks_end > ks0 ? (ks_end - ks0 + KS - 1) / KS : 0;
+  const __nv_bfloat16* xr = x + static_cast<int64_t>(row) * M * K;
+  const __nv_bfloat16* wr = tiles + static_cast<int64_t>(row) * row_elems;
+  const int t = threadIdx.x;
+  const int wg = t / 128, warp = (t / 32) % 4, lane = t % 32;
+  const int g = lane / 4, tq = lane % 4;
+
+  // stage s -> ring slot s % STAGES.  x: thread t copies the 16-byte
+  // chunk t % X_CHUNKS of rows t / X_CHUNKS + i THREADS / X_CHUNKS; rows
+  // past M and k past the slice arrive as zeros; without 16-byte
+  // alignment, plain loads and stores.  W': chunk c of the stage is
+  // 16 bytes of the tile of k-step c / 256.
+  constexpr int ROW_STEP = THREADS / X_CHUNKS;
+  const int xk = 8 * (t % X_CHUNKS);
+  auto load = [&](int s) {
+    const int k = ks0 * BK + s * KS * BK + xk;
+    const __nv_bfloat16* src = xr + static_cast<int64_t>(m0 + t / X_CHUNKS) * K + k;
+    __nv_bfloat16* xd = xs + (s % STAGES) * X_STAGE + (t / X_CHUNKS) * XLD + xk;
+#pragma unroll
+    for (int i = 0; i < BM / ROW_STEP; ++i) {
+      const bool row_ok = m0 + t / X_CHUNKS + i * ROW_STEP < M;
+      if (x_vec) {
+        const bool ok = row_ok && k < k_end;
+        cp_async16(xd, ok ? src : xr, ok);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          xd[e] = row_ok && k + e < k_end ? src[e] : __float2bfloat16_rn(0.0f);
+      }
+      src += static_cast<int64_t>(ROW_STEP) * K;
+      xd += ROW_STEP * XLD;
+    }
+    __nv_bfloat16* bd = bs + (s % STAGES) * B_STAGE;
+    constexpr int TILE_CHUNKS = TILE * 2 / 16;          // 256
+#pragma unroll
+    for (int c = t; c < KS * TILE_CHUNKS; c += THREADS) {
+      const int ks = ks0 + s * KS + c / TILE_CHUNKS;
+      const bool ok = ks < ks_end;
+      const __nv_bfloat16* src_w = wr + (static_cast<int64_t>(blockIdx.x) * nK + ks) * TILE
+                                   + (c % TILE_CHUNKS) * 8;
+      cp_async16(bd + c * 8, ok ? src_w : wr, ok);
+    }
+  };
+
+  constexpr int R = Mma<BN>::R;
+  float acc[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nst) load(s);
+    cp_async_commit();
+  }
+
+  const bool live = m0 + wg * 64 < M;             // uniform per warpgroup
+  for (int s = 0; s < nst; ++s) {
+    cp_async_wait<STAGES - 2>();
+    fence_proxy_async();
+    __syncthreads();  // stage s is in; slot (s + 2) % STAGES is free
+    if (s + STAGES - 1 < nst) load(s + STAGES - 1);
+    cp_async_commit();
+
+    const __nv_bfloat16* xt = xs + (s % STAGES) * X_STAGE;
+    const __nv_bfloat16* bt = bs + (s % STAGES) * B_STAGE;
+    const int steps = min(KS, ks_end - ks0 - s * KS);
+    // A fragment word h at k-step kk: the two neighbouring k of (row,
+    // col) = (r, 2tq) (r+8, 2tq) (r, 2tq+8) (r+8, 2tq+8)
+    uint32_t a[KS][4];
+    const int r = wg * 64 + warp * 16 + g;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int h = 0; h < 4; ++h)
+        a[kk][h] = kk < steps
+            ? *reinterpret_cast<const uint32_t*>(
+                  xt + (r + (h & 1) * 8) * XLD + kk * BK + 2 * tq + (h >> 1) * 8)
+            : 0u;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      if (kk >= steps || !live) break;
+      Mma<BN>::run(acc, a[kk], b_desc(bt + kk * TILE));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc(acc);
+  }
+
+  // epilogue: as tc::kernel's, rounded once to bf16 (or the fp32 partial
+  // sums of a K-slice)
+  const bool out_bf16 = splits == 1;
+  const int64_t base = (static_cast<int64_t>(split) * rows + row) * M * N;
+#pragma unroll
+  for (int i = 0; i < R; i += 2) {
+    const int m = m0 + wg * 64 + warp * 16 + g + 8 * ((i / 2) % 2);
+    const int n = n0 + 8 * (i / 4) + 2 * tq;
+    if (m >= M) continue;
+    const int64_t o = base + static_cast<int64_t>(m) * N + n;
+    const float v0 = __fadd_rn(acc[i], 0.0f);
+    const float v1 = __fadd_rn(acc[i + 1], 0.0f);
+    if (out_bf16) {
+      __nv_bfloat16* d = static_cast<__nv_bfloat16*>(dst_p) + o;
+      if (N % 2 == 0 && n + 1 < N) {
+        *reinterpret_cast<__nv_bfloat162*>(d) = __floats2bfloat162_rn(v0, v1);
+      } else {
+        if (n < N) d[0] = __float2bfloat16_rn(v0);
+        if (n + 1 < N) d[1] = __float2bfloat16_rn(v1);
+      }
+    } else {
+      float* d = static_cast<float*>(dst_p) + o;
+      if (N % 2 == 0 && n + 1 < N) {
+        *reinterpret_cast<float2*>(d) = make_float2(v0, v1);
+      } else {
+        if (n < N) d[0] = v0;
+        if (n + 1 < N) d[1] = v1;
+      }
+    }
+  }
+}
+
+cudaError_t launch_product(const __nv_bfloat16* x, const __nv_bfloat16* tiles,
+                           void* dst, int rows, int M, int K, int N, int nK,
+                           int64_t row_elems, int k_tiles, int splits,
+                           cudaStream_t s) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        product_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  const bool x_vec = K % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, rows * splits);
+  product_kernel<<<grid, THREADS, SMEM, s>>>(
+      x, tiles, dst, rows, M, K, N, nK, row_elems, k_tiles, splits, x_vec);
+  return cudaGetLastError();
+}
+
+}  // namespace bfp
 
 // out[i] = sum over s of partial[s][i], in slice order, written as float32
 // or rounded once to bf16; four elements a thread per step where n % 4 == 0
@@ -607,48 +837,61 @@ __global__ void sum_splits_kernel(const float* __restrict__ partial,
   }
 }
 
+template <typename OT>
+cudaError_t sum_splits(const float* partial, OT* out, int64_t total,
+                       int splits, cudaStream_t s) {
+  const int64_t blocks = (total + 255) / 256;
+  const unsigned grid = static_cast<unsigned>(blocks < 132 * 8 ? blocks : 132 * 8);
+  sum_splits_kernel<OT><<<grid, 256, 0, s>>>(partial, out, total, splits);
+  return cudaGetLastError();
+}
+
+bool bad_sizes(int64_t rows, int64_t M, int64_t K, int64_t N, int splits) {
+  return splits < 1 || rows * splits > 65535 || M > (1LL << 30) ||
+         K > (1LL << 30) || N > (1LL << 30) || K * N > 0xFFFFFFFFLL;
+}
+
 }  // namespace
 
-// x: rows x M x K, float32 (x_bf16 0) or bfloat16 (x_bf16 1); qw: K x N
-// integers of `qbytes` bytes; out: rows x M x N in x's type; scale: one
-// float32; rate: rows float32.  With splits > 1, partial is a splits x rows
-// x M x N float32 workspace.  bf16 x and float32 x with int8 qw run the
-// tensor-core body (N tile 16 for N <= 16, else 64), float32 x with int16
-// or int32 qw the SIMT body; K is cut into `splits` slices of whole
-// k-steps (16 of K on the tensor cores, 8 on the SIMT body).
+// float32 x: x is rows x M x K; qw: K x N integers of `qbytes` bytes; out:
+// rows x M x N float32; scale: one float32; rate: rows float32.  With
+// splits > 1, partial is a splits x rows x M x N float32 workspace.  int8
+// qw runs the tensor-core body (N tile 16 for N <= 16, else 64), int16 or
+// int32 qw the SIMT body; K is cut into `splits` slices of whole k-steps
+// (16 of K on the tensor cores, 8 on the SIMT body).
 extern "C" int afp_fault_matmul(const void* x, const void* qw, void* out,
                                 float* partial, const float* scale,
                                 const float* rate, int64_t rows, int64_t M,
                                 int64_t K, int64_t N, int splits, int qbytes,
-                                int x_bf16, int model, uint32_t seed,
-                                int faulty_bits, int mbu_width, void* stream) {
+                                int model, uint32_t seed, int faulty_bits,
+                                int mbu_width, void* stream) {
   if (rows <= 0 || M <= 0 || N <= 0) return static_cast<int>(cudaSuccess);
-  if (splits < 1 || rows * splits > 65535 || M > (1LL << 30) ||
-      K > (1LL << 30) || N > (1LL << 30) || K * N > 0xFFFFFFFFLL)
+  if (bad_sizes(rows, M, K, N, splits))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool tensor_cores = x_bf16 || qbytes == 1;
+  const bool tensor_cores = qbytes == 1;
   const int bk = tensor_cores ? tc::BK : simt::BK;
   const int bm = tensor_cores ? tc::BM : simt::BM;
   if ((M + bm - 1) / bm > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t k_steps = (K + bk - 1) / bk;
   const int k_chunk = static_cast<int>((k_steps + splits - 1) / splits * bk);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  void* dst = splits > 1 ? static_cast<void*>(partial) : out;
+  const float* xf = static_cast<const float*>(x);
+  float* dst = splits > 1 ? partial : static_cast<float*>(out);
   const int r = static_cast<int>(rows), m = static_cast<int>(M),
             k = static_cast<int>(K), n = static_cast<int>(N);
   cudaError_t err = cudaSuccess;
-  if (x_bf16) {
-    AFP_DISPATCH_INT(qbytes, AFP_DISPATCH_MODEL(model,
-        err = (tc::launch_tc<MODEL, __nv_bfloat16, QT>(
-            x, qw, dst, scale, rate, r, m, k, n, splits, k_chunk, seed,
-            faulty_bits, mbu_width, s))));
-  } else if (qbytes == 1) {
-    AFP_DISPATCH_MODEL(model, err = (tc::launch_tc<MODEL, float, int8_t>(
-        x, qw, dst, scale, rate, r, m, k, n, splits, k_chunk, seed,
-        faulty_bits, mbu_width, s)));
+  if (tensor_cores) {
+    const int8_t* q8 = static_cast<const int8_t*>(qw);
+    if (N <= 16) {
+      AFP_DISPATCH_MODEL(model, err = (tc::launch<16, MODEL>(
+          xf, q8, dst, scale, rate, r, m, k, n, splits, k_chunk, seed,
+          faulty_bits, mbu_width, s)));
+    } else {
+      AFP_DISPATCH_MODEL(model, err = (tc::launch<64, MODEL>(
+          xf, q8, dst, scale, rate, r, m, k, n, splits, k_chunk, seed,
+          faulty_bits, mbu_width, s)));
+    }
   } else {
-    const float* xf = static_cast<const float*>(x);
-    float* df = static_cast<float*>(dst);
     const dim3 grid(static_cast<unsigned>((N + simt::BN - 1) / simt::BN),
                     static_cast<unsigned>((M + simt::BM - 1) / simt::BM),
                     static_cast<unsigned>(rows * splits));
@@ -656,13 +899,13 @@ extern "C" int afp_fault_matmul(const void* x, const void* qw, void* out,
       case 2:
         AFP_DISPATCH_MODEL(model,
             simt::kernel<int16_t, MODEL><<<grid, simt::THREADS, 0, s>>>(
-                xf, static_cast<const int16_t*>(qw), df, scale, rate, r, m,
+                xf, static_cast<const int16_t*>(qw), dst, scale, rate, r, m,
                 k, n, k_chunk, seed, faulty_bits, mbu_width));
         break;
       case 4:
         AFP_DISPATCH_MODEL(model,
             simt::kernel<int32_t, MODEL><<<grid, simt::THREADS, 0, s>>>(
-                xf, static_cast<const int32_t*>(qw), df, scale, rate, r, m,
+                xf, static_cast<const int32_t*>(qw), dst, scale, rate, r, m,
                 k, n, k_chunk, seed, faulty_bits, mbu_width));
         break;
       default:
@@ -671,14 +914,60 @@ extern "C" int afp_fault_matmul(const void* x, const void* qw, void* out,
     err = cudaGetLastError();
   }
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const int64_t total = rows * M * N;
-  const int64_t blocks = (total + 255) / 256;
-  const unsigned grid = static_cast<unsigned>(blocks < 132 * 8 ? blocks : 132 * 8);
-  if (x_bf16)
-    sum_splits_kernel<__nv_bfloat16><<<grid, 256, 0, s>>>(
-        partial, static_cast<__nv_bfloat16*>(out), total, splits);
-  else
-    sum_splits_kernel<float><<<grid, 256, 0, s>>>(
-        partial, static_cast<float*>(out), total, splits);
+  return static_cast<int>(sum_splits<float>(
+      partial, static_cast<float*>(out), rows * M * N, splits, s));
+}
+
+// bf16 x, the hash pass: qw is K x N integers of `qbytes` bytes; tiles is
+// rows x row_elems bf16, row r the W' of rate[r]: ceil(K / 16) x ceil(N /
+// 128) tiles of 16 x 128, tile (ks, nt) at (nt ceil(K / 16) + ks) 2048
+// elements, each in the product's B image; bf16(fp32(q') scale).
+extern "C" int afp_fault_weight_tiles(const void* qw, void* tiles,
+                                      const float* scale, const float* rate,
+                                      int64_t rows, int64_t K, int64_t N,
+                                      int qbytes, int model, uint32_t seed,
+                                      int faulty_bits, int mbu_width,
+                                      void* stream) {
+  if (rows <= 0 || K <= 0 || N <= 0) return static_cast<int>(cudaSuccess);
+  if (bad_sizes(1, 1, K, N, 1) || rows > (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nK = static_cast<int>((K + tc::BK - 1) / tc::BK);
+  const int nN = static_cast<int>((N + bfp::TILE_N - 1) / bfp::TILE_N);
+  const int64_t row_elems = static_cast<int64_t>(nK) * nN * bfp::TILE;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(tiles);
+  const int r = static_cast<int>(rows), k = static_cast<int>(K),
+            n = static_cast<int>(N);
+  AFP_DISPATCH_INT(qbytes, AFP_DISPATCH_MODEL(model,
+      bfp::hash_kernel<MODEL, QT><<<nK * nN, bfp::HASH_THREADS, 0, s>>>(
+          static_cast<const QT*>(qw), out, scale, rate, r, k, n, nK,
+          row_elems, seed, faulty_bits, mbu_width)));
   return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 x, the product: x is rows x M x K bf16, tiles rows x row_elems (the
+// hash pass's layout), out rows x M x N bf16.  With splits > 1, partial
+// is a splits x rows x M x N float32 workspace and K is cut into slices
+// of whole W' tiles.
+extern "C" int afp_matmul_tiles(const void* x, const void* tiles, void* out,
+                                float* partial, int64_t rows, int64_t M,
+                                int64_t K, int64_t N, int splits,
+                                void* stream) {
+  if (rows <= 0 || M <= 0 || N <= 0) return static_cast<int>(cudaSuccess);
+  if (bad_sizes(rows, M, K, N, splits) || (M + bfp::BM - 1) / bfp::BM > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nK = static_cast<int>((K + tc::BK - 1) / tc::BK);
+  const int nN = static_cast<int>((N + bfp::TILE_N - 1) / bfp::TILE_N);
+  const int64_t row_elems = static_cast<int64_t>(nK) * nN * bfp::TILE;
+  const int k_tiles = (nK + splits - 1) / splits;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  void* dst = splits > 1 ? static_cast<void*>(partial) : out;
+  const cudaError_t err = bfp::launch_product(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(tiles), dst, static_cast<int>(rows),
+      static_cast<int>(M), static_cast<int>(K), static_cast<int>(N), nK,
+      row_elems, k_tiles, splits, s);
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  return static_cast<int>(sum_splits<__nv_bfloat16>(
+      partial, static_cast<__nv_bfloat16*>(out), rows * M * N, splits, s));
 }

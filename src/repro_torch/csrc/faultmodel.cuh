@@ -78,18 +78,77 @@ __device__ __forceinline__ int32_t fault_mask(uint32_t idx, uint32_t seed,
   return static_cast<int32_t>(mask);
 }
 
-// Corrupt one stored integer; T is the storage type (int8/int16/int32),
-// and the mask is narrowed to it first, as q ^ mask.astype(q.dtype).
+// Apply an int32 mask to one stored integer; T is the storage type
+// (int8/int16/int32), and the mask is narrowed to it first, as
+// q ^ mask.astype(q.dtype).
+template <int MODEL, typename T>
+__device__ __forceinline__ T apply_mask(T q, int32_t mask) {
+  const T m = static_cast<T>(mask);
+  if (MODEL == kStuck0) return static_cast<T>(q & ~m);
+  if (MODEL == kStuck1) return static_cast<T>(q | m);
+  return static_cast<T>(q ^ m);
+}
+
+// Corrupt one stored integer of a row whose threshold is thresh.
 template <int MODEL, typename T>
 __device__ __forceinline__ T apply_fault(T q, uint32_t idx, uint32_t seed,
                                          uint32_t thresh, int faulty_bits,
                                          int mbu_width) {
   if (faulty_bits <= 0) return q;
-  const T m = static_cast<T>(
-      fault_mask<MODEL>(idx, seed, thresh, faulty_bits, mbu_width));
-  if (MODEL == kStuck0) return static_cast<T>(q & ~m);
-  if (MODEL == kStuck1) return static_cast<T>(q | m);
-  return static_cast<T>(q ^ m);
+  return apply_mask<MODEL>(
+      q, fault_mask<MODEL>(idx, seed, thresh, faulty_bits, mbu_width));
+}
+
+// The hash split from the rows.  The draws of one flat index depend on
+// (idx, seed, plane) and the window only, never on a row's rate, so a
+// kernel that corrupts one weight for many rows computes them once with
+// weight_draws and builds each row's mask from them with row_mask:
+// row_mask<M>(d, T, b) == fault_mask<M>(idx, seed, T, b, w) bitwise for
+// every threshold T.  d holds plane i's draw24 at d[i] for i < faulty_bits
+// (flip, stuck-0, stuck-1), or the MBU event plane's draw at d[0] and the
+// burst it would set at d[1].  The loops run over compile-time indices
+// and stop at faulty_bits, so d stays in registers.
+constexpr int kMaxPlanes = 32;
+
+template <int MODEL>
+__device__ __forceinline__ void weight_draws(uint32_t idx, uint32_t seed,
+                                             int faulty_bits, int mbu_width,
+                                             uint32_t (&d)[kMaxPlanes]) {
+  if (MODEL == kMbu) {
+    if (faulty_bits <= 0) return;
+    const int width = max(1, min(mbu_width, faulty_bits));
+    const int span = faulty_bits - width + 1;
+    const float u_pos = __fmul_rn(
+        static_cast<float>(draw24(idx, seed, kMbuPosPlane)),
+        5.9604644775390625e-08f);  // 2^-24
+    const float pos = __fmul_rn(u_pos, static_cast<float>(span));
+    const int start = min(static_cast<int>(pos), span - 1);
+    const uint32_t window = faulty_bits >= 32 ? 0xFFFFFFFFu
+                                              : ((1u << faulty_bits) - 1u);
+    d[0] = draw24(idx, seed, kMbuEventPlane);
+    d[1] = (((1u << width) - 1u) << start) & window;
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < kMaxPlanes; ++i) {
+    if (i >= faulty_bits) break;
+    d[i] = draw24(idx, seed, static_cast<uint32_t>(i));
+  }
+}
+
+template <int MODEL>
+__device__ __forceinline__ int32_t row_mask(const uint32_t (&d)[kMaxPlanes],
+                                            uint32_t thresh,
+                                            int faulty_bits) {
+  if (faulty_bits <= 0) return 0;
+  if (MODEL == kMbu) return d[0] < thresh ? static_cast<int32_t>(d[1]) : 0;
+  uint32_t mask = 0;
+#pragma unroll
+  for (int i = 0; i < kMaxPlanes; ++i) {
+    if (i >= faulty_bits) break;
+    if (d[i] < thresh) mask |= 1u << i;
+  }
+  return static_cast<int32_t>(mask);
 }
 
 }  // namespace afp

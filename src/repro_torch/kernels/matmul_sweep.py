@@ -1,16 +1,21 @@
-"""Device time of ``fault_matmul`` across shapes, split counts and the
-hash on or off, on one NVIDIA card.
+"""Device time of ``fault_matmul`` across shapes, split counts, row
+counts and the hash on or off, on one NVIDIA card.
 
     PYTHONPATH=src python -m repro_torch.kernels.matmul_sweep
 
 Each line is one configuration: the mean device time of 20 calls captured
 in a CUDA graph and replayed 10 times between events (no host cost).
-``faulty_bits=0`` skips the hash, so the difference to ``faulty_bits=4``
-is what the hash costs; a K sweep at fixed M and N separates the cost of
-one 16-deep k-step from the fixed cost of a call; N=64 at 8 slices puts
-8 blocks on the card against 128 at N=1024, which tells time spent inside
-an SM from contention for L2.  Prints the card's name and power limit
-first.
+
+float32 x (the CNN path): ``faulty_bits=0`` skips the hash, so the
+difference to ``faulty_bits=4`` is what the hash costs; a K sweep at fixed
+M and N separates the cost of one 16-deep k-step from the fixed cost of a
+call; N=64 at 8 slices puts 8 blocks on the card against 128 at N=1024,
+which tells time spent inside an SM from contention for L2.
+
+bf16 x (the transformer path) at olmo-1b's three projection shapes: the
+whole call at 6 faulty bits and at 0 (the hash pass then writes W'
+without a draw), the hash pass alone and the product alone; then R = 1
+and 8 rows at 2048x2048x2048.  Prints the card's name and power limit first.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from repro_torch.kernels import ops
 
 SHAPES = ((512, 512, 16), (512, 256, 1024), (512, 1024, 1024),
           (512, 4096, 1024), (512, 4096, 64))
+BF16_SHAPES = ((2048, 2048, 2048), (2048, 2048, 8192), (2048, 8192, 2048))
 
 
 def device_ms(fn, launches: int = 20, replays: int = 10) -> float:
@@ -61,7 +67,7 @@ def main() -> None:
         qw = torch.randint(-127, 128, (K, N), device=dev, dtype=torch.int8,
                            generator=gen)
         x = torch.randn(1, M, K, device=dev, generator=gen)
-        own = default_splits(M, K, N, True, dev)
+        own = default_splits(M, K, N, "tc", dev)
         for splits in sorted({own, 8}):
             ops._k_splits = lambda *_, s=splits: s
             for bits in (4, 0):
@@ -71,6 +77,38 @@ def main() -> None:
                       f"{' (default)' if splits == own else ''} faulty_bits "
                       f"{bits}: {t:.4f} ms", flush=True)
         ops._k_splits = default_splits
+    sweep_bf16(dev, gen)
+
+
+def sweep_bf16(dev, gen) -> None:
+    """The bf16 route: hash on/off, each pass alone, and R."""
+    scale = torch.tensor(0.0123, device=dev)
+    one = torch.tensor([0.2], device=dev)
+    for M, K, N in BF16_SHAPES:
+        qw = torch.randint(-127, 128, (K, N), device=dev, dtype=torch.int8,
+                           generator=gen)
+        x = torch.randn(1, M, K, device=dev, generator=gen).to(torch.bfloat16)
+        tiles = ops.fault_weight_tiles(qw, scale, 1, one, 6)
+        t = device_ms(lambda: ops.fault_weight_tiles(qw, scale, 1, one, 6,
+                                                     out=tiles))
+        print(f"[{K},{N}] int8 hash pass, 1 row, faulty_bits 6: {t:.4f} ms",
+              flush=True)
+        tag = f"[1,{M},{K}] bf16 x [{K},{N}] int8"
+        t = device_ms(lambda: ops.matmul_tiles(x, tiles, K, N))
+        print(f"{tag} product alone: {t:.4f} ms", flush=True)
+        for bits in (6, 0):
+            t = device_ms(lambda: ops.fault_matmul(x, qw, scale, 1, one,
+                                                   bits))
+            print(f"{tag} faulty_bits {bits}: {t:.4f} ms", flush=True)
+    M = K = N = 2048
+    qw = torch.randint(-127, 128, (K, N), device=dev, dtype=torch.int8,
+                       generator=gen)
+    for R in (1, 8):
+        x = torch.randn(R, M, K, device=dev, generator=gen).to(torch.bfloat16)
+        rates = torch.full((R,), 0.2, device=dev)
+        t = device_ms(lambda: ops.fault_matmul(x, qw, scale, 1, rates, 6))
+        print(f"[{R},{M},{K}] bf16 x [{K},{N}] int8, {R} rows, faulty_bits 6:"
+              f" {t:.4f} ms ({t / R:.4f} ms a row)", flush=True)
 
 
 if __name__ == "__main__":

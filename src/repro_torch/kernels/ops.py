@@ -10,7 +10,11 @@ Rates follow ``ref.py``'s row convention: a scalar corrupts the tensor as
 one unit, a 1-D float32 ``[R]`` tensor gives each row its own rate (the
 port's population axis).  The seed is one per call, shared by all rows.
 
-``launches`` counts, per wrapper, the calls that launched the kernel.
+``launches`` counts, per wrapper, the launches of its kernel (one call
+of its C entry point: the kernel, and where K is split, the sum of the
+slices).  ``fault_matmul`` on bf16 x launches the kernels of
+``fault_weight_tiles`` and ``matmul_tiles``, once each a row group, and
+they count there.
 """
 from __future__ import annotations
 
@@ -24,24 +28,37 @@ from repro_torch.kernels._build import library
 from repro_torch.kernels.faultmodel import FAULT_MODELS, seed_u32
 from repro_torch.quant.fixedpoint import QuantSpec
 
-__all__ = ["bitflip", "quant_bitflip", "fault_matmul", "launches",
-           "reset_launches", "MODEL_IDS"]
+__all__ = ["bitflip", "quant_bitflip", "fault_matmul", "fault_weight_tiles",
+           "matmul_tiles", "row_groups", "launches", "reset_launches",
+           "MODEL_IDS", "WORKSPACE_BYTES"]
 
 MODEL_IDS = {m: i for i, m in enumerate(FAULT_MODELS)}   # csrc/faultmodel.cuh
 _INT_BYTES = {torch.int8: 1, torch.int16: 2, torch.int32: 4}
 _P, _I64, _I32, _U32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                         ctypes.c_uint32)
+# C entry point -> (library, argument types)
 _SIGNATURES = {
-    "afp_bitflip": [_P, _P, _P, _P, _I64, _I64, _I32, _I32, _U32, _I32, _I32,
-                    _P],
-    "afp_quant_bitflip": [_P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I32,
-                          _U32, _I32, _I32, _P],
-    "afp_fault_matmul": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
-                         _I32, _I32, _I32, _I32, _U32, _I32, _I32, _P],
+    "afp_bitflip": ("bitflip", [_P, _P, _P, _P, _I64, _I64, _I32, _I32, _U32,
+                                _I32, _I32, _P]),
+    "afp_quant_bitflip": ("quant_bitflip", [_P, _P, _P, _P, _I64, _I64, _I32,
+                                            _I32, _I32, _I32, _U32, _I32,
+                                            _I32, _P]),
+    "afp_fault_matmul": ("fault_matmul", [_P, _P, _P, _P, _P, _P, _I64, _I64,
+                                          _I64, _I64, _I32, _I32, _I32, _U32,
+                                          _I32, _I32, _P]),
+    "afp_fault_weight_tiles": ("fault_matmul", [_P, _P, _P, _P, _I64, _I64,
+                                                _I64, _I32, _I32, _U32, _I32,
+                                                _I32, _P]),
+    "afp_matmul_tiles": ("fault_matmul", [_P, _P, _P, _P, _I64, _I64, _I64,
+                                          _I64, _I32, _P]),
 }
 
-launches = {"bitflip": 0, "quant_bitflip": 0, "fault_matmul": 0}
+launches = {"bitflip": 0, "quant_bitflip": 0, "fault_matmul": 0,
+            "fault_weight_tiles": 0, "matmul_tiles": 0}
 _MAX_GRID_Z = 65535          # fault_matmul's grid.z is rows x K slices
+# The bf16 route's W' workspace (``fault_matmul``): a call hashes its rows
+# in groups whose W' fits this many bytes
+WORKSPACE_BYTES = 256 << 20
 
 
 def reset_launches():
@@ -49,10 +66,11 @@ def reset_launches():
         launches[k] = 0
 
 
-def _entry(lib: str, fn: str):
+def _entry(fn: str):
+    lib, argtypes = _SIGNATURES[fn]
     f = getattr(library(lib), fn)
     if f.argtypes is None:
-        f.argtypes = _SIGNATURES[fn]
+        f.argtypes = argtypes
         f.restype = ctypes.c_int
     return f
 
@@ -81,7 +99,7 @@ def _model_id(fault_model: str, faulty_bits: int) -> int:
 
 
 def _launch(fn: str, *args):
-    err = _entry(fn.removeprefix("afp_"), fn)(*args)
+    err = _entry(fn)(*args)
     if err != 0:
         raise RuntimeError(f"{fn} failed: cudaError_t {err}")
 
@@ -95,30 +113,44 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _k_splits(M: int, K: int, N: int, tensor_cores: bool,
+def _k_splits(M: int, K: int, N: int, body: str,
               device: torch.device) -> int:
     """K slices for ``fault_matmul`` (``csrc/fault_matmul.cu``), chosen for
-    ONE row: the slices are summed in slice order, so a row's result
-    depends on their count, and a count fixed per row gives every row of
-    an R-row call what a one-row call gives (the staged engine's chunks
-    against the whole-forward path's single rows).
+    ONE row from its (M, K, N): the slices are summed in slice order, so a
+    row's result depends on their count, and a count fixed per row gives
+    every row of an R-row call what a one-row call gives (the staged
+    engine's chunks against the whole-forward path's single rows).  As many
+    slices as leave one row one wave of blocks, each slice at least its
+    body's minimum depth:
 
-    The tensor-core body (float32 x with int8 weights, bfloat16 x with any):
-    blocks of 512 rows x an N tile of 16 (N <= 16) or 64, one block per SM
-    (512 threads), so as many slices as leave one row one wave: at most one
-    block per SM, each slice at least one k-step (16 of K) long.  ResNet18's
-    fc (K = 512) thus runs 32 blocks a row, AlexNet's fc0 128, and every
-    olmo-1b projection (M = 2048) one slice.  The SIMT body (float32 x with
-    int16/int32 weights): 128x128 tiles, two blocks per SM, each slice at
-    least 16 k-steps (128 of K) long."""
+    ``"tc"`` (float32 x with int8 weights): blocks of 512 rows x an N tile
+    of 16 (N <= 16) or 64, one a SM, slices of >= 16 of K.  ResNet18's fc
+    (K = 512) runs 32 blocks a row, AlexNet's fc0 128.  ``"bf16"`` (bf16 x,
+    the product of W'): blocks of 128 x 128, two a SM, slices of >= 16 of
+    K (one W' tile); every olmo-1b projection (M = 2048) is one slice.  ``"simt"`` (float32 x with int16/int32 weights): 128x128
+    tiles, two blocks a SM, slices of >= 128 of K."""
     sms = _sm_count(device.index or 0)
-    if tensor_cores:
+    if body == "tc":
         tiles = -(-M // 512) * -(-N // (16 if N <= 16 else 64))
         want, steps = sms // tiles, -(-K // 16)
+    elif body == "bf16":
+        tiles = -(-M // 128) * -(-N // 128)
+        want, steps = 2 * sms // tiles, -(-K // 16)
     else:
         tiles = -(-M // 128) * -(-N // 128)
         want, steps = -(-2 * sms // tiles), -(-K // 8) // 16
     return max(1, min(want, steps, _MAX_GRID_Z))
+
+
+def row_groups(R: int, K: int, N: int, splits: int = 1) -> list[tuple[int, int]]:
+    """``(first row, rows)`` of each group the bf16 route of
+    ``fault_matmul`` walks ``R`` rows in: each group is one hash launch and
+    one product launch, its W' (``ref.tile_elems(K, N)`` bf16 a row) within
+    ``WORKSPACE_BYTES`` and its grid within ``_MAX_GRID_Z`` (rows x K
+    slices); at least one row a group, the groups in row order."""
+    per_row = 2 * _ref.tile_elems(K, N)
+    G = max(1, min(WORKSPACE_BYTES // per_row, _MAX_GRID_Z // splits))
+    return [(r0, min(G, R - r0)) for r0 in range(0, R, G)]
 
 
 def bitflip(q: torch.Tensor, seed, rate, faulty_bits: int, *,
@@ -178,6 +210,87 @@ def quant_bitflip(x: torch.Tensor, seed, rate, faulty_bits: int,
     return out
 
 
+def _hash_launch(qw, out, scale_t, rates, seed, faulty_bits, model_id,
+                 mbu_width, r0=0, rows=None):
+    """The hash pass over rows ``r0 .. r0 + rows`` of ``rates`` into
+    ``out`` (checked by the caller)."""
+    rows = rates.numel() if rows is None else rows
+    K, N = qw.shape
+    _launch("afp_fault_weight_tiles", qw.data_ptr(), out.data_ptr(),
+            scale_t.data_ptr(), rates.data_ptr() + 4 * r0, rows, K, N,
+            _INT_BYTES[qw.dtype], model_id, seed_u32(seed), faulty_bits,
+            mbu_width, _stream(qw.device))
+    launches["fault_weight_tiles"] += 1
+
+
+def _product_launch(x_ptr, tiles, out_ptr, rows, M, K, N, splits, partial):
+    """The product of ``rows`` rows of bf16 x at ``x_ptr`` by their W'
+    tiles into ``out_ptr`` (checked by the caller)."""
+    _launch("afp_matmul_tiles", x_ptr, tiles.data_ptr(), out_ptr,
+            partial.data_ptr(), rows, M, K, N, splits, _stream(tiles.device))
+    launches["matmul_tiles"] += 1
+
+
+def fault_weight_tiles(qw: torch.Tensor, scale, seed, rate,
+                       faulty_bits: int, *, fault_model: str = "flip",
+                       mbu_width: int = 2,
+                       out: torch.Tensor | None = None) -> torch.Tensor:
+    """The bf16 route's hash pass: each row's corrupted, dequantized
+    weights ``bf16(fp32(q') * scale)`` as W' tiles, ``[R, tile_elems(K,
+    N)]`` bf16 (``ref.unpack_tiles`` gives ``[R, K, N]``), for every row
+    of ``rate`` in one launch; each weight's draws are computed once and
+    shared by the rows.  ``out`` is an optional ``[>= R, tile_elems]``
+    buffer to write into."""
+    if not _is_cuda(qw):
+        return _ref.fault_weight_tiles_ref(qw, scale, seed, rate, faulty_bits,
+                                           fault_model=fault_model,
+                                           mbu_width=mbu_width)
+    _check(qw.ndim == 2 and qw.dtype in _INT_BYTES and qw.is_contiguous(),
+           f"fault_weight_tiles takes a contiguous 2-D int8/16/32 qw, got "
+           f"{qw.dtype} {tuple(qw.shape)}")
+    rates, _ = _ref.row_rates(rate, qw.device)
+    R, (K, N) = rates.numel(), qw.shape
+    scale_t = torch.as_tensor(scale, dtype=torch.float32,
+                              device=qw.device).contiguous()
+    _check(scale_t.numel() == 1, "fault_weight_tiles takes one scale")
+    n = _ref.tile_elems(K, N)
+    if out is None:
+        out = torch.empty((R, n), dtype=torch.bfloat16, device=qw.device)
+    _check(out.dtype == torch.bfloat16 and out.is_contiguous()
+           and out.ndim == 2 and out.shape[0] >= R and out.shape[1] == n
+           and out.device == qw.device, "out must be [>= R, tile_elems] bf16")
+    _hash_launch(qw, out, scale_t, rates, seed, faulty_bits,
+                 _model_id(fault_model, faulty_bits), mbu_width)
+    return out[:R]
+
+
+def matmul_tiles(x: torch.Tensor, tiles: torch.Tensor, K: int,
+                 N: int) -> torch.Tensor:
+    """The bf16 route's product: ``x [R, ..., K]`` bf16 times row r's W'
+    (``tiles [R, tile_elems(K, N)]``, the hash pass's output), summed in
+    fp32 and rounded once: ``[R, ..., N]`` bf16."""
+    if not _is_cuda(x):
+        return _ref.matmul_tiles_ref(x, tiles, K, N)
+    R = tiles.shape[0]
+    _check(x.dtype == torch.bfloat16 and x.is_contiguous() and x.ndim >= 2
+           and x.shape[0] == R and x.shape[-1] == K,
+           f"matmul_tiles takes contiguous bf16 x [{R}, ..., {K}], got "
+           f"{x.dtype} {tuple(x.shape)}")
+    _check(tiles.dtype == torch.bfloat16 and tiles.is_contiguous()
+           and tiles.shape[1] == _ref.tile_elems(K, N)
+           and tiles.device == x.device, "tiles must be ref.tile_elems wide")
+    M = x[0].numel() // K
+    out = torch.empty((*x.shape[:-1], N), dtype=torch.bfloat16,
+                      device=x.device)
+    splits = _k_splits(M, K, N, "bf16", x.device)
+    _check(R * splits <= _MAX_GRID_Z, "too many rows for one launch")
+    partial = torch.empty((splits, R, M, N) if splits > 1 else (0,),
+                          dtype=torch.float32, device=x.device)
+    _product_launch(x.data_ptr(), tiles, out.data_ptr(), R, M, K, N, splits,
+                    partial)
+    return out
+
+
 def fault_matmul(x: torch.Tensor, qw: torch.Tensor, scale, seed, rate,
                  faulty_bits: int, *, fault_model: str = "flip",
                  mbu_width: int = 2) -> torch.Tensor:
@@ -187,7 +300,13 @@ def fault_matmul(x: torch.Tensor, qw: torch.Tensor, scale, seed, rate,
     The dequantized weight is cast to ``x.dtype`` before the product, as
     the reference's ``out_dtype`` does for a model of that dtype: float32
     x with float32 weights, or bfloat16 x with bfloat16 weights (the
-    result is then bfloat16, rounded once from the fp32 sum)."""
+    result is then bfloat16, rounded once from the fp32 sum).
+
+    On the card, bfloat16 x runs two kernels for each group of
+    ``row_groups``: the hash pass (``fault_weight_tiles``'s kernel) into a
+    W' workspace of at most ``WORKSPACE_BYTES``, then the product
+    (``matmul_tiles``'s), each counted under its own name; float32 x runs
+    one kernel a launch, counted under ``"fault_matmul"``."""
     if not _is_cuda(x):
         return _ref.fault_matmul_ref(x, qw, scale, seed, rate, faulty_bits,
                                      fault_model=fault_model,
@@ -206,23 +325,38 @@ def fault_matmul(x: torch.Tensor, qw: torch.Tensor, scale, seed, rate,
            f"x {tuple(x.shape)} has no leading row axis of {R}")
     scale_t = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
     _check(scale_t.numel() == 1, "fault_matmul takes one per-tensor scale")
+    scale_t = scale_t.contiguous()
+    model_id = _model_id(fault_model, faulty_bits)
     K, N = qw.shape
     M = x.shape[:-1].numel() // R
-    x_bf16 = x.dtype == torch.bfloat16
     out = torch.empty((*x.shape[:-1], N), dtype=x.dtype, device=x.device)
-    splits = _k_splits(M, K, N, x_bf16 or qw.dtype == torch.int8, x.device)
+    if x.dtype == torch.bfloat16:
+        splits = _k_splits(M, K, N, "bf16", x.device)
+        groups = row_groups(R, K, N, splits)
+        G = groups[0][1]
+        ws = torch.empty((G, _ref.tile_elems(K, N)), dtype=torch.bfloat16,
+                         device=x.device)
+        partial = torch.empty((splits, G, M, N) if splits > 1 else (0,),
+                              dtype=torch.float32, device=x.device)
+        for r0, rows in groups:
+            _hash_launch(qw, ws, scale_t, rates, seed, faulty_bits, model_id,
+                         mbu_width, r0, rows)
+            _product_launch(x.data_ptr() + 2 * r0 * M * K, ws,
+                            out.data_ptr() + 2 * r0 * M * N, rows, M, K, N,
+                            splits, partial)
+        return out
+    body = "tc" if qw.dtype == torch.int8 else "simt"
+    splits = _k_splits(M, K, N, body, x.device)
     step = _MAX_GRID_Z // splits       # rows a launch, within the grid
     partial = torch.empty((splits, min(R, step), M, N) if splits > 1
                           else (0,), dtype=torch.float32, device=x.device)
-    scale_p = scale_t.contiguous().data_ptr()
-    size = x.element_size()
     for r0 in range(0, R, step):
         rows = min(step, R - r0)
-        _launch("afp_fault_matmul", x.data_ptr() + r0 * M * K * size,
-                qw.data_ptr(), out.data_ptr() + r0 * M * N * size,
-                partial.data_ptr(), scale_p, rates.data_ptr() + r0 * 4, rows,
-                M, K, N, splits, _INT_BYTES[qw.dtype], int(x_bf16),
-                _model_id(fault_model, faulty_bits), seed_u32(seed),
-                faulty_bits, mbu_width, _stream(x.device))
+        _launch("afp_fault_matmul", x.data_ptr() + r0 * M * K * 4,
+                qw.data_ptr(), out.data_ptr() + r0 * M * N * 4,
+                partial.data_ptr(), scale_t.data_ptr(),
+                rates.data_ptr() + r0 * 4, rows, M, K, N, splits,
+                _INT_BYTES[qw.dtype], model_id, seed_u32(seed), faulty_bits,
+                mbu_width, _stream(x.device))
         launches["fault_matmul"] += 1
     return out

@@ -15,6 +15,18 @@ shares the seed, exactly as under ``vmap``.
     ``[R, ...]`` and each row gets its own amax and scale.
   * ``fault_matmul_ref(x, qw, ...)``: with a ``[R]`` rate ``x`` is
     ``[R, ..., K]``; ``qw`` ``(K, N)`` is shared and corrupted per row.
+
+``matmul`` is the dense product as the reference computes it on the CPU;
+the model code uses it for every bf16 product the reference leaves to XLA.
+
+The bf16 route of ``fault_matmul`` runs as two kernels on the card, a hash
+pass that writes each row's corrupted weights as W' tiles and a product of
+those tiles; ``fault_weight_tiles_ref`` and ``matmul_tiles_ref`` are their
+plain versions, and ``pack_tiles``/``unpack_tiles`` convert between
+``[R, K, N]`` and the tile layout (``csrc/fault_matmul.cu``): 16 x 128
+tiles, the tiles of one 128-column panel in k order, each tile in wgmma's
+no-swizzle K-major B image (element (k, n) at (n & 7) 8 + (n >> 3) 128 +
+(k >> 3) 64 + (k & 7)), zeros past K and N.
 """
 from __future__ import annotations
 
@@ -23,8 +35,11 @@ import torch
 from repro_torch.kernels.faultmodel import apply_fault
 from repro_torch.quant.fixedpoint import TINY, QuantSpec
 
-__all__ = ["row_rates", "bitflip_ref", "quant_bitflip_ref",
-           "fault_matmul_ref"]
+__all__ = ["row_rates", "matmul", "bitflip_ref", "quant_bitflip_ref",
+           "fault_matmul_ref", "XLA_K_BLOCK", "TILE_K", "TILE_N", "tile_elems", "pack_tiles",
+           "unpack_tiles", "fault_weight_tiles_ref", "matmul_tiles_ref"]
+
+TILE_K, TILE_N = 16, 128
 
 
 def row_rates(rate, device) -> tuple[torch.Tensor, bool]:
@@ -34,6 +49,34 @@ def row_rates(rate, device) -> tuple[torch.Tensor, bool]:
     if r.ndim > 1:
         raise ValueError(f"rate must be a scalar or 1-D [R], got {tuple(r.shape)}")
     return r.reshape(-1).contiguous(), r.ndim == 1
+
+
+XLA_K_BLOCK = 512
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [..., K] @ w [K, N]``.  On the CPU a bfloat16 product is XLA's
+    CPU bf16 dot: the exact fp32 products summed in k order from 0 within
+    blocks of ``XLA_K_BLOCK`` k, the blocks' sums added in order, rounded
+    once to bf16 (measured bitwise at 11 shapes up to K = 8192).
+    ``torch.matmul`` in bf16 (and in fp32, then rounded) sums in another
+    order and differs in about 1 output of 10^4.  Anything else, and every
+    product on the card, is ``torch.matmul``."""
+    if x.dtype != torch.bfloat16 or x.device.type != "cpu":
+        return torch.matmul(x, w)
+    if w.ndim != 2 or x.shape[-1] != w.shape[0]:
+        raise ValueError(f"contraction mismatch: x {tuple(x.shape)} "
+                         f"@ w {tuple(w.shape)}")
+    xf, wf = x.float(), w.float()
+    acc = None
+    for k0 in range(0, w.shape[0], XLA_K_BLOCK):
+        blk = xf.new_zeros((*x.shape[:-1], w.shape[1]))
+        for k in range(k0, min(k0 + XLA_K_BLOCK, w.shape[0])):
+            blk += xf[..., k:k + 1] * wf[k]      # bf16 x bf16 is exact in fp32
+        acc = blk if acc is None else acc + blk
+    if acc is None:
+        acc = xf.new_zeros((*x.shape[:-1], w.shape[1]))
+    return acc.to(torch.bfloat16)
 
 
 def bitflip_ref(q: torch.Tensor, seed, rate, faulty_bits: int,
@@ -79,10 +122,10 @@ def fault_matmul_ref(x: torch.Tensor, qw: torch.Tensor, scale, seed, rate,
                      faulty_bits: int, fault_model: str = "flip",
                      mbu_width: int = 2) -> torch.Tensor:
     """``x @ dequant(corrupt(qw))``: corrupt, dequantize in float32, cast
-    the weights to ``x.dtype``, then one ``torch.matmul`` (one per row
-    for a ``[R]`` rate).  In bfloat16 that product sums in fp32 and
-    rounds once, the reference's CPU function
-    (``repro/kernels/ops.py:74-79``)."""
+    the weights to ``x.dtype``, then one ``matmul`` (one per row for a
+    ``[R]`` rate).  In bfloat16 that product sums in fp32 and rounds once,
+    the reference's CPU function (``repro/kernels/ops.py:74-79``); on the
+    CPU in XLA's order, on the card in cuBLAS's."""
     if qw.ndim != 2 or x.shape[-1] != qw.shape[0]:
         raise ValueError(f"contraction mismatch: x {tuple(x.shape)} "
                          f"@ qw {tuple(qw.shape)}")
@@ -91,12 +134,55 @@ def fault_matmul_ref(x: torch.Tensor, qw: torch.Tensor, scale, seed, rate,
                     fault_model=fault_model, mbu_width=mbu_width, scale=scale)
     w = w.to(x.dtype)
     if not per_row:
-        return torch.matmul(x, w)
+        return matmul(x, w)
     R, K, N = rates.numel(), qw.shape[0], qw.shape[1]
     if x.shape[0] != R:
         raise ValueError(f"x {tuple(x.shape)} has no leading row axis of {R}")
     xr = x.reshape(R, -1, K)
     # one matmul per row: a batched one may sum a row in another order
     # depending on R (threads on the CPU), and rows must not depend on R
-    out = torch.stack([torch.matmul(xr[r], w[r]) for r in range(R)])
+    out = torch.stack([matmul(xr[r], w[r]) for r in range(R)])
     return out.reshape(*x.shape[:-1], N)
+
+
+def tile_elems(K: int, N: int) -> int:
+    """bf16 elements of one row's W' (K and N rounded up to whole tiles)."""
+    return -(-K // TILE_K) * TILE_K * -(-N // TILE_N) * TILE_N
+
+
+def pack_tiles(w: torch.Tensor) -> torch.Tensor:
+    """``w [R, K, N]`` -> its W' tiles ``[R, tile_elems(K, N)]``."""
+    R, K, N = w.shape
+    nK, nN = -(-K // TILE_K), -(-N // TILE_N)
+    p = w.new_zeros((R, nK * TILE_K, nN * TILE_N))
+    p[:, :K, :N] = w
+    p = p.view(R, nK, 2, 8, nN, TILE_N // 8, 8)
+    return p.permute(0, 4, 1, 5, 2, 6, 3).reshape(R, -1)
+
+
+def unpack_tiles(tiles: torch.Tensor, K: int, N: int) -> torch.Tensor:
+    """W' tiles ``[R, tile_elems(K, N)]`` -> ``[R, K, N]``."""
+    R = tiles.shape[0]
+    nK, nN = -(-K // TILE_K), -(-N // TILE_N)
+    t = tiles.reshape(R, nN, nK, TILE_N // 8, 2, 8, 8)
+    t = t.permute(0, 2, 4, 6, 1, 3, 5).reshape(R, nK * TILE_K, nN * TILE_N)
+    return t[:, :K, :N]
+
+
+def fault_weight_tiles_ref(qw: torch.Tensor, scale, seed, rate,
+                           faulty_bits: int, fault_model: str = "flip",
+                           mbu_width: int = 2) -> torch.Tensor:
+    """Each row's ``bf16(fp32(q') * scale)`` as W' tiles ``[R, ...]`` (a
+    scalar rate is one row)."""
+    rates, _ = row_rates(rate, qw.device)
+    w = bitflip_ref(qw, seed, rates, faulty_bits, fault_model=fault_model,
+                    mbu_width=mbu_width, scale=scale)
+    return pack_tiles(w.to(torch.bfloat16))
+
+
+def matmul_tiles_ref(x: torch.Tensor, tiles: torch.Tensor, K: int,
+                     N: int) -> torch.Tensor:
+    """``x [R, ..., K]`` bf16 times row r's W' ``[R, ...]``, one ``matmul``
+    a row: ``[R, ..., N]`` bf16."""
+    w = unpack_tiles(tiles, K, N)
+    return torch.stack([matmul(x[r], w[r]) for r in range(w.shape[0])])

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch._tree import tree_flatten, tree_map, tree_unflatten
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 from repro_torch.kernels.faultmodel import FAULT_MODELS
 from repro_torch.quant.fixedpoint import QuantSpec, quantize
 
@@ -197,7 +198,7 @@ def fault_dense(x: torch.Tensor, w) -> torch.Tensor:
     the weights cast to ``x.dtype``, which is the original weight dtype
     on every path of the port), a clean :class:`QTensor` dequantizes
     first, a tensor multiplies as is (``[K, N]`` shared or ``[R, K, N]``
-    per row)."""
+    per row), through ``ref.matmul``: in XLA's order on the CPU."""
     if isinstance(w, FaultedQ):
         return kops.fault_matmul(x.contiguous(), w.qw, w.scale, w.seed, w.rate,
                                  w.faulty_bits, fault_model=w.fault_model,
@@ -206,9 +207,9 @@ def fault_dense(x: torch.Tensor, w) -> torch.Tensor:
         w = w.dequant()
     if w.ndim == 3:      # per-row weights: one matmul per row, like the
         # conv loop, so a row never depends on how many rows share the call
-        return torch.stack([torch.matmul(x[r], w[r])
+        return torch.stack([kref.matmul(x[r], w[r])
                             for r in range(w.shape[0])])
-    return torch.matmul(x, w)
+    return kref.matmul(x, w)
 
 
 # --------------------------------------------------------------------------

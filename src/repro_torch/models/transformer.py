@@ -32,6 +32,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch._tree import tree_map
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ref as kref
 from repro_torch.models import layers as L
 
 __all__ = ["init_lm", "forward", "embed_tokens", "unembed", "LMStepModel",
@@ -163,15 +164,15 @@ def _unembed_unit(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     """Final norm + head of ``x [R, B, S, D]`` -> logits ``[R, B, S, V]``;
     ``p["head"]`` is the embedding table when embeddings are tied.  The
     head matmul runs one row at a time (its shapes then never depend on
-    R)."""
+    R), through ``ref.matmul`` (XLA's order on the CPU)."""
     x = L.norm_fwd(p["final_norm"], x, cfg.norm_kind)
     head = p["head"]
     per_row = head.ndim == 3
     out = None
     for r in range(x.shape[0]):
         h = head[r] if per_row else head
-        y = torch.matmul(x[r], h.transpose(-1, -2) if cfg.tie_embeddings
-                         else h)
+        y = kref.matmul(x[r], h.transpose(-1, -2) if cfg.tie_embeddings
+                        else h)
         if out is None:
             out = y.new_empty((x.shape[0], *y.shape))
         out[r] = y

@@ -178,7 +178,7 @@ def test_staged_matches_full_bitwise_on_card(dev, name):
         ops.reset_launches()
         res[(strategy, fuse)] = ev.delta_acc(P)
         if strategy == "staged":
-            used = [k for k in ops.launches
+            used = [k for k in ("bitflip", "quant_bitflip", "fault_matmul")
                     if k != "fault_matmul" or name != "squeezenet"]
             assert min(ops.launches[k] for k in used) > 0, ops.launches
             assert ev.staged_stats()["unit_runs_avoided"] > 0
@@ -234,3 +234,81 @@ def test_fault_matmul_bf16_rows_match_one_row_calls(dev, dtype):
             one = ops.fault_matmul(x[r:r + 1].contiguous(), qw, scale, 9,
                                    rates[r:r + 1], 4)
             assert _same_bits(many[r:r + 1], one)
+
+
+def _shrink_workspace(monkeypatch, K, N, rows):
+    """Make the bf16 route's row groups ``rows`` rows at (K, N)."""
+    monkeypatch.setattr(ops, "WORKSPACE_BYTES",
+                        rows * 2 * ref.tile_elems(K, N))
+    G = ops.row_groups(10 ** 6, K, N)[0][1]
+    assert G == rows
+    return G
+
+
+@pytest.mark.parametrize("model", FAULT_MODELS)
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16, torch.int32])
+def test_fault_weight_tiles_bitwise(dev, monkeypatch, model, dtype):
+    """The bf16 route's hash pass, group by group into one workspace as
+    ``fault_matmul`` runs it, equals ``bitflip_ref(...).to(bf16)`` bitwise
+    for every row, at R = 1, G and 2G + 1 (G = 3 here), with ragged K and
+    N (padding tiles hold zeros)."""
+    K, N = 300, 200
+    hi = {torch.int8: 127, torch.int16: 2 ** 14, torch.int32: 2 ** 20}[dtype]
+    qw = torch.randint(-hi, hi, (K, N), dtype=dtype, device=dev)
+    scale = torch.tensor(0.0123, device=dev)
+    G = _shrink_workspace(monkeypatch, K, N, 3)
+    for R in (1, G, 2 * G + 1):
+        rates = torch.linspace(0.0, 0.4, R, device=dev)
+        want = ref.bitflip_ref(qw, 11, rates, 6, fault_model=model,
+                               scale=scale).to(torch.bfloat16)
+        groups = ops.row_groups(R, K, N)
+        assert len(groups) == -(-R // G)
+        ws = torch.empty((groups[0][1], ref.tile_elems(K, N)),
+                         dtype=torch.bfloat16, device=dev)
+        for r0, rows in groups:
+            t = ops.fault_weight_tiles(qw, scale, 11, rates[r0:r0 + rows], 6,
+                                       fault_model=model, out=ws)
+            assert _same_bits(ref.unpack_tiles(t, K, N), want[r0:r0 + rows])
+            assert _same_bits(t, ref.pack_tiles(want[r0:r0 + rows]))
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
+def test_fault_matmul_bf16_rows_across_groups(dev, monkeypatch, dtype):
+    """An R-row bf16 call whose rows span several row groups (R = 5 rows,
+    G = 2) equals R one-row calls bitwise, and launches one hash pass and
+    one product a group (3 each), counted under their own names."""
+    M, K, N = 256, 512, 384
+    qw = torch.randint(-100, 100, (K, N), dtype=dtype, device=dev)
+    scale = torch.tensor(0.0123, device=dev)
+    _shrink_workspace(monkeypatch, K, N, 2)
+    rates = torch.tensor([0.2, 0.0, 1e-3, 0.3, 0.05], device=dev)
+    x = torch.randn(5, M, K, device=dev).to(torch.bfloat16)
+    ops.reset_launches()
+    many = ops.fault_matmul(x, qw, scale, 9, rates, 6)
+    assert ops.launches == {"bitflip": 0, "quant_bitflip": 0,
+                            "fault_matmul": 0, "fault_weight_tiles": 3,
+                            "matmul_tiles": 3}
+    for r in range(5):
+        one = ops.fault_matmul(x[r:r + 1].contiguous(), qw, scale, 9,
+                               rates[r:r + 1], 6)
+        assert _same_bits(many[r:r + 1], one)
+
+
+def test_matmul_tiles_alone(dev):
+    """The bf16 product alone, one launch counted a call: bf16(q' scale)
+    bitwise at x = I_K, and at random x (ragged M, K in slices) the same
+    bits as ``fault_matmul``, which runs it after the hash pass."""
+    M, K, N = 300, 256, 384
+    qw = torch.randint(-127, 127, (K, N), dtype=torch.int8, device=dev)
+    scale = torch.tensor(0.0123, device=dev)
+    rates = torch.tensor([0.2], device=dev)
+    tiles = ops.fault_weight_tiles(qw, scale, 5, rates, 6)
+    x = torch.randn(1, M, K, device=dev).to(torch.bfloat16)
+    eye = torch.eye(K, device=dev, dtype=torch.bfloat16)[None].contiguous()
+    ops.reset_launches()
+    assert _same_bits(ops.matmul_tiles(eye, tiles, K, N),
+                      ref.unpack_tiles(tiles, K, N))
+    assert _same_bits(ops.matmul_tiles(x, tiles, K, N),
+                      ops.fault_matmul(x, qw, scale, 5, rates, 6))
+    assert ops.launches["matmul_tiles"] == 3
+    assert ops.launches["fault_weight_tiles"] == 1

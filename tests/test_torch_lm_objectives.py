@@ -179,13 +179,19 @@ def test_surrogate_plan_matches_reference():
 
 
 def test_bf16_olmo_delta_acc_agreement():
-    """The bf16 variant of reduced olmo-1b at bits=8 over 8 rows.  bf16
-    rounds every op, and the MLP's w2 product sums in another order than
-    XLA's (test_torch_transformer.py), so rows cross more fixed-point
-    boundaries than in float32.  Measured: the port's three backends are
-    bitwise equal; against the reference four of the eight rows differ,
-    three by one token (1/32) and one by two (2/32 = 2/(B·S)), which is
-    the bound asserted."""
+    """The bf16 variant of reduced olmo-1b at bits=8 over 8 rows, within
+    2/(B·S) a row, not the 1/(B·S) of float32.  The port's products are
+    XLA's CPU dot bitwise and its steps bitwise the reference's op-by-op
+    steps (test_torch_transformer.py), but the reference's evaluator runs
+    compiled, and there XLA drops the bf16 rounding of a residual sum
+    where it feeds the next norm, which the op-by-op steps (and the port)
+    do not: 57% of a compiled unit's outputs differ from the same unit run
+    op by op (checked by test_torch_transformer.py::
+    test_bf16_olmo_compiled_step_differs_from_op_by_op).  So rows cross
+    other fixed-point boundaries.  Measured: the
+    port's three backends are bitwise equal; against the reference four of
+    the eight rows differ, three by one token (1/32) and one by two (2/32
+    = 2/(B·S)), which is the bound asserted."""
     _, cfg, *_, tp, tb, tl = setup("olmo-1b", "bfloat16")
     P = population(cfg.n_layers, n=8, seed=4)
     want = ref_delta("olmo-1b", 8, "kernel", P, "bfloat16")

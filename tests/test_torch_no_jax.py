@@ -1,7 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax``, ``jaxlib`` or the reference package
-``repro``; and every entry point refuses to run without a card unless
-the caller asks for ``device="cpu"``."""
+"""The port stands alone: no module of ``src/repro_torch``, nor
+``chip_smoke.py`` or ``host_cost.py``, imports ``jax``, ``jaxlib`` or the
+reference package ``repro``; and every entry point refuses to run
+without a card unless the caller asks for ``device="cpu"``."""
 import ast
 import pathlib
 
@@ -12,7 +12,7 @@ torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "host_cost.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -40,8 +40,9 @@ def test_port_module_imports_no_jax_nor_reference(path):
 def test_scan_sees_every_kernel_source_module():
     names = {p.name for p in PORT_FILES}
     assert {"ops.py", "ref.py", "faultmodel.py", "_build.py", "cnn.py",
-            "objectives.py", "chip_smoke.py", "transformer.py", "graph.py",
-            "lm_setup.py", "registry.py", "base.py", "olmo_1b.py"} <= names
+            "objectives.py", "chip_smoke.py", "host_cost.py",
+            "transformer.py", "graph.py", "lm_setup.py", "registry.py",
+            "base.py", "olmo_1b.py"} <= names
 
 
 def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
