@@ -85,6 +85,7 @@
 // shared-memory SGEMM that corrupts and dequantizes each weight tile in
 // shared memory (once per 128-row block of x), with fp32 FMAs and the
 // same split-K.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -333,6 +334,133 @@ template <> struct Mma<128> {
   }
 };
 
+template <> struct Mma<256> {
+  static constexpr int R = 128;
+  static __device__ __forceinline__ void run(float (&d)[R], const uint32_t (&a)[4], uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+        "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, "
+        "%39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
+        "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, "
+        "%65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, "
+        "%78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, "
+        "%91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, "
+        "%104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, "
+        "%117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+          "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+          "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+          "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+          "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+          "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+          "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+          "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+          "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+          "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+// d += A (64x16 bf16, shared memory, descriptor) @ B (16xBN, shared memory).
+template <int BN> struct MmaSS;
+
+template <> struct MmaSS<128> {
+  static constexpr int R = 64;
+  static __device__ __forceinline__ void run(float (&d)[R], const uint64_t a, uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+        "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, "
+        "%39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
+        "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(desc), "r"(1));
+  }
+};
+
+template <> struct MmaSS<256> {
+  static constexpr int R = 128;
+  static __device__ __forceinline__ void run(float (&d)[R], const uint64_t a, uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+        "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, "
+        "%39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
+        "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, "
+        "%65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, "
+        "%78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, "
+        "%91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, "
+        "%104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, "
+        "%117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+          "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+          "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+          "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+          "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+          "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+          "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+          "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+          "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+          "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(a), "l"(desc), "r"(1));
+  }
+};
+
+
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
@@ -557,6 +685,7 @@ using tc::cp_async_wait;
 using tc::fence_acc;
 using tc::fence_proxy_async;
 using tc::Mma;
+using tc::MmaSS;
 using tc::wgmma_commit;
 using tc::wgmma_fence;
 using tc::wgmma_wait_all;
@@ -613,180 +742,453 @@ hash_kernel(const QT* __restrict__ qw, __nv_bfloat16* __restrict__ tiles,
   }
 }
 
-// The product.  Two consumer warpgroups of one m64 tile each: blocks of
-// BM = 128 rows by BN = 128 columns, two a SM (the sweep of this shape
-// against 256 x 128 and 128 x 256 found it fastest at olmo-1b's three
-// shapes, PERF.md).  A stage is KS k-steps (64 of K): x's [BM, 64]
-// through a cp.async ring with rows XLD apart, and the stage's W' tiles,
-// copied whole (they are already the image wgmma reads).  Per k-step one
-// wgmma m64n128k16 a warpgroup, A from registers, into fp32 accumulators,
-// k in order.
-constexpr int WGS = 2;
-constexpr int THREADS = 128 * WGS;
-constexpr int BM = 64 * WGS;
-constexpr int BN = TILE_N;
-constexpr int KS = 4;                       // k-steps a stage
-constexpr int STAGES = 3;
-constexpr int XLD = KS * BK + 8;            // 144-byte x rows: the fragment
-                                            // reads miss no bank
-constexpr int X_STAGE = BM * XLD;           // bf16 elements
-constexpr int B_STAGE = KS * TILE;          // bf16 elements
-constexpr int SMEM = STAGES * (X_STAGE + B_STAGE) * 2;
+// The product: a warp-specialised kernel.  grid: (N / BN, M / BM, rows *
+// splits), THREADS threads, Ring<BN>::SMEM bytes of dynamic shared memory.
+//   * warpgroup 0 is the producer: it gives up registers (setmaxnreg) and
+//     one of its warps fills a ring of STAGES stages, each KS k-steps (64
+//     of K).  A stage's W' tiles go by cp.async.bulk, one copy of
+//     contiguous tiles (or one a 4 KB tile where a stage holds two
+//     panels); x's [BM, 64] box by TMA through a 3-D tensor map over [R,
+//     M, K] that swizzles its 128-byte rows (128B) and zero-fills past M
+//     and K.  x that TMA cannot take (K % 8 != 0, or not 16-byte aligned)
+//     goes by plain loads of that warp into the same image.  Each stage
+//     has a full mbarrier (the copies' bytes and the producer's arrive)
+//     and an empty one (one arrive per consumer warpgroup);
+//   * warpgroups 1 and 2 are the consumers, 64 rows each: they take more
+//     registers, wait on a stage's full barrier, issue its wgmmas into
+//     fp32 accumulators (k in order), commit them as one group, wait
+//     until at most that group is in flight (wait_group 1), and only then
+//     release the previous stage to the producer.
+// A wait on an mbarrier that never completes (a phase-parity fault) traps
+// after ~2^26 tries, so the launch fails instead of hanging the card.
+constexpr int BM = 128;                     // two consumer warpgroups of 64
+constexpr int KS = 4;                       // k-steps a stage: 64 of K, so
+                                            // an x row is 128 bytes
+constexpr int THREADS = 384;
+constexpr int X_BYTES = BM * KS * BK * 2;   // 16 KB
+constexpr int TILE_BYTES = TILE * 2;        // 4 KB
+constexpr int SMEM_LIMIT = 232448;          // a block's dynamic maximum
 
-// grid: (N / BN, M / BM, rows * splits); dst is [rows, M, N] bf16 where
-// splits is 1, else float32 partial sums [splits, rows, M, N].  A K-slice
-// is k_tiles W' tiles (16 of K each).
-__global__ void __launch_bounds__(THREADS, 2)
-product_kernel(const __nv_bfloat16* __restrict__ x,
+template <int BN> struct Ring {
+  static constexpr int PANELS = BN / TILE_N;       // W' panels a block
+  static constexpr int STAGE = X_BYTES + KS * PANELS * TILE_BYTES;
+  static constexpr int STAGES = (SMEM_LIMIT - 1024 - 128) / STAGE;
+  // 1024 bytes of slack to align the ring for the 128B swizzle, then the
+  // stages, then a full and an empty barrier each
+  static constexpr int SMEM = 1024 + STAGES * STAGE + 16 * STAGES;
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (n == (1u << 26)) __trap();
+  }
+}
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+               "::bytes [%0], [%1], %2, [%3];\n"
+               :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2,
+                                            uint32_t bar) {
+  asm volatile("cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier"
+               "::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
+               :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
+                  "r"(c1), "r"(c2), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            int c4, uint32_t bar) {
+  asm volatile("cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier"
+               "::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n"
+               :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
+                  "r"(c1), "r"(c2), "r"(c3), "r"(c4), "r"(bar) : "memory");
+}
+
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// B of one k-step: W' tiles in the no-swizzle K-major image (LBO 128 B,
+// SBO 256 B); two panels side by side are one n256 operand
+__device__ __forceinline__ uint64_t b_desc_at(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(128 >> 4) << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32);
+}
+
+// A of one k-step: 64 x 16 of the 128B-swizzled x stage, 128-byte rows,
+// 8-row groups 1024 B apart; the k-step's 32 bytes start the address
+__device__ __forceinline__ uint64_t a_desc_at(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+// dst is [rows, M, N] bf16 where splits is 1, else float32 partial sums
+// [splits, rows, M, N].  A K-slice is k_tiles W' tiles (16 of K each).
+template <int BN, bool A_SMEM, int WMODE>
+__global__ void __launch_bounds__(THREADS, 1)
+product_kernel(const __grid_constant__ CUtensorMap x_map,
+               const __grid_constant__ CUtensorMap w_map,
+               const __nv_bfloat16* __restrict__ x,
                const __nv_bfloat16* __restrict__ tiles,
                void* __restrict__ dst_p, int rows, int M, int K, int N,
                int nK, int64_t row_elems, int k_tiles, int splits,
-               bool x_vec) {
-  constexpr int X_CHUNKS = KS * BK / 8;       // 16-byte chunks of a row: 8
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* bs = xs + STAGES * X_STAGE;
+               bool x_tma, int dbg) {
+  using RG = Ring<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = tc::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t bars = base + RG::STAGES * RG::STAGE;
+  auto full = [&](int i) { return bars + 8 * i; };
+  auto empty = [&](int i) { return bars + 8 * (RG::STAGES + i); };
 
   const int row = blockIdx.z % rows, split = blockIdx.z / rows;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int bm = blockIdx.x, bn = blockIdx.y;   // m fastest: a wave shares W'
+  const int m0 = bm * BM, nt0 = bn * RG::PANELS;
   const int ks0 = split * k_tiles, ks_end = min(nK, ks0 + k_tiles);
-  const int k_end = min(K, ks_end * BK);
   const int nst = ks_end > ks0 ? (ks_end - ks0 + KS - 1) / KS : 0;
-  const __nv_bfloat16* xr = x + static_cast<int64_t>(row) * M * K;
-  const __nv_bfloat16* wr = tiles + static_cast<int64_t>(row) * row_elems;
-  const int t = threadIdx.x;
-  const int wg = t / 128, warp = (t / 32) % 4, lane = t % 32;
-  const int g = lane / 4, tq = lane % 4;
+  const int wg = threadIdx.x / 128;
 
-  // stage s -> ring slot s % STAGES.  x: thread t copies the 16-byte
-  // chunk t % X_CHUNKS of rows t / X_CHUNKS + i THREADS / X_CHUNKS; rows
-  // past M and k past the slice arrive as zeros; without 16-byte
-  // alignment, plain loads and stores.  W': chunk c of the stage is
-  // 16 bytes of the tile of k-step c / 256.
-  constexpr int ROW_STEP = THREADS / X_CHUNKS;
-  const int xk = 8 * (t % X_CHUNKS);
-  auto load = [&](int s) {
-    const int k = ks0 * BK + s * KS * BK + xk;
-    const __nv_bfloat16* src = xr + static_cast<int64_t>(m0 + t / X_CHUNKS) * K + k;
-    __nv_bfloat16* xd = xs + (s % STAGES) * X_STAGE + (t / X_CHUNKS) * XLD + xk;
-#pragma unroll
-    for (int i = 0; i < BM / ROW_STEP; ++i) {
-      const bool row_ok = m0 + t / X_CHUNKS + i * ROW_STEP < M;
-      if (x_vec) {
-        const bool ok = row_ok && k < k_end;
-        cp_async16(xd, ok ? src : xr, ok);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          xd[e] = row_ok && k + e < k_end ? src[e] : __float2bfloat16_rn(0.0f);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < RG::STAGES; ++i) {
+      mbar_init(full(i), 1);
+      mbar_init(empty(i), 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // the producer: one warp; stage s fills slot s % STAGES once its
+    // previous use is released (the first round passes at once)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    if (lane == 0) {
+      if (x_tma)
+        asm volatile("prefetch.tensormap [%0];\n"
+                     :: "l"(reinterpret_cast<uint64_t>(&x_map)) : "memory");
+      if (WMODE == 1)
+        asm volatile("prefetch.tensormap [%0];\n"
+                     :: "l"(reinterpret_cast<uint64_t>(&w_map)) : "memory");
+    }
+    const __nv_bfloat16* wr = tiles + static_cast<int64_t>(row) * row_elems;
+    const __nv_bfloat16* xr = x + static_cast<int64_t>(row) * M * K;
+    const int np = min(RG::PANELS, (N + TILE_N - 1) / TILE_N - nt0);
+    const int k_end = min(K, ks_end * BK);
+    for (int s = 0; s < nst; ++s) {
+      const int slot = s % RG::STAGES;
+      mbar_wait(empty(slot), ((s / RG::STAGES) & 1) ^ 1);
+      const int ks = ks0 + s * KS, steps = min(KS, ks_end - ks);
+      const uint32_t xs = base + slot * RG::STAGE, ws = xs + X_BYTES;
+      if ((dbg & 1) && s >= RG::STAGES) {
+        if (lane == 0) mbar_arrive(full(slot));
+        continue;
       }
-      src += static_cast<int64_t>(ROW_STEP) * K;
-      xd += ROW_STEP * XLD;
-    }
-    __nv_bfloat16* bd = bs + (s % STAGES) * B_STAGE;
-    constexpr int TILE_CHUNKS = TILE * 2 / 16;          // 256
+      if (lane == 0) {
+        mbar_expect_tx(full(slot), (x_tma ? X_BYTES : 0) +
+                                       (WMODE == 1 ? KS * RG::PANELS * TILE_BYTES
+                                                   : np * steps * TILE_BYTES));
+        if (WMODE == 1) tma_load_5d(ws, &w_map, 0, 0, nt0, ks, row, full(slot));
+        for (int p = 0; p < (WMODE == 1 ? 0 : np); ++p) {
+          const __nv_bfloat16* src =
+              wr + (static_cast<int64_t>(nt0 + p) * nK + ks) * TILE;
+          if (RG::PANELS == 1 || WMODE == 2 || (dbg & 8)) {
+            bulk_load(ws + p * KS * TILE_BYTES, src, steps * TILE_BYTES, full(slot));
+          } else {
+            for (int kk = 0; kk < steps; ++kk)
+              bulk_load(ws + (kk * RG::PANELS + p) * TILE_BYTES,
+                        src + kk * TILE, TILE_BYTES, full(slot));
+          }
+        }
+        if (x_tma) tma_load_3d(xs, &x_map, ks * BK, m0, row, full(slot));
+      }
+      if (!x_tma) {
+        // element (m, k) of the stage at byte m 128 + ((k / 8) ^ (m % 8))
+        // 16 + (k % 8) 2, TMA's 128B swizzle; zeros past M and the slice
+        unsigned char* xd = smem + slot * RG::STAGE;
+        for (int c = lane; c < BM * 8; c += 32) {
+          const int mm = c / 8, ch = c % 8, m = m0 + mm, k = ks * BK + ch * 8;
+          __align__(16) __nv_bfloat16 v[8];
 #pragma unroll
-    for (int c = t; c < KS * TILE_CHUNKS; c += THREADS) {
-      const int ks = ks0 + s * KS + c / TILE_CHUNKS;
-      const bool ok = ks < ks_end;
-      const __nv_bfloat16* src_w = wr + (static_cast<int64_t>(blockIdx.x) * nK + ks) * TILE
-                                   + (c % TILE_CHUNKS) * 8;
-      cp_async16(bd + c * 8, ok ? src_w : wr, ok);
+          for (int e = 0; e < 8; ++e)
+            v[e] = m < M && k + e < k_end ? xr[static_cast<int64_t>(m) * K + k + e]
+                                          : __float2bfloat16_rn(0.0f);
+          *reinterpret_cast<uint4*>(xd + mm * 128 + ((ch ^ (mm & 7)) << 4)) =
+              *reinterpret_cast<const uint4*>(v);
+        }
+        fence_proxy_async();
+        __syncwarp();
+      }
+      if (lane == 0) mbar_arrive(full(slot));
     }
-  };
+    return;
+  }
 
-  constexpr int R = Mma<BN>::R;
+  // the consumers: warpgroup c = wg - 1 owns rows 64 c .. 64 c + 63
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int c = wg - 1, t = threadIdx.x % 128;
+  const int warp = t / 32, lane = t % 32, g = lane / 4, tq = lane % 4;
+  constexpr int R = BN / 2;
   float acc[R];
 #pragma unroll
   for (int i = 0; i < R; ++i) acc[i] = 0.0f;
 
+  // stage s: A from registers (fragment word h at k-step kk: the two
+  // neighbouring k of (row, col) = (r, 2tq) (r+8, 2tq) (r, 2tq+8) (r+8,
+  // 2tq+8), read through the swizzle, which puts the 8 rows g of a warp in
+  // 8 different 16-byte chunks), or from shared memory by descriptor.  Two
+  // fragment buffers, one for even stages and one for odd: a stage's
+  // registers are not rewritten while its wgmmas may be in flight.
+  uint32_t a[2][KS][4];
+  for (int s2 = 0; s2 < nst; s2 += 2) {
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nst) load(s);
-    cp_async_commit();
-  }
-
-  const bool live = m0 + wg * 64 < M;             // uniform per warpgroup
-  for (int s = 0; s < nst; ++s) {
-    cp_async_wait<STAGES - 2>();
-    fence_proxy_async();
-    __syncthreads();  // stage s is in; slot (s + 2) % STAGES is free
-    if (s + STAGES - 1 < nst) load(s + STAGES - 1);
-    cp_async_commit();
-
-    const __nv_bfloat16* xt = xs + (s % STAGES) * X_STAGE;
-    const __nv_bfloat16* bt = bs + (s % STAGES) * B_STAGE;
-    const int steps = min(KS, ks_end - ks0 - s * KS);
-    // A fragment word h at k-step kk: the two neighbouring k of (row,
-    // col) = (r, 2tq) (r+8, 2tq) (r, 2tq+8) (r+8, 2tq+8)
-    uint32_t a[KS][4];
-    const int r = wg * 64 + warp * 16 + g;
+    for (int odd = 0; odd < 2; ++odd) {
+      const int s = s2 + odd;
+      if (s >= nst) break;
+      const int slot = s % RG::STAGES;
+      mbar_wait(full(slot), (s / RG::STAGES) & 1);
+      const int steps = min(KS, ks_end - ks0 - s * KS);
+      const uint32_t xs = base + slot * RG::STAGE, ws = xs + X_BYTES;
+      if constexpr (!A_SMEM) {
+        const unsigned char* xt = smem + slot * RG::STAGE;
+        const int r = c * 64 + warp * 16 + g;
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
+        for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
-      for (int h = 0; h < 4; ++h)
-        a[kk][h] = kk < steps
-            ? *reinterpret_cast<const uint32_t*>(
-                  xt + (r + (h & 1) * 8) * XLD + kk * BK + 2 * tq + (h >> 1) * 8)
-            : 0u;
-    wgmma_fence();
+          for (int h = 0; h < 4; ++h)
+            a[odd][kk][h] = *reinterpret_cast<const uint32_t*>(
+                xt + (r + (h & 1) * 8) * 128 +
+                (((kk * 2 + (h >> 1)) ^ g) << 4) + tq * 4);
+      }
+      tc::wgmma_fence();
+      auto mma = [&](int kk) {
+        const uint64_t bd = (dbg & 4) ? a_desc_at(ws + kk * 32)
+                                      : b_desc_at(ws + kk * RG::PANELS * TILE_BYTES);
+        if constexpr (WMODE == 2) {
+          const uint64_t ad = a_desc_at(xs + c * 64 * 128 + kk * 32);
+          MmaSS<128>::run(*reinterpret_cast<float(*)[64]>(&acc[0]), ad,
+                          b_desc_at(ws + kk * TILE_BYTES));
+          MmaSS<128>::run(*reinterpret_cast<float(*)[64]>(&acc[64]), ad,
+                          b_desc_at(ws + (KS + kk) * TILE_BYTES));
+        } else if constexpr (A_SMEM)
+          MmaSS<BN>::run(acc, a_desc_at(xs + c * 64 * 128 + kk * 32), bd);
+        else
+          Mma<BN>::run(acc, a[odd][kk], bd);
+      };
+      // a whole stage as straight-line code, so the group's wgmmas issue
+      // back to back; only a slice's last stage may be shorter
+      if (dbg & 2) {
+      } else if (WMODE == 1 || steps == KS) {
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      if (kk >= steps || !live) break;
-      Mma<BN>::run(acc, a[kk], b_desc(bt + kk * TILE));
+        for (int kk = 0; kk < KS; ++kk) mma(kk);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          if (kk < steps) mma(kk);
+      }
+      tc::wgmma_commit();
+      wgmma_wait<1>();              // the previous stage's group is done
+      if (s > 0 && t == 0) mbar_arrive(empty((s - 1) % RG::STAGES));
     }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_acc(acc);
   }
+  wgmma_wait<0>();
+  fence_acc(acc);
 
-  // epilogue: as tc::kernel's, rounded once to bf16 (or the fp32 partial
-  // sums of a K-slice)
+  // epilogue: the tile goes out through shared memory (the ring, free once
+  // both consumers are done), so that a warp writes whole rows in 16-byte
+  // stores.  d[4j + e] of an m64nBN tile is (row 16 warp + g + 8 (e / 2),
+  // col 8j + 2tq + e % 2); a staged row's 16-byte chunk q lies at q ^ (row
+  // % 8), so neither the writes nor the reads conflict on banks.  + 0.0f
+  // turns a -0 sum of zeros into +0; rounded once to bf16 (or the fp32
+  // partial sums of a K-slice).
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  const int n0 = bn * BN;
+  if (dbg & 16) return;
   const bool out_bf16 = splits == 1;
-  const int64_t base = (static_cast<int64_t>(split) * rows + row) * M * N;
+  const int esz = out_bf16 ? 2 : 4, rb = BN * esz;
+  unsigned char* st = smem + c * 64 * rb;
 #pragma unroll
   for (int i = 0; i < R; i += 2) {
-    const int m = m0 + wg * 64 + warp * 16 + g + 8 * ((i / 2) % 2);
-    const int n = n0 + 8 * (i / 4) + 2 * tq;
-    if (m >= M) continue;
-    const int64_t o = base + static_cast<int64_t>(m) * N + n;
-    const float v0 = __fadd_rn(acc[i], 0.0f);
-    const float v1 = __fadd_rn(acc[i + 1], 0.0f);
-    if (out_bf16) {
-      __nv_bfloat16* d = static_cast<__nv_bfloat16*>(dst_p) + o;
-      if (N % 2 == 0 && n + 1 < N) {
-        *reinterpret_cast<__nv_bfloat162*>(d) = __floats2bfloat162_rn(v0, v1);
-      } else {
-        if (n < N) d[0] = __float2bfloat16_rn(v0);
-        if (n + 1 < N) d[1] = __float2bfloat16_rn(v1);
-      }
+    const int r = warp * 16 + g + 8 * ((i / 2) % 2);
+    const int byte = (8 * (i / 4) + 2 * tq) * esz;
+    unsigned char* p = st + r * rb + (((byte >> 4) ^ (r & 7)) << 4) + (byte & 15);
+    const float v0 = __fadd_rn(acc[i], 0.0f), v1 = __fadd_rn(acc[i + 1], 0.0f);
+    if (out_bf16)
+      *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+    else
+      *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+  }
+  asm volatile("bar.sync %0, 128;\n" :: "r"(2 + c) : "memory");
+  const int cpr = rb / 16, per = 16 / esz;    // chunks a row, elements a chunk
+  const int64_t obase = (static_cast<int64_t>(split) * rows + row) * M * N;
+  const bool vec = N % per == 0 && reinterpret_cast<uintptr_t>(dst_p) % 16 == 0;
+  for (int q = t; q < 64 * cpr; q += 128) {
+    const int r = q / cpr, cc = q % cpr;
+    const int m = m0 + c * 64 + r, n = n0 + cc * per;
+    if (m >= M || n >= N) continue;
+    const uint4 v = *reinterpret_cast<const uint4*>(st + r * rb + ((cc ^ (r & 7)) << 4));
+    const int64_t o = obase + static_cast<int64_t>(m) * N + n;
+    if (vec) {
+      *reinterpret_cast<uint4*>(static_cast<unsigned char*>(dst_p) + o * esz) = v;
+    } else if (out_bf16) {
+      const uint16_t* e = reinterpret_cast<const uint16_t*>(&v);
+      for (int k = 0; k < per && n + k < N; ++k)
+        static_cast<uint16_t*>(dst_p)[o + k] = e[k];
     } else {
-      float* d = static_cast<float*>(dst_p) + o;
-      if (N % 2 == 0 && n + 1 < N) {
-        *reinterpret_cast<float2*>(d) = make_float2(v0, v1);
-      } else {
-        if (n < N) d[0] = v0;
-        if (n + 1 < N) d[1] = v1;
-      }
+      const uint32_t* e = reinterpret_cast<const uint32_t*>(&v);
+      for (int k = 0; k < per && n + k < N; ++k)
+        static_cast<uint32_t*>(dst_p)[o + k] = e[k];
     }
   }
 }
 
+// cuTensorMapEncodeTiled, a driver function, found at run time (the
+// library links no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// x [rows, M, K] bf16 as a 3-D tensor map of [BM, 64] boxes, 128B swizzle;
+// elements past M or K read as zeros
+cudaError_t x_tensor_map(CUtensorMap* map, const void* x, int64_t rows,
+                         int64_t M, int64_t K) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return cudaErrorSymbolNotFound;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(K),
+                              static_cast<cuuint64_t>(M),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(K) * 2,
+                                 static_cast<cuuint64_t>(M * K) * 2};
+  const cuuint32_t box[3] = {KS * BK, BM, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+EncodeTiled encoder() {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  return encode;
+}
+
+// W' [rows, nN panels, nK tiles, 16 lines, 256 B] as a 5-D map whose box
+// {128, 16, PANELS, KS, 1} lands in shared memory k-step major:
+// dims (256-byte line, line, panel, k-tile, row)
+cudaError_t w_tensor_map(CUtensorMap* map, const void* tiles, int64_t rows,
+                         int64_t K, int64_t N) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const int64_t nK = (K + BK - 1) / BK, nN = (N + TILE_N - 1) / TILE_N;
+  const cuuint64_t dims[5] = {128, 16, static_cast<cuuint64_t>(nN),
+                              static_cast<cuuint64_t>(nK),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[4] = {256, static_cast<cuuint64_t>(nK) * TILE_BYTES,
+                                 TILE_BYTES,
+                                 static_cast<cuuint64_t>(nK * nN) * TILE_BYTES};
+  const cuuint32_t box[5] = {128, 16, 2, KS, 1};
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(tiles), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int BN, bool A_SMEM, int WMODE>
 cudaError_t launch_product(const __nv_bfloat16* x, const __nv_bfloat16* tiles,
                            void* dst, int rows, int M, int K, int N, int nK,
                            int64_t row_elems, int k_tiles, int splits,
-                           cudaStream_t s) {
+                           cudaStream_t s, int dbg) {
+  constexpr int smem = Ring<BN>::SMEM;
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        product_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+        product_kernel<BN, A_SMEM, WMODE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
-  const bool x_vec = K % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, rows * splits);
-  product_kernel<<<grid, THREADS, SMEM, s>>>(
-      x, tiles, dst, rows, M, K, N, nK, row_elems, k_tiles, splits, x_vec);
+  // TMA takes x where its rows are 16-byte multiples and it is 16-byte
+  // aligned; else the producer loads it
+  const bool x_tma = K % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  CUtensorMap map{};
+  if (x_tma) {
+    const cudaError_t err = x_tensor_map(&map, x, rows, M, K);
+    if (err != cudaSuccess) return err;
+  }
+  CUtensorMap wmap{};
+  if (WMODE == 1) {
+    const cudaError_t err = w_tensor_map(&wmap, tiles, rows, K, N);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, rows * splits);
+  product_kernel<BN, A_SMEM, WMODE><<<grid, THREADS, smem, s>>>(
+      map, wmap, x, tiles, dst, rows, M, K, N, nK, row_elems, k_tiles, splits,
+      x_tma, dbg);
   return cudaGetLastError();
 }
 
@@ -845,6 +1247,10 @@ cudaError_t sum_splits(const float* partial, OT* out, int64_t total,
   sum_splits_kernel<OT><<<grid, 256, 0, s>>>(partial, out, total, splits);
   return cudaGetLastError();
 }
+
+#ifndef AFP_PRODUCT_VARIANT
+#define AFP_PRODUCT_VARIANT 1
+#endif
 
 bool bad_sizes(int64_t rows, int64_t M, int64_t K, int64_t N, int splits) {
   return splits < 1 || rows * splits > 65535 || M > (1LL << 30) ||
@@ -949,25 +1355,57 @@ extern "C" int afp_fault_weight_tiles(const void* qw, void* tiles,
 // hash pass's layout), out rows x M x N bf16.  With splits > 1, partial
 // is a splits x rows x M x N float32 workspace and K is cut into slices
 // of whole W' tiles.
-extern "C" int afp_matmul_tiles(const void* x, const void* tiles, void* out,
-                                float* partial, int64_t rows, int64_t M,
-                                int64_t K, int64_t N, int splits,
-                                void* stream) {
+// The product of the bf16 route, one variant a number (0: 128 x 128, A in
+// registers; 1: 128 x 256, A in registers; 2: 128 x 256, A by descriptor;
+// 3: 128 x 128, A by descriptor).
+static int product_variant(int variant, const __nv_bfloat16* x,
+                    const __nv_bfloat16* t, void* dst, int rows, int M,
+                    int K, int N, int nK, int64_t row_elems, int k_tiles,
+                    int splits, cudaStream_t s) {
+  switch (variant & 15) {
+    case 0: return bfp::launch_product<128, false, 0>(x, t, dst, rows, M, K, N, nK, row_elems, k_tiles, splits, s, variant >> 4);
+    case 1: return bfp::launch_product<256, false, 0>(x, t, dst, rows, M, K, N, nK, row_elems, k_tiles, splits, s, variant >> 4);
+    case 2: return bfp::launch_product<256, true, 0>(x, t, dst, rows, M, K, N, nK, row_elems, k_tiles, splits, s, variant >> 4);
+    case 3: return bfp::launch_product<128, true, 0>(x, t, dst, rows, M, K, N, nK, row_elems, k_tiles, splits, s, variant >> 4);
+    case 4: return bfp::launch_product<256, true, 1>(x, t, dst, rows, M, K, N, nK, row_elems, k_tiles, splits, s, variant >> 4);
+    case 5: return bfp::launch_product<256, true, 2>(x, t, dst, rows, M, K, N, nK, row_elems, k_tiles, splits, s, variant >> 4);
+    case 6: return bfp::launch_product<256, false, 1>(x, t, dst, rows, M, K, N, nK, row_elems, k_tiles, splits, s, variant >> 4);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// bf16 x, the product: x is rows x M x K bf16, tiles rows x row_elems (the
+// hash pass's layout), out rows x M x N bf16.  With splits > 1, partial
+// is a splits x rows x M x N float32 workspace and K is cut into slices
+// of whole W' tiles.
+extern "C" int afp_matmul_tiles_variant(int variant, const void* x,
+                                        const void* tiles, void* out,
+                                        float* partial, int64_t rows,
+                                        int64_t M, int64_t K, int64_t N,
+                                        int splits, void* stream) {
   if (rows <= 0 || M <= 0 || N <= 0) return static_cast<int>(cudaSuccess);
   if (bad_sizes(rows, M, K, N, splits) || (M + bfp::BM - 1) / bfp::BM > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const int nK = static_cast<int>((K + tc::BK - 1) / tc::BK);
   const int nN = static_cast<int>((N + bfp::TILE_N - 1) / bfp::TILE_N);
   const int64_t row_elems = static_cast<int64_t>(nK) * nN * bfp::TILE;
-  const int k_tiles = (nK + splits - 1) / splits;
+  const int k_tiles = ((nK + splits - 1) / splits + bfp::KS - 1) / bfp::KS * bfp::KS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   void* dst = splits > 1 ? static_cast<void*>(partial) : out;
-  const cudaError_t err = bfp::launch_product(
-      static_cast<const __nv_bfloat16*>(x),
+  const int err = product_variant(
+      variant, static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(tiles), dst, static_cast<int>(rows),
       static_cast<int>(M), static_cast<int>(K), static_cast<int>(N), nK,
       row_elems, k_tiles, splits, s);
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  if (err != cudaSuccess || splits == 1) return err;
   return static_cast<int>(sum_splits<__nv_bfloat16>(
       partial, static_cast<__nv_bfloat16*>(out), rows * M * N, splits, s));
+}
+
+extern "C" int afp_matmul_tiles(const void* x, const void* tiles, void* out,
+                                float* partial, int64_t rows, int64_t M,
+                                int64_t K, int64_t N, int splits,
+                                void* stream) {
+  return afp_matmul_tiles_variant(AFP_PRODUCT_VARIANT, x, tiles, out, partial,
+                                  rows, M, K, N, splits, stream);
 }
