@@ -35,7 +35,10 @@ Phases (any failure raises, and the process exits nonzero):
      groups, each bitwise its one-row call; the call's device time beside
      ``torch.matmul`` on the same bf16 shapes, each kernel's own times
      beside its own bound, and an 8-row call at 2048x2048 against one
-     row; and
+     row, the call and the product alone; the product alone at
+     starcoder2-3b's kv projection (2048x3072x256, K in slices) within the
+     same bound, 3 rows each bitwise its one-row call, timed beside
+     ``torch.matmul``; and
      ``quant_bitflip``'s times at the transformer's unit input, one row of
      [8, 256, 2048] bf16, after checking it bitwise against its plain
      version there for all four fault models on signed bf16 x, four rows
@@ -403,6 +406,9 @@ RECORD_KEYS = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
 LM_MATMUL_SHAPES = (("olmo-1b wq/wk/wv/wo", 2048, 2048, 2048),
                     ("olmo-1b w1/w3", 2048, 2048, 8192),
                     ("olmo-1b w2", 2048, 8192, 2048))
+# the bf16 product where K is cut into slices: starcoder2-3b's kv
+# projection (d_model 3072, 2 kv heads of 128), M = B S = 2048
+SPLIT_K_SHAPE = ("starcoder2-3b wk/wv", 2048, 3072, 256)
 
 
 def check_fault_matmul_bf16(dev, records):
@@ -569,7 +575,65 @@ def check_fault_matmul_bf16(dev, records):
         log(f"phase3 time fault_matmul bf16 at {rows8['shape']}, 8 rows: "
             f"device {rows8['ms']:.4f} ms against {8 * rows8['one_row_ms']:.4f}"
             f" ms for 8 one-row calls, bound {b_ms:.4f} ms ({b_by})")
-        del x8, qw
+        # the product alone on those 8 rows (8 W'), against one row
+        t8 = ops.fault_weight_tiles(qw, scale, 1, r8, fb)
+        n_tiles = ref.tile_elems(K, N)
+        b_ms, b_by = bound(8 * (2 * M * K + 2 * n_tiles + 2 * M * N),
+                           tc_flops=8 * 2 * M * K * N)
+        prod8 = dict(shape=f"[8,{M},{K}] bf16 x 8 W' [{K},{N}]",
+                     ms=device_ms(lambda: ops.matmul_tiles(x8, t8, K, N),
+                                  launches=5),
+                     one_row_ms=device_ms(lambda: ops.matmul_tiles(
+                         x8[:1], t8[:1], K, N)),
+                     bound_ms=b_ms, bound_by=b_by)
+        records["matmul_tiles"]["lm_rows8"] = prod8
+        log(f"phase3 time matmul_tiles at {prod8['shape']}, 8 rows: device "
+            f"{prod8['ms']:.4f} ms against {8 * prod8['one_row_ms']:.4f} ms "
+            f"for 8 one-row calls, bound {b_ms:.4f} ms ({b_by})")
+        del x8, t8, qw
+
+        # the product alone at starcoder2-3b's kv projection, whose K is cut
+        # into slices: within the bound of its plain version, each of 3 rows
+        # bitwise its one-row call, timed beside torch.matmul
+        label, M, K, N = SPLIT_K_SHAPE
+        splits = ops._k_splits(M, K, N, "bf16", dev)
+        qw = torch.randint(-128, 128, (K, N), device=dev, dtype=torch.int8,
+                           generator=gen)
+        t3 = ops.fault_weight_tiles(qw, scale, 7924, rates, fb)
+        x3 = torch.randn(3, M, K, device=dev, generator=gen).to(bf16)
+        k = ops.matmul_tiles(x3, t3, K, N)
+        for r in range(3):
+            if not bits_equal(k[r:r + 1], ops.matmul_tiles(
+                    x3[r:r + 1].contiguous(), t3[r:r + 1], K, N)):
+                raise AssertionError(f"matmul_tiles {label} row {r} differs "
+                                     "from its one-row call")
+        k, p = k.float(), ref.matmul_tiles_ref(x3, t3, K, N).float()
+        w = ref.unpack_tiles(t3, K, N)
+        mag = torch.matmul(x3.float().abs(), w.float().abs())
+        tol = 2 * K * 2.0 ** -24 * mag \
+            + 2.0 ** -8 * (k.abs() + p.abs()) * (1 + 2.0 ** -7)
+        err = (k - p).abs()
+        if not bool((err <= tol).all()):
+            raise AssertionError(f"matmul_tiles {label}: max err "
+                                 f"{err.max().item():.3g} above the bound")
+        worst = max(worst, (err / tol).max().item())
+        x1, t1, w1 = x3[:1].contiguous(), t3[:1], w[:1].contiguous()
+        n_tiles = ref.tile_elems(K, N)
+        p_ms, p_by = bound(2 * M * K + 2 * n_tiles + 2 * M * N,
+                           tc_flops=2 * M * K * N)
+        prod_out.append(dict(
+            label=f"{label}, K in {splits} slices",
+            shape=f"[1,{M},{K}] bf16 x [{K},{N}] int8",
+            ms=device_ms(lambda: ops.matmul_tiles(x1, t1, K, N)),
+            wrapper_ms=time_ms(lambda: ops.matmul_tiles(x1, t1, K, N),
+                               iters=10),
+            plain_ms=time_ms(lambda: ref.matmul_tiles_ref(x1, t1, K, N),
+                             iters=3, warmup=1),
+            library_ms=device_ms(lambda: torch.matmul(x1, w1)),
+            bound_ms=p_ms, bound_by=p_by, max_abs_err=err.max().item()))
+        log(f"phase3 matmul_tiles {label} ({splits} K slices): 3 rows each "
+            "bitwise its one-row call, within the bound")
+        del x3, t3, k, p, w, mag, tol, err, qw
 
         # quant_bitflip at the unit input: signed activations, one row a
         # rate of phase 9's tiers (0.2 x fault scale) and one clean row

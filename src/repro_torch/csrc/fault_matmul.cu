@@ -57,16 +57,21 @@
 //      bound is K N planes draws plus G K N 2 bytes written.  W' is laid
 //      out as 16 x 128 tiles, each tile 4 KB contiguous and already in the
 //      no-swizzle K-major core-matrix image wgmma reads B from (b_offset,
-//      b_desc), the tiles of one 128-column panel in k order: the product
-//      copies whole tiles with 16-byte cp.async and no address arithmetic,
-//      and a warp of the hash pass writes 128 contiguous bytes;
-//   2. the product (bfp::product_kernel, tensor cores): two consumer
-//      warpgroups, blocks of 128 x 128, a three-stage cp.async ring of
-//      64-deep stages (x and the stage's W' tiles), one wgmma m64n128k16
-//      per k-step and warpgroup into fp32 accumulators in k order, rounded
-//      once to bf16 (after the split-K slices are summed in order).  With
-//      the hash gone, the block no longer needs 512 rows to spread it:
-//      128 x 128 reads x N / 128 times and puts two blocks on an SM.
+//      b_desc), the tiles of one 128-column panel in k order, so a TMA box
+//      copies a stage's tiles whole, and a warp of the hash pass writes
+//      128 contiguous bytes;
+//   2. the product (bfp::product_kernel, tensor cores), bound by its 2 M
+//      K N operations (0.0174 ms at 2048^3) but at 128 x 256 blocks reading
+//      x and W' from L2 at 85 flops a byte, which asks ~11.6 TB/s of L2 at
+//      the tensor cores' peak.  It is warp-specialised: a producer warp
+//      keeps a four-stage ring of 48 KB stages full by TMA (x through a
+//      128B-swizzled tensor map, W' through a 5-D one that lays two
+//      panels side by side), full/empty mbarriers hand the stages over,
+//      and two consumer warpgroups issue wgmma m64n256k16 with A and B
+//      from shared memory, one group in flight while the next is issued,
+//      into fp32 accumulators in k order, rounded once to bf16 (after the
+//      split-K slices are summed in order).  The tile leaves through
+//      shared memory in whole rows.
 // The workspace: W' is 2 K N bytes a row (K, N rounded up to 16, 128):
 // 8 MiB at 2048 x 2048, 32 MiB at 2048 x 8192.  ops.fault_matmul walks R
 // in groups whose W' fits 256 MiB (32 and 8 rows there), one hash launch
@@ -74,9 +79,11 @@
 // and a call hashes each weight ceil(R / G) times, once for R <= G.
 // What still holds the route back: the two passes run one after the other
 // (no overlap of the integer and tensor pipes), W' makes a round trip
-// through L2 or HBM (2 bytes a weight and row each way), and the product
-// waits for each stage's wgmma before the next stage's loads are issued
-// (no warp specialisation, no TMA).
+// through L2 or HBM (2 bytes a weight and row each way), and in the
+// product each operand tile is read from L2 by every block that uses it
+// (no cluster multicast), the output tile's write (~3 us at 2048^3)
+// overlaps no other tile's work (one tile a block, not persistent), and a
+// split-K call writes and re-reads fp32 partial sums (PERF.md §7).
 //
 // int16 and int32 qw with float32 x keep the SIMT body below: their values
 // are not exact in bf16, and x is not split for them.  The CNN path never
@@ -304,118 +311,14 @@ template <> struct Mma<64> {
   }
 };
 
-template <> struct Mma<128> {
-  static constexpr int R = 64;
-  static __device__ __forceinline__ void run(float (&d)[R],
-                                             const uint32_t (&a)[4],
-                                             uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-  }
-};
-
-template <> struct Mma<256> {
-  static constexpr int R = 128;
-  static __device__ __forceinline__ void run(float (&d)[R], const uint32_t (&a)[4], uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
-        "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, "
-        "%39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
-        "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, "
-        "%65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, "
-        "%78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, "
-        "%91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, "
-        "%104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, "
-        "%117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-          "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-          "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-          "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-          "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-          "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
-          "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
-          "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
-          "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
-          "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-  }
-};
-
-// d += A (64x16 bf16, shared memory, descriptor) @ B (16xBN, shared memory).
+// d += A (64x16 bf16) @ B (16xBN bf16), both from shared memory by
+// descriptor.
 template <int BN> struct MmaSS;
-
-template <> struct MmaSS<128> {
-  static constexpr int R = 64;
-  static __device__ __forceinline__ void run(float (&d)[R], const uint64_t a, uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
-        "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, "
-        "%39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
-        "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(desc), "r"(1));
-  }
-};
 
 template <> struct MmaSS<256> {
   static constexpr int R = 128;
-  static __device__ __forceinline__ void run(float (&d)[R], const uint64_t a, uint64_t desc) {
+  static __device__ __forceinline__ void run(float (&d)[R], uint64_t a,
+                                             uint64_t desc) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
@@ -677,18 +580,13 @@ cudaError_t launch(const float* x, const int8_t* qw, float* dst,
 // bf16 x: the hash pass and the product
 namespace bfp {
 
-using tc::b_desc;
 using tc::BK;
-using tc::cp_async16;
-using tc::cp_async_commit;
-using tc::cp_async_wait;
 using tc::fence_acc;
 using tc::fence_proxy_async;
-using tc::Mma;
 using tc::MmaSS;
+using tc::smem_addr;
 using tc::wgmma_commit;
 using tc::wgmma_fence;
-using tc::wgmma_wait_all;
 constexpr int TILE_N = 128;                 // columns of a W' tile
 constexpr int TILE = BK * TILE_N;           // elements of a W' tile (4 KB)
 
@@ -742,41 +640,44 @@ hash_kernel(const QT* __restrict__ qw, __nv_bfloat16* __restrict__ tiles,
   }
 }
 
-// The product: a warp-specialised kernel.  grid: (N / BN, M / BM, rows *
-// splits), THREADS threads, Ring<BN>::SMEM bytes of dynamic shared memory.
+// The product: a warp-specialised kernel.  grid: (M / BM, N / BN, rows *
+// splits), m fastest, so the blocks of a wave share W' panels; THREADS
+// threads; SMEM bytes of dynamic shared memory.
 //   * warpgroup 0 is the producer: it gives up registers (setmaxnreg) and
-//     one of its warps fills a ring of STAGES stages, each KS k-steps (64
-//     of K).  A stage's W' tiles go by cp.async.bulk, one copy of
-//     contiguous tiles (or one a 4 KB tile where a stage holds two
-//     panels); x's [BM, 64] box by TMA through a 3-D tensor map over [R,
-//     M, K] that swizzles its 128-byte rows (128B) and zero-fills past M
-//     and K.  x that TMA cannot take (K % 8 != 0, or not 16-byte aligned)
-//     goes by plain loads of that warp into the same image.  Each stage
-//     has a full mbarrier (the copies' bytes and the producer's arrive)
-//     and an empty one (one arrive per consumer warpgroup);
+//     one of its threads fills a ring of STAGES stages, each KS k-steps (64
+//     of K), with two TMA copies a stage: x's [BM, 64] box through a 3-D
+//     tensor map over [R, M, K] that swizzles its 128-byte rows (128B) and
+//     zero-fills past M and K, and the stage's [64, BN] of W' through a 5-D
+//     map over the W' tiles whose dimension order lands the two panels'
+//     tiles of a k-step side by side, one n256 K-major operand (LBO 128,
+//     SBO 256), and zero-fills past the last tile.  x that TMA cannot take (K % 8 != 0,
+//     or not 16-byte aligned) is written into the same image by plain loads
+//     of the producer warp.  Each stage has a full mbarrier (the copies'
+//     bytes and the producer's arrive) and an empty one (one arrive per
+//     consumer warpgroup);
 //   * warpgroups 1 and 2 are the consumers, 64 rows each: they take more
-//     registers, wait on a stage's full barrier, issue its wgmmas into
-//     fp32 accumulators (k in order), commit them as one group, wait
-//     until at most that group is in flight (wait_group 1), and only then
-//     release the previous stage to the producer.
+//     registers, wait on a stage's full barrier, issue its four wgmma
+//     m64n256k16 (A by descriptor from the swizzled x stage, B the W'
+//     stage) into fp32 accumulators, k in order, commit them as one group,
+//     wait until at most that group is in flight (wait_group 1), and only
+//     then release the previous stage;
+//   * a K-slice is a whole number of stages, so every stage runs its four
+//     wgmmas; past K the copies read zeros.
 // A wait on an mbarrier that never completes (a phase-parity fault) traps
 // after ~2^26 tries, so the launch fails instead of hanging the card.
 constexpr int BM = 128;                     // two consumer warpgroups of 64
+constexpr int BN = 2 * TILE_N;              // two W' panels
 constexpr int KS = 4;                       // k-steps a stage: 64 of K, so
                                             // an x row is 128 bytes
 constexpr int THREADS = 384;
 constexpr int X_BYTES = BM * KS * BK * 2;   // 16 KB
 constexpr int TILE_BYTES = TILE * 2;        // 4 KB
-constexpr int SMEM_LIMIT = 232448;          // a block's dynamic maximum
-
-template <int BN> struct Ring {
-  static constexpr int PANELS = BN / TILE_N;       // W' panels a block
-  static constexpr int STAGE = X_BYTES + KS * PANELS * TILE_BYTES;
-  static constexpr int STAGES = (SMEM_LIMIT - 1024 - 128) / STAGE;
-  // 1024 bytes of slack to align the ring for the 128B swizzle, then the
-  // stages, then a full and an empty barrier each
-  static constexpr int SMEM = 1024 + STAGES * STAGE + 16 * STAGES;
-};
+constexpr int W_BYTES = KS * 2 * TILE_BYTES;
+constexpr int STAGE = X_BYTES + W_BYTES;    // 48 KB
+constexpr int STAGES = 4;
+// 1024 bytes of slack to align the ring for the 128B swizzle, the stages,
+// a full and an empty barrier each
+constexpr int SMEM = 1024 + STAGES * STAGE + 16 * STAGES;
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
@@ -805,11 +706,9 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
-               "::bytes [%0], [%1], %2, [%3];\n"
-               :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+__device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n"
+               :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
@@ -834,8 +733,8 @@ template <int N> __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
-// B of one k-step: W' tiles in the no-swizzle K-major image (LBO 128 B,
-// SBO 256 B); two panels side by side are one n256 operand
+// B of one k-step: the W' stage's two tiles of that k-step, side by side
+// in the no-swizzle K-major image (LBO 128 B, SBO 256 B)
 __device__ __forceinline__ uint64_t b_desc_at(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(128 >> 4) << 16) |
@@ -852,34 +751,30 @@ __device__ __forceinline__ uint64_t a_desc_at(uint32_t addr) {
 }
 
 // dst is [rows, M, N] bf16 where splits is 1, else float32 partial sums
-// [splits, rows, M, N].  A K-slice is k_tiles W' tiles (16 of K each).
-template <int BN, bool A_SMEM, int WMODE>
+// [splits, rows, M, N].  A K-slice is k_tiles W' tiles (16 of K each), a
+// multiple of KS.
 __global__ void __launch_bounds__(THREADS, 1)
 product_kernel(const __grid_constant__ CUtensorMap x_map,
                const __grid_constant__ CUtensorMap w_map,
-               const __nv_bfloat16* __restrict__ x,
-               const __nv_bfloat16* __restrict__ tiles,
-               void* __restrict__ dst_p, int rows, int M, int K, int N,
-               int nK, int64_t row_elems, int k_tiles, int splits,
-               bool x_tma, int dbg) {
-  using RG = Ring<BN>;
+               const __nv_bfloat16* __restrict__ x, void* __restrict__ dst_p,
+               int rows, int M, int K, int N, int nK, int k_tiles,
+               int splits, bool x_tma) {
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t raw = tc::smem_addr(smem_raw);
+  const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
   unsigned char* smem = smem_raw + (base - raw);
-  const uint32_t bars = base + RG::STAGES * RG::STAGE;
+  const uint32_t bars = base + STAGES * STAGE;
   auto full = [&](int i) { return bars + 8 * i; };
-  auto empty = [&](int i) { return bars + 8 * (RG::STAGES + i); };
+  auto empty = [&](int i) { return bars + 8 * (STAGES + i); };
 
   const int row = blockIdx.z % rows, split = blockIdx.z / rows;
-  const int bm = blockIdx.x, bn = blockIdx.y;   // m fastest: a wave shares W'
-  const int m0 = bm * BM, nt0 = bn * RG::PANELS;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int ks0 = split * k_tiles, ks_end = min(nK, ks0 + k_tiles);
   const int nst = ks_end > ks0 ? (ks_end - ks0 + KS - 1) / KS : 0;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
-    for (int i = 0; i < RG::STAGES; ++i) {
+    for (int i = 0; i < STAGES; ++i) {
       mbar_init(full(i), 1);
       mbar_init(empty(i), 2);
     }
@@ -888,54 +783,31 @@ product_kernel(const __grid_constant__ CUtensorMap x_map,
   __syncthreads();
 
   if (wg == 0) {
-    // the producer: one warp; stage s fills slot s % STAGES once its
+    // the producer, one warp: stage s fills slot s % STAGES once its
     // previous use is released (the first round passes at once)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x >= 32) return;
     const int lane = threadIdx.x;
     if (lane == 0) {
-      if (x_tma)
-        asm volatile("prefetch.tensormap [%0];\n"
-                     :: "l"(reinterpret_cast<uint64_t>(&x_map)) : "memory");
-      if (WMODE == 1)
-        asm volatile("prefetch.tensormap [%0];\n"
-                     :: "l"(reinterpret_cast<uint64_t>(&w_map)) : "memory");
+      if (x_tma) tma_prefetch(&x_map);
+      tma_prefetch(&w_map);
     }
-    const __nv_bfloat16* wr = tiles + static_cast<int64_t>(row) * row_elems;
     const __nv_bfloat16* xr = x + static_cast<int64_t>(row) * M * K;
-    const int np = min(RG::PANELS, (N + TILE_N - 1) / TILE_N - nt0);
     const int k_end = min(K, ks_end * BK);
     for (int s = 0; s < nst; ++s) {
-      const int slot = s % RG::STAGES;
-      mbar_wait(empty(slot), ((s / RG::STAGES) & 1) ^ 1);
-      const int ks = ks0 + s * KS, steps = min(KS, ks_end - ks);
-      const uint32_t xs = base + slot * RG::STAGE, ws = xs + X_BYTES;
-      if ((dbg & 1) && s >= RG::STAGES) {
-        if (lane == 0) mbar_arrive(full(slot));
-        continue;
-      }
+      const int slot = s % STAGES, ks = ks0 + s * KS;
+      mbar_wait(empty(slot), ((s / STAGES) & 1) ^ 1);
+      const uint32_t xs = base + slot * STAGE;
       if (lane == 0) {
-        mbar_expect_tx(full(slot), (x_tma ? X_BYTES : 0) +
-                                       (WMODE == 1 ? KS * RG::PANELS * TILE_BYTES
-                                                   : np * steps * TILE_BYTES));
-        if (WMODE == 1) tma_load_5d(ws, &w_map, 0, 0, nt0, ks, row, full(slot));
-        for (int p = 0; p < (WMODE == 1 ? 0 : np); ++p) {
-          const __nv_bfloat16* src =
-              wr + (static_cast<int64_t>(nt0 + p) * nK + ks) * TILE;
-          if (RG::PANELS == 1 || WMODE == 2 || (dbg & 8)) {
-            bulk_load(ws + p * KS * TILE_BYTES, src, steps * TILE_BYTES, full(slot));
-          } else {
-            for (int kk = 0; kk < steps; ++kk)
-              bulk_load(ws + (kk * RG::PANELS + p) * TILE_BYTES,
-                        src + kk * TILE, TILE_BYTES, full(slot));
-          }
-        }
+        mbar_expect_tx(full(slot), (x_tma ? X_BYTES : 0) + W_BYTES);
+        tma_load_5d(xs + X_BYTES, &w_map, 0, 0, n0 / TILE_N, ks, row,
+                    full(slot));
         if (x_tma) tma_load_3d(xs, &x_map, ks * BK, m0, row, full(slot));
       }
       if (!x_tma) {
         // element (m, k) of the stage at byte m 128 + ((k / 8) ^ (m % 8))
         // 16 + (k % 8) 2, TMA's 128B swizzle; zeros past M and the slice
-        unsigned char* xd = smem + slot * RG::STAGE;
+        unsigned char* xd = smem + slot * STAGE;
         for (int c = lane; c < BM * 8; c += 32) {
           const int mm = c / 8, ch = c % 8, m = m0 + mm, k = ks * BK + ch * 8;
           __align__(16) __nv_bfloat16 v[8];
@@ -958,82 +830,34 @@ product_kernel(const __grid_constant__ CUtensorMap x_map,
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
   const int c = wg - 1, t = threadIdx.x % 128;
   const int warp = t / 32, lane = t % 32, g = lane / 4, tq = lane % 4;
-  constexpr int R = BN / 2;
+  constexpr int R = MmaSS<BN>::R;
   float acc[R];
 #pragma unroll
   for (int i = 0; i < R; ++i) acc[i] = 0.0f;
-
-  // stage s: A from registers (fragment word h at k-step kk: the two
-  // neighbouring k of (row, col) = (r, 2tq) (r+8, 2tq) (r, 2tq+8) (r+8,
-  // 2tq+8), read through the swizzle, which puts the 8 rows g of a warp in
-  // 8 different 16-byte chunks), or from shared memory by descriptor.  Two
-  // fragment buffers, one for even stages and one for odd: a stage's
-  // registers are not rewritten while its wgmmas may be in flight.
-  uint32_t a[2][KS][4];
-  for (int s2 = 0; s2 < nst; s2 += 2) {
+  for (int s = 0; s < nst; ++s) {
+    const int slot = s % STAGES;
+    mbar_wait(full(slot), (s / STAGES) & 1);
+    const uint32_t xs = base + slot * STAGE, ws = xs + X_BYTES;
+    wgmma_fence();
 #pragma unroll
-    for (int odd = 0; odd < 2; ++odd) {
-      const int s = s2 + odd;
-      if (s >= nst) break;
-      const int slot = s % RG::STAGES;
-      mbar_wait(full(slot), (s / RG::STAGES) & 1);
-      const int steps = min(KS, ks_end - ks0 - s * KS);
-      const uint32_t xs = base + slot * RG::STAGE, ws = xs + X_BYTES;
-      if constexpr (!A_SMEM) {
-        const unsigned char* xt = smem + slot * RG::STAGE;
-        const int r = c * 64 + warp * 16 + g;
-#pragma unroll
-        for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-          for (int h = 0; h < 4; ++h)
-            a[odd][kk][h] = *reinterpret_cast<const uint32_t*>(
-                xt + (r + (h & 1) * 8) * 128 +
-                (((kk * 2 + (h >> 1)) ^ g) << 4) + tq * 4);
-      }
-      tc::wgmma_fence();
-      auto mma = [&](int kk) {
-        const uint64_t bd = (dbg & 4) ? a_desc_at(ws + kk * 32)
-                                      : b_desc_at(ws + kk * RG::PANELS * TILE_BYTES);
-        if constexpr (WMODE == 2) {
-          const uint64_t ad = a_desc_at(xs + c * 64 * 128 + kk * 32);
-          MmaSS<128>::run(*reinterpret_cast<float(*)[64]>(&acc[0]), ad,
-                          b_desc_at(ws + kk * TILE_BYTES));
-          MmaSS<128>::run(*reinterpret_cast<float(*)[64]>(&acc[64]), ad,
-                          b_desc_at(ws + (KS + kk) * TILE_BYTES));
-        } else if constexpr (A_SMEM)
-          MmaSS<BN>::run(acc, a_desc_at(xs + c * 64 * 128 + kk * 32), bd);
-        else
-          Mma<BN>::run(acc, a[odd][kk], bd);
-      };
-      // a whole stage as straight-line code, so the group's wgmmas issue
-      // back to back; only a slice's last stage may be shorter
-      if (dbg & 2) {
-      } else if (WMODE == 1 || steps == KS) {
-#pragma unroll
-        for (int kk = 0; kk < KS; ++kk) mma(kk);
-      } else {
-#pragma unroll
-        for (int kk = 0; kk < KS; ++kk)
-          if (kk < steps) mma(kk);
-      }
-      tc::wgmma_commit();
-      wgmma_wait<1>();              // the previous stage's group is done
-      if (s > 0 && t == 0) mbar_arrive(empty((s - 1) % RG::STAGES));
-    }
+    for (int kk = 0; kk < KS; ++kk)
+      MmaSS<BN>::run(acc, a_desc_at(xs + c * 64 * 128 + kk * 32),
+                     b_desc_at(ws + kk * 2 * TILE_BYTES));
+    wgmma_commit();
+    wgmma_wait<1>();                // the previous stage's group is done
+    if (s > 0 && t == 0) mbar_arrive(empty((s - 1) % STAGES));
   }
   wgmma_wait<0>();
   fence_acc(acc);
 
   // epilogue: the tile goes out through shared memory (the ring, free once
   // both consumers are done), so that a warp writes whole rows in 16-byte
-  // stores.  d[4j + e] of an m64nBN tile is (row 16 warp + g + 8 (e / 2),
+  // stores.  d[4j + e] of an m64n256 tile is (row 16 warp + g + 8 (e / 2),
   // col 8j + 2tq + e % 2); a staged row's 16-byte chunk q lies at q ^ (row
   // % 8), so neither the writes nor the reads conflict on banks.  + 0.0f
   // turns a -0 sum of zeros into +0; rounded once to bf16 (or the fp32
   // partial sums of a K-slice).
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
-  const int n0 = bn * BN;
-  if (dbg & 16) return;
   const bool out_bf16 = splits == 1;
   const int esz = out_bf16 ? 2 : 4, rb = BN * esz;
   unsigned char* st = smem + c * 64 * rb;
@@ -1072,49 +896,14 @@ product_kernel(const __grid_constant__ CUtensorMap x_map,
   }
 }
 
-// cuTensorMapEncodeTiled, a driver function, found at run time (the
-// library links no -lcuda)
+// cuTensorMapEncodeTiled lives in libcuda, which this library does not
+// link: its address is looked up at run time
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,
                                  const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave,
                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
-
-// x [rows, M, K] bf16 as a 3-D tensor map of [BM, 64] boxes, 128B swizzle;
-// elements past M or K read as zeros
-cudaError_t x_tensor_map(CUtensorMap* map, const void* x, int64_t rows,
-                         int64_t M, int64_t K) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return cudaErrorSymbolNotFound;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(K),
-                              static_cast<cuuint64_t>(M),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(K) * 2,
-                                 static_cast<cuuint64_t>(M * K) * 2};
-  const cuuint32_t box[3] = {KS * BK, BM, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
 
 EncodeTiled encoder() {
   static EncodeTiled encode = nullptr;
@@ -1134,61 +923,87 @@ EncodeTiled encoder() {
   return encode;
 }
 
-// W' [rows, nN panels, nK tiles, 16 lines, 256 B] as a 5-D map whose box
-// {128, 16, PANELS, KS, 1} lands in shared memory k-step major:
-// dims (256-byte line, line, panel, k-tile, row)
-cudaError_t w_tensor_map(CUtensorMap* map, const void* tiles, int64_t rows,
-                         int64_t K, int64_t N) {
-  EncodeTiled encode = encoder();
+cudaError_t encode_map(CUtensorMap* map, const void* p, cuuint32_t rank,
+                       const cuuint64_t* dims, const cuuint64_t* strides,
+                       const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encoder();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
-  const int64_t nK = (K + BK - 1) / BK, nN = (N + TILE_N - 1) / TILE_N;
-  const cuuint64_t dims[5] = {128, 16, static_cast<cuuint64_t>(nN),
-                              static_cast<cuuint64_t>(nK),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[4] = {256, static_cast<cuuint64_t>(nK) * TILE_BYTES,
-                                 TILE_BYTES,
-                                 static_cast<cuuint64_t>(nK * nN) * TILE_BYTES};
-  const cuuint32_t box[5] = {128, 16, 2, KS, 1};
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(tiles), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(p), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int BN, bool A_SMEM, int WMODE>
+// The last map encoded for an operand, reused while its pointer and shape
+// repeat (the W' workspace call after call): encoding is host work on
+// every call otherwise.  The shape fixes the strides and the box.
+struct MapCache {
+  const void* p = nullptr;
+  cuuint64_t dims[5] = {};
+  CUtensorMap map;
+};
+
+cudaError_t cached_map(MapCache& c, const void* p, cuuint32_t rank,
+                       const cuuint64_t* dims, const cuuint64_t* strides,
+                       const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  bool same = c.p == p;
+  for (cuuint32_t i = 0; i < rank; ++i) same = same && c.dims[i] == dims[i];
+  if (same) return cudaSuccess;
+  c.p = nullptr;
+  const cudaError_t err = encode_map(&c.map, p, rank, dims, strides, box,
+                                     swizzle);
+  if (err != cudaSuccess) return err;
+  c.p = p;
+  for (cuuint32_t i = 0; i < rank; ++i) c.dims[i] = dims[i];
+  return cudaSuccess;
+}
+
 cudaError_t launch_product(const __nv_bfloat16* x, const __nv_bfloat16* tiles,
                            void* dst, int rows, int M, int K, int N, int nK,
                            int64_t row_elems, int k_tiles, int splits,
-                           cudaStream_t s, int dbg) {
-  constexpr int smem = Ring<BN>::SMEM;
+                           cudaStream_t s) {
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        product_kernel<BN, A_SMEM, WMODE>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        product_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
-  // TMA takes x where its rows are 16-byte multiples and it is 16-byte
-  // aligned; else the producer loads it
+  const int nN = (N + TILE_N - 1) / TILE_N;
+  // W' as dims (256-byte line, line of a tile, panel, k-tile, row): the box
+  // {128, 16, 2, KS, 1} lands k-step major, the two panels side by side
+  thread_local MapCache w_cache, x_cache;
+  const cuuint64_t w_dims[5] = {128, 16, static_cast<cuuint64_t>(nN),
+                                static_cast<cuuint64_t>(nK),
+                                static_cast<cuuint64_t>(rows)};
+  const cuuint64_t w_strides[4] = {
+      256, static_cast<cuuint64_t>(nK) * TILE_BYTES, TILE_BYTES,
+      static_cast<cuuint64_t>(row_elems) * 2};
+  const cuuint32_t w_box[5] = {128, 16, 2, KS, 1};
+  cudaError_t err = cached_map(w_cache, tiles, 5, w_dims, w_strides, w_box,
+                               CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != cudaSuccess) return err;
+  // x as [rows, M, K] in [BM, 64] boxes, 128B swizzle, where its rows are
+  // 16-byte multiples and it is 16-byte aligned; else the producer loads it
   const bool x_tma = K % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  CUtensorMap map{};
   if (x_tma) {
-    const cudaError_t err = x_tensor_map(&map, x, rows, M, K);
-    if (err != cudaSuccess) return err;
-  }
-  CUtensorMap wmap{};
-  if (WMODE == 1) {
-    const cudaError_t err = w_tensor_map(&wmap, tiles, rows, K, N);
+    const cuuint64_t x_dims[3] = {static_cast<cuuint64_t>(K),
+                                  static_cast<cuuint64_t>(M),
+                                  static_cast<cuuint64_t>(rows)};
+    const cuuint64_t x_strides[2] = {static_cast<cuuint64_t>(K) * 2,
+                                     static_cast<cuuint64_t>(M) * K * 2};
+    const cuuint32_t x_box[3] = {KS * BK, BM, 1};
+    err = cached_map(x_cache, x, 3, x_dims, x_strides, x_box,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, rows * splits);
-  product_kernel<BN, A_SMEM, WMODE><<<grid, THREADS, smem, s>>>(
-      map, wmap, x, tiles, dst, rows, M, K, N, nK, row_elems, k_tiles, splits,
-      x_tma, dbg);
+  // without TMA the kernel never reads the x map
+  product_kernel<<<grid, THREADS, SMEM, s>>>(x_cache.map, w_cache.map, x, dst,
+                                             rows, M, K, N, nK, k_tiles,
+                                             splits, x_tma);
   return cudaGetLastError();
 }
 
@@ -1247,10 +1062,6 @@ cudaError_t sum_splits(const float* partial, OT* out, int64_t total,
   sum_splits_kernel<OT><<<grid, 256, 0, s>>>(partial, out, total, splits);
   return cudaGetLastError();
 }
-
-#ifndef AFP_PRODUCT_VARIANT
-#define AFP_PRODUCT_VARIANT 1
-#endif
 
 bool bad_sizes(int64_t rows, int64_t M, int64_t K, int64_t N, int splits) {
   return splits < 1 || rows * splits > 65535 || M > (1LL << 30) ||
@@ -1355,36 +1166,16 @@ extern "C" int afp_fault_weight_tiles(const void* qw, void* tiles,
 // hash pass's layout), out rows x M x N bf16.  With splits > 1, partial
 // is a splits x rows x M x N float32 workspace and K is cut into slices
 // of whole W' tiles.
-// The product of the bf16 route, one variant a number (0: 128 x 128, A in
-// registers; 1: 128 x 256, A in registers; 2: 128 x 256, A by descriptor;
-// 3: 128 x 128, A by descriptor).
-static int product_variant(int variant, const __nv_bfloat16* x,
-                    const __nv_bfloat16* t, void* dst, int rows, int M,
-                    int K, int N, int nK, int64_t row_elems, int k_tiles,
-                    int splits, cudaStream_t s) {
-  switch (variant & 15) {
-    case 0: return bfp::launch_product<128, false, 0>(x, t, dst, rows, M, K, N, nK, row_elems, k_tiles, splits, s, variant >> 4);
-    case 1: return bfp::launch_product<256, false, 0>(x, t, dst, rows, M, K, N, nK, row_elems, k_tiles, splits, s, variant >> 4);
-    case 2: return bfp::launch_product<256, true, 0>(x, t, dst, rows, M, K, N, nK, row_elems, k_tiles, splits, s, variant >> 4);
-    case 3: return bfp::launch_product<128, true, 0>(x, t, dst, rows, M, K, N, nK, row_elems, k_tiles, splits, s, variant >> 4);
-    case 4: return bfp::launch_product<256, true, 1>(x, t, dst, rows, M, K, N, nK, row_elems, k_tiles, splits, s, variant >> 4);
-    case 5: return bfp::launch_product<256, true, 2>(x, t, dst, rows, M, K, N, nK, row_elems, k_tiles, splits, s, variant >> 4);
-    case 6: return bfp::launch_product<256, false, 1>(x, t, dst, rows, M, K, N, nK, row_elems, k_tiles, splits, s, variant >> 4);
-  }
-  return cudaErrorInvalidValue;
-}
-
 // bf16 x, the product: x is rows x M x K bf16, tiles rows x row_elems (the
 // hash pass's layout), out rows x M x N bf16.  With splits > 1, partial
 // is a splits x rows x M x N float32 workspace and K is cut into slices
-// of whole W' tiles.
-extern "C" int afp_matmul_tiles_variant(int variant, const void* x,
-                                        const void* tiles, void* out,
-                                        float* partial, int64_t rows,
-                                        int64_t M, int64_t K, int64_t N,
-                                        int splits, void* stream) {
+// of whole stages (KS W' tiles).
+extern "C" int afp_matmul_tiles(const void* x, const void* tiles, void* out,
+                                float* partial, int64_t rows, int64_t M,
+                                int64_t K, int64_t N, int splits,
+                                void* stream) {
   if (rows <= 0 || M <= 0 || N <= 0) return static_cast<int>(cudaSuccess);
-  if (bad_sizes(rows, M, K, N, splits) || (M + bfp::BM - 1) / bfp::BM > 65535)
+  if (bad_sizes(rows, M, K, N, splits) || (N + bfp::BN - 1) / bfp::BN > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const int nK = static_cast<int>((K + tc::BK - 1) / tc::BK);
   const int nN = static_cast<int>((N + bfp::TILE_N - 1) / bfp::TILE_N);
@@ -1392,20 +1183,12 @@ extern "C" int afp_matmul_tiles_variant(int variant, const void* x,
   const int k_tiles = ((nK + splits - 1) / splits + bfp::KS - 1) / bfp::KS * bfp::KS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   void* dst = splits > 1 ? static_cast<void*>(partial) : out;
-  const int err = product_variant(
-      variant, static_cast<const __nv_bfloat16*>(x),
+  const cudaError_t err = bfp::launch_product(
+      static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(tiles), dst, static_cast<int>(rows),
       static_cast<int>(M), static_cast<int>(K), static_cast<int>(N), nK,
       row_elems, k_tiles, splits, s);
-  if (err != cudaSuccess || splits == 1) return err;
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   return static_cast<int>(sum_splits<__nv_bfloat16>(
       partial, static_cast<__nv_bfloat16*>(out), rows * M * N, splits, s));
-}
-
-extern "C" int afp_matmul_tiles(const void* x, const void* tiles, void* out,
-                                float* partial, int64_t rows, int64_t M,
-                                int64_t K, int64_t N, int splits,
-                                void* stream) {
-  return afp_matmul_tiles_variant(AFP_PRODUCT_VARIANT, x, tiles, out, partial,
-                                  rows, M, K, N, splits, stream);
 }

@@ -12,10 +12,12 @@ M and N separates the cost of one 16-deep k-step from the fixed cost of a
 call; N=64 at 8 slices puts 8 blocks on the card against 128 at N=1024,
 which tells time spent inside an SM from contention for L2.
 
-bf16 x (the transformer path) at olmo-1b's three projection shapes: the
-whole call at 6 faulty bits and at 0 (the hash pass then writes W'
-without a draw), the hash pass alone and the product alone; then R = 1
-and 8 rows at 2048x2048x2048.  Prints the card's name and power limit first.
+bf16 x (the transformer path) at olmo-1b's three projection shapes and
+starcoder2-3b's kv projection (2048x3072x256, where the product cuts K
+into slices): the whole call at 6 faulty bits and at 0 (the hash pass
+then writes W' without a draw), the hash pass alone and the product
+alone; then R = 1 and 8 rows at 2048x2048x2048.  Prints the card's name
+and power limit first.
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ from repro_torch.kernels import ops
 
 SHAPES = ((512, 512, 16), (512, 256, 1024), (512, 1024, 1024),
           (512, 4096, 1024), (512, 4096, 64))
-BF16_SHAPES = ((2048, 2048, 2048), (2048, 2048, 8192), (2048, 8192, 2048))
+BF16_SHAPES = ((2048, 2048, 2048), (2048, 2048, 8192), (2048, 8192, 2048),
+               (2048, 3072, 256))
 
 
 def device_ms(fn, launches: int = 20, replays: int = 10) -> float:
@@ -95,7 +98,9 @@ def sweep_bf16(dev, gen) -> None:
               flush=True)
         tag = f"[1,{M},{K}] bf16 x [{K},{N}] int8"
         t = device_ms(lambda: ops.matmul_tiles(x, tiles, K, N))
-        print(f"{tag} product alone: {t:.4f} ms", flush=True)
+        splits = ops._k_splits(M, K, N, "bf16", dev)
+        print(f"{tag} product alone ({splits} K slices): {t:.4f} ms",
+              flush=True)
         for bits in (6, 0):
             t = device_ms(lambda: ops.fault_matmul(x, qw, scale, 1, one,
                                                    bits))

@@ -126,16 +126,19 @@ def _k_splits(M: int, K: int, N: int, body: str,
     ``"tc"`` (float32 x with int8 weights): blocks of 512 rows x an N tile
     of 16 (N <= 16) or 64, one a SM, slices of >= 16 of K.  ResNet18's fc
     (K = 512) runs 32 blocks a row, AlexNet's fc0 128.  ``"bf16"`` (bf16 x,
-    the product of W'): blocks of 128 x 128, two a SM, slices of >= 16 of
-    K (one W' tile); every olmo-1b projection (M = 2048) is one slice.  ``"simt"`` (float32 x with int16/int32 weights): 128x128
-    tiles, two blocks a SM, slices of >= 128 of K."""
+    the product of W'): blocks of 128 x 256, one a SM (its ring takes
+    192 KB of shared memory), slices of >= 64 of K (one stage; the kernel
+    rounds a slice up to whole stages); every olmo-1b projection (M =
+    2048) is one slice, starcoder2-3b's kv projection (2048 x 3072 x 256,
+    16 blocks) eight.  ``"simt"`` (float32 x with int16/int32 weights):
+    128x128 tiles, two blocks a SM, slices of >= 128 of K."""
     sms = _sm_count(device.index or 0)
     if body == "tc":
         tiles = -(-M // 512) * -(-N // (16 if N <= 16 else 64))
         want, steps = sms // tiles, -(-K // 16)
     elif body == "bf16":
-        tiles = -(-M // 128) * -(-N // 128)
-        want, steps = 2 * sms // tiles, -(-K // 16)
+        tiles = -(-M // 128) * -(-N // 256)
+        want, steps = sms // tiles, -(-K // 64)
     else:
         tiles = -(-M // 128) * -(-N // 128)
         want, steps = -(-2 * sms // tiles), -(-K // 8) // 16
@@ -223,11 +226,13 @@ def _hash_launch(qw, out, scale_t, rates, seed, faulty_bits, model_id,
     launches["fault_weight_tiles"] += 1
 
 
-def _product_launch(x_ptr, tiles, out_ptr, rows, M, K, N, splits, partial):
+def _product_launch(x_ptr, tiles, out_ptr, rows, M, K, N, splits,
+                    partial_ptr):
     """The product of ``rows`` rows of bf16 x at ``x_ptr`` by their W'
-    tiles into ``out_ptr`` (checked by the caller)."""
+    tiles into ``out_ptr`` (checked by the caller); ``partial_ptr`` is the
+    split-K workspace, 0 for one slice."""
     _launch("afp_matmul_tiles", x_ptr, tiles.data_ptr(), out_ptr,
-            partial.data_ptr(), rows, M, K, N, splits, _stream(tiles.device))
+            partial_ptr, rows, M, K, N, splits, _stream(tiles.device))
     launches["matmul_tiles"] += 1
 
 
@@ -284,10 +289,10 @@ def matmul_tiles(x: torch.Tensor, tiles: torch.Tensor, K: int,
                       device=x.device)
     splits = _k_splits(M, K, N, "bf16", x.device)
     _check(R * splits <= _MAX_GRID_Z, "too many rows for one launch")
-    partial = torch.empty((splits, R, M, N) if splits > 1 else (0,),
-                          dtype=torch.float32, device=x.device)
+    partial = torch.empty((splits, R, M, N), dtype=torch.float32,
+                          device=x.device) if splits > 1 else None
     _product_launch(x.data_ptr(), tiles, out.data_ptr(), R, M, K, N, splits,
-                    partial)
+                    0 if partial is None else partial.data_ptr())
     return out
 
 
@@ -336,14 +341,15 @@ def fault_matmul(x: torch.Tensor, qw: torch.Tensor, scale, seed, rate,
         G = groups[0][1]
         ws = torch.empty((G, _ref.tile_elems(K, N)), dtype=torch.bfloat16,
                          device=x.device)
-        partial = torch.empty((splits, G, M, N) if splits > 1 else (0,),
-                              dtype=torch.float32, device=x.device)
+        partial = torch.empty((splits, G, M, N), dtype=torch.float32,
+                              device=x.device) if splits > 1 else None
+        p_ptr = 0 if partial is None else partial.data_ptr()
         for r0, rows in groups:
             _hash_launch(qw, ws, scale_t, rates, seed, faulty_bits, model_id,
                          mbu_width, r0, rows)
             _product_launch(x.data_ptr() + 2 * r0 * M * K, ws,
                             out.data_ptr() + 2 * r0 * M * N, rows, M, K, N,
-                            splits, partial)
+                            splits, p_ptr)
         return out
     body = "tc" if qw.dtype == torch.int8 else "simt"
     splits = _k_splits(M, K, N, body, x.device)

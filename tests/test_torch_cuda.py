@@ -312,3 +312,50 @@ def test_matmul_tiles_alone(dev):
                       ops.fault_matmul(x, qw, scale, 5, rates, 6))
     assert ops.launches["matmul_tiles"] == 3
     assert ops.launches["fault_weight_tiles"] == 1
+
+
+def _product_tiles(dev, K, N, R, seed):
+    qw = torch.randint(-127, 128, (K, N), dtype=torch.int8, device=dev)
+    rates = torch.linspace(0.0, 0.3, R, device=dev)
+    return ops.fault_weight_tiles(qw, torch.tensor(0.0123, device=dev), seed,
+                                  rates, 6)
+
+
+@pytest.mark.parametrize("shape", [(2048, 2048, 2048), (200, 272, 384),
+                                   (200, 300, 384), (45, 64, 5),
+                                   (2048, 3072, 256)])
+def test_matmul_tiles_product(dev, shape):
+    """The product alone, two rows: bitwise ``unpack_tiles(W')`` at x = I_K,
+    and at random x within 2K2^-24(|x|@|w|) + 2^-8(|k|+|p|)(1+2^-7) of
+    ``ref.matmul_tiles_ref``; at olmo-1b's 2048^3, at the edges of the
+    128 x 256 block (M = 200, N = 384; K = 272 is whole W' tiles but not
+    whole 64-deep stages; K = 300, K % 8 != 0, takes the producer's plain
+    loads of x), a narrow N, and starcoder2-3b's kv projection, whose K is
+    cut into slices."""
+    from repro_torch._device import fp32_exact
+
+    M, K, N = shape
+    tiles = _product_tiles(dev, K, N, 2, 5)
+    w = ref.unpack_tiles(tiles, K, N)
+    eye = torch.eye(K, device=dev, dtype=torch.bfloat16).expand(2, K, K)
+    assert _same_bits(ops.matmul_tiles(eye.contiguous(), tiles, K, N), w)
+    x = torch.randn(2, M, K, device=dev).to(torch.bfloat16)
+    got = ops.matmul_tiles(x, tiles, K, N).float()
+    with torch.no_grad(), fp32_exact():
+        want = ref.matmul_tiles_ref(x, tiles, K, N).float()
+    mag = torch.matmul(x.float().abs(), w.float().abs())
+    tol = 2 * K * 2.0 ** -24 * mag + 2.0 ** -8 * (got.abs() + want.abs()) * 1.01
+    assert bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("shape", [(2048, 3072, 256), (2048, 2048, 2048)])
+def test_matmul_tiles_rows_match_one_row_calls(dev, shape):
+    """The product of R = 3 rows equals three one-row calls bitwise, at
+    starcoder2-3b's kv projection (K in slices) and at 2048^3."""
+    M, K, N = shape
+    tiles = _product_tiles(dev, K, N, 3, 9)
+    x = torch.randn(3, M, K, device=dev).to(torch.bfloat16)
+    many = ops.matmul_tiles(x, tiles, K, N)
+    for r in range(3):
+        one = ops.matmul_tiles(x[r:r + 1].contiguous(), tiles[r:r + 1], K, N)
+        assert _same_bits(many[r:r + 1], one)

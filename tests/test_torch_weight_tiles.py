@@ -137,3 +137,40 @@ def test_cpu_bf16_matmul_is_xla_dot(M, K, N):
     np.testing.assert_array_equal(_bits(ref.matmul(at, bt)), want)
     np.testing.assert_array_equal(_bits(ref.matmul(at[None, None], bt)[0, 0]),
                                   want)
+
+
+@pytest.mark.parametrize("M,K,N,want", [
+    (2048, 2048, 2048, 1), (2048, 2048, 8192, 1), (2048, 8192, 2048, 1),
+    (2048, 3072, 256, 8)])
+def test_bf16_k_splits_on_a_132_sm_card(monkeypatch, M, K, N, want):
+    """The bf16 product's K-slice count on an H100's 132 SMs: one slice at
+    olmo-1b's three projections (M = B S = 2048), eight at starcoder2-3b's
+    kv projection (16 blocks of 128 x 256, one a SM, slices of 6 stages)."""
+    monkeypatch.setattr(ops, "_sm_count", lambda index: 132)
+    assert ops._k_splits(M, K, N, "bf16", torch.device("cuda")) == want
+
+
+@pytest.mark.parametrize("M,K,N", [(2048, 3072, 256), (64, 1024, 256),
+                                   (256, 512, 384)])
+def test_bf16_k_splits_do_not_depend_on_rows(monkeypatch, M, K, N):
+    """``matmul_tiles`` and ``fault_matmul`` plan an R-row call's K slices
+    from one row's (M, K, N): R = 1 and R = 3 ask the product for the same
+    count (the launches stubbed, so this runs without a card), and one
+    slice passes the kernel no workspace."""
+    monkeypatch.setattr(ops, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(ops, "_is_cuda", lambda t: True)
+    monkeypatch.setattr(ops, "_hash_launch", lambda *a: None)
+    seen = []
+    monkeypatch.setattr(
+        ops, "_product_launch",
+        lambda x_ptr, tiles, out_ptr, rows, m, k, n, splits, partial_ptr:
+        seen.append((rows, m, splits, partial_ptr != 0)))
+    qw = torch.zeros((K, N), dtype=torch.int8)
+    for R in (1, 3):
+        x = torch.zeros((R, M, K), dtype=torch.bfloat16)
+        tiles = torch.zeros((R, ref.tile_elems(K, N)), dtype=torch.bfloat16)
+        ops.matmul_tiles(x, tiles, K, N)
+        ops.fault_matmul(x, qw, 0.0123, 1, torch.full((R,), 0.2), 6)
+    splits = ops._k_splits(M, K, N, "bf16", torch.device("cuda"))
+    assert seen == [(R, M, splits, splits > 1)
+                    for R in (1, 1, 3, 3)]
