@@ -44,7 +44,16 @@ Phases (any failure raises, and the process exits nonzero):
      version there for all four fault models on signed bf16 x, four rows
      at rates 0.2 / 0 / 4e-3 / 0.1.  The bf16 checks, times and bounds
      use phase 9's 6 faulty bits; the others the CNN path's 4 (and
-     ``bitflip`` is checked at 4, 6 and 8).
+     ``bitflip`` is checked at 4, 6 and 8).  For phases 10 and 10b, at 6
+     faulty bits: ``bitflip`` at mixtral-8x7b's expert tensor
+     [8, 4096, 14336] int8 (one row) and recurrentgemma-2b's recurrent
+     weight [2560, 2560] (three rows, all four fault models), integers out
+     and dequantized straight to float32 and to bf16, each bitwise
+     ``(q'.float() * scale).to(dtype)``; bf16 ``fault_matmul`` at
+     recurrentgemma-2b's four projection shapes (2560x2560, the kv
+     projection 2560x256 with K in slices, 2560x7680, 7680x2560; int8,
+     all four fault models) as at olmo-1b's; ``quant_bitflip`` bitwise at
+     its unit input [1, 8, 256, 2560] bf16; each timed as above.
   4. The whole-forward path: ResNet18 at width 1.0 (channels 64-512), img
      32, 16 classes, n_eval=512, labels = the clean model's own argmax;
      ``AFarePart`` (NSGA-II pop 24, 3 generations) under the kernel backend
@@ -93,6 +102,22 @@ Phases (any failure raises, and the process exits nonzero):
      widths, depth cut to 4 layers, one population of 8 rows (GQA,
      LayerNorm with bias, gelu, an untied head, ``bitflip`` on the norm
      params).
+ 10. The RG-LRU path: recurrentgemma-2b at its published widths and full
+     depth (26 layers of (rglru, rglru, local) in 9 groups, the 27th slot
+     built and never run; d_model 2560, 10 heads of 256 with 1 kv head,
+     d_ff 7680, lru_width 2560, vocab 256000, bf16, tied embeddings),
+     ``init_lm``'s seeded weights on the card, the same batch and
+     self-labels as phase 9.  Probes at 4, 6 and 8 faulty bits are
+     printed; the search runs at ``RG_FAULTY_BITS``.  ``lm_partitioner``
+     staged and full as in phase 9, bitwise over every row and both
+     fronts, ``bitflip``, ``fault_weight_tiles``, ``matmul_tiles`` and
+     ``quant_bitflip`` each launched; one candidate's wall and profile,
+     with the RG-LRU scan's own range.
+ 10b. One population of 8 rows each, kernel backend, ``eval_batch_size=
+     "auto"``: mixtral-8x7b at full width (8 experts of d_ff 14336, top 2,
+     capacity factor 2.0, so C = T/2) cut to 2 layers, and mamba2-2.7b at
+     full width (d_inner 5120, 80 heads, state 128) cut to 8 layers; each
+     one's launches, ΔAcc spread and allocator peak.
 The lines before the last are the ``{"kernels": [...]}`` record, one
 entry a kernel wrapper, each counting its own launches (``ops.launches``):
 ``launches`` are those of the kernel's main path, the CNN staged search of
@@ -101,7 +126,8 @@ x), phase 9's olmo-1b staged search for ``fault_weight_tiles`` and
 ``matmul_tiles``, the two kernels ``fault_matmul`` runs on bf16 x, one
 each a row group; ``full_launches`` phase 4's; ``lm_launches`` /
 ``lm_full_launches`` phase 9's staged and full olmo-1b searches;
-``lm_shapes`` the bf16 shapes of phase 3.  Then come the card's
+``rg_launches`` / ``rg_full_launches`` phase 10's, ``mixtral_launches`` /
+``mamba2_launches`` phase 10b's; ``lm_shapes`` the LM shapes of phase 3.  Then come the card's
 ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -112,7 +138,8 @@ operations per draw (``csrc/faultmodel.cuh``), counted at 16.7 Tops/s
 (64 INT32 lanes per SM x 132 SMs x 1.98 GHz, from the H100 white paper;
 the guide's table has no integer ALU rate).
   * ``bitflip``, ``quant_bitflip``: one draw per element and bit plane;
-    the hash outweighs the bytes (1 + 1 B, or 4 + 4 + 4 B, an element).
+    the hash outweighs the bytes (1 + 1 B, 1 + 2 B dequantized to bf16,
+    or 4 + 4 + 4 B, an element).
   * ``fault_matmul``: the hash once per weight (K N draws per plane), and
     the product as it runs on the tensor cores: three exact bf16 products
     of the split x, 3 x 2 M K N at 989 TFLOP/s (float32 x), or one, 2 M K
@@ -128,6 +155,7 @@ Rates are the H100 SXM's published peaks at 700 W.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -150,6 +178,8 @@ FAULTY_BITS = 4                 # the CNN path's (SPEC_RATES)
 # rate 0.2.  The reference replay runs 4; with random weights 4 move no
 # token of olmo-1b at full width (see lm_phase)
 LM_FAULTY_BITS, LM_RATE = 6, 0.2
+# phases 10 and 10b's faulty bits at the same rates (see family_phase)
+RG_FAULTY_BITS = LM_FAULTY_BITS
 SPEC_RATES = dict(weight_fault_rate=0.2, act_fault_rate=0.2, faulty_bits=4,
                   bits=16)
 # the kernels (``ops.launches`` keys) of the CNN path, float32, and of the
@@ -398,7 +428,9 @@ RECORD_KEYS = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
                "wrapper_ms", "fused_ms", "candidate_ms", "candidate_launches",
                "full_launches", "shapes", "lm_launches", "lm_full_launches",
                "lm_candidate_ms", "lm_candidate_launches", "lm_shapes",
-               "lm_rows8", "starcoder2_launches")
+               "lm_rows8", "starcoder2_launches", "rg_launches",
+               "rg_full_launches", "rg_candidate_ms", "rg_candidate_launches",
+               "mixtral_launches", "mamba2_launches")
 
 
 # fault_matmul on bf16 x at olmo-1b's projections, M = B S = 2048:
@@ -409,6 +441,128 @@ LM_MATMUL_SHAPES = (("olmo-1b wq/wk/wv/wo", 2048, 2048, 2048),
 # the bf16 product where K is cut into slices: starcoder2-3b's kv
 # projection (d_model 3072, 2 kv heads of 128), M = B S = 2048
 SPLIT_K_SHAPE = ("starcoder2-3b wk/wv", 2048, 3072, 256)
+
+
+def _bf16_matmul_shape(dev, gen, label, M, K, N, storages, out, hash_out,
+                       prod_out) -> float:
+    """Phase 3, bf16 x, one projection shape (``check_fault_matmul_bf16``
+    says what is checked): the call, the hash pass and the product against
+    their plain versions for each storage ``(dtype, hi)`` and fault model,
+    then each one's times on one row, appended to ``out``, ``hash_out`` and
+    ``prod_out``.  Returns the worst ratio of an error to its bound."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.faultmodel import FAULT_MODELS
+
+    rates = torch.tensor([0.0, 1e-3, 0.2], device=dev)
+    one = torch.tensor([0.2], device=dev)
+    scale = torch.tensor(0.0123, device=dev)
+    bf16, fb, worst = torch.bfloat16, LM_FAULTY_BITS, 0.0
+    eye = torch.eye(K, device=dev, dtype=bf16).expand(3, K, K)
+    eye = eye.contiguous()
+    x = torch.randn(3, M, K, device=dev, generator=gen).to(bf16)
+    for dtype, hi in storages:
+        qw = torch.randint(-hi, hi, (K, N), device=dev, dtype=dtype,
+                           generator=gen)
+        err_max = hash_err = prod_err = 0.0
+        for model in FAULT_MODELS:
+            w = ref.bitflip_ref(qw, 7921, rates, fb,
+                                fault_model=model,
+                                scale=scale).to(bf16)
+            k = ops.fault_matmul(eye, qw, scale, 7921, rates, fb,
+                                 fault_model=model)
+            if not bits_equal(k, w):
+                raise AssertionError(
+                    f"fault_matmul bf16 {label} {dtype} {model}: "
+                    "x = I_K does not return bf16(q' scale) bitwise")
+            k = ops.fault_matmul(x, qw, scale, 7921, rates, fb,
+                                 fault_model=model)
+            p = ref.fault_matmul_ref(x, qw, scale, 7921, rates, fb,
+                                     fault_model=model)
+            if k.dtype != bf16 or p.dtype != bf16:
+                raise AssertionError("bf16 x must give bf16 out")
+            k, p = k.float(), p.float()
+            mag = torch.matmul(x.float().abs(), w.float().abs())
+            tol = 2 * K * 2.0 ** -24 * mag \
+                + 2.0 ** -8 * (k.abs() + p.abs()) * (1 + 2.0 ** -7)
+            err = (k - p).abs()
+            if not bool((err <= tol).all()):
+                raise AssertionError(
+                    f"fault_matmul bf16 {label} {dtype} {model}: max "
+                    f"err {err.max().item():.3g} above the bound")
+            err_max = max(err_max, err.max().item())
+            worst = max(worst, (err / tol).max().item())
+            # the hash pass alone: every row's W' is bf16(q' s)
+            t = ops.fault_weight_tiles(qw, scale, 7921, rates, fb,
+                                       fault_model=model)
+            tw = ref.unpack_tiles(t, K, N)
+            hash_err = max(hash_err, max_abs_err(tw, w))
+            if not bits_equal(tw, w):
+                raise AssertionError(
+                    f"fault_matmul bf16 {label} {dtype} {model}: "
+                    "the hash pass differs from bf16(q' scale)")
+            # the product alone, within the same bound
+            k = ops.matmul_tiles(x, t, K, N).float()
+            p = ref.matmul_tiles_ref(x, t, K, N).float()
+            tol = 2 * K * 2.0 ** -24 * mag \
+                + 2.0 ** -8 * (k.abs() + p.abs()) * (1 + 2.0 ** -7)
+            err = (k - p).abs()
+            if not bool((err <= tol).all()):
+                raise AssertionError(
+                    f"matmul_tiles {label} {dtype} {model}: max err "
+                    f"{err.max().item():.3g} above the bound")
+            prod_err = max(prod_err, err.max().item())
+            worst = max(worst, (err / tol).max().item())
+            del k, p, mag, tol, err, w, t, tw
+        x1 = x[:1].contiguous()
+        w1 = (qw.float() * scale).to(bf16)
+        qb = qw.element_size()
+        n_tiles = ref.tile_elems(K, N)
+        b_ms, b_by = bound(2 * M * K + qb * K * N + 2 * M * N,
+                           tc_flops=2 * M * K * N,
+                           int_ops=K * N * fb * HASH_OPS_PER_DRAW)
+        h_ms, h_by = bound(qb * K * N + 2 * n_tiles,
+                           int_ops=K * N * fb * HASH_OPS_PER_DRAW)
+        p_ms, p_by = bound(2 * M * K + 2 * n_tiles + 2 * M * N,
+                           tc_flops=2 * M * K * N)
+        tiles = ops.fault_weight_tiles(qw, scale, 1, one, fb)
+        shape = (f"[1,{M},{K}] bf16 x [{K},{N}] "
+                 f"{str(dtype).removeprefix('torch.')}")
+        lib_ms = device_ms(lambda: torch.matmul(x1, w1))
+        out.append(dict(
+            label=label, shape=shape,
+            ms=device_ms(lambda: ops.fault_matmul(
+                x1, qw, scale, 1, one, fb)),
+            wrapper_ms=time_ms(lambda: ops.fault_matmul(
+                x1, qw, scale, 1, one, fb), iters=10),
+            plain_ms=time_ms(lambda: ref.fault_matmul_ref(
+                x1, qw, scale, 1, one, fb), iters=3, warmup=1),
+            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=err_max))
+        hash_out.append(dict(
+            label=label, shape=f"[1] x [{K},{N}] "
+                               f"{str(dtype).removeprefix('torch.')}",
+            ms=device_ms(lambda: ops.fault_weight_tiles(
+                qw, scale, 1, one, fb, out=tiles)),
+            wrapper_ms=time_ms(lambda: ops.fault_weight_tiles(
+                qw, scale, 1, one, fb, out=tiles), iters=10),
+            plain_ms=time_ms(lambda: ref.fault_weight_tiles_ref(
+                qw, scale, 1, one, fb), iters=3, warmup=1),
+            library_ms=None, bound_ms=h_ms, bound_by=h_by,
+            max_abs_err=hash_err))
+        prod_out.append(dict(
+            label=label, shape=shape,
+            ms=device_ms(lambda: ops.matmul_tiles(x1, tiles, K, N)),
+            wrapper_ms=time_ms(lambda: ops.matmul_tiles(
+                x1, tiles, K, N), iters=10),
+            plain_ms=time_ms(lambda: ref.matmul_tiles_ref(
+                x1, tiles, K, N), iters=3, warmup=1),
+            library_ms=lib_ms, bound_ms=p_ms, bound_by=p_by,
+            max_abs_err=prod_err))
+        del qw, w1, tiles
+    del eye, x
+    torch.cuda.empty_cache()
+
+    return worst
 
 
 def check_fault_matmul_bf16(dev, records):
@@ -431,110 +585,10 @@ def check_fault_matmul_bf16(dev, records):
     worst, out, hash_out, prod_out = 0.0, [], [], []
     with torch.no_grad(), fp32_exact():
         for label, M, K, N in LM_MATMUL_SHAPES:
-            eye = torch.eye(K, device=dev, dtype=bf16).expand(3, K, K)
-            eye = eye.contiguous()
-            x = torch.randn(3, M, K, device=dev, generator=gen).to(bf16)
-            for dtype, hi in ((torch.int8, 128), (torch.int32, 2 ** 15)):
-                qw = torch.randint(-hi, hi, (K, N), device=dev, dtype=dtype,
-                                   generator=gen)
-                err_max = hash_err = prod_err = 0.0
-                for model in FAULT_MODELS:
-                    w = ref.bitflip_ref(qw, 7921, rates, fb,
-                                        fault_model=model,
-                                        scale=scale).to(bf16)
-                    k = ops.fault_matmul(eye, qw, scale, 7921, rates, fb,
-                                         fault_model=model)
-                    if not bits_equal(k, w):
-                        raise AssertionError(
-                            f"fault_matmul bf16 {label} {dtype} {model}: "
-                            "x = I_K does not return bf16(q' scale) bitwise")
-                    k = ops.fault_matmul(x, qw, scale, 7921, rates, fb,
-                                         fault_model=model)
-                    p = ref.fault_matmul_ref(x, qw, scale, 7921, rates, fb,
-                                             fault_model=model)
-                    if k.dtype != bf16 or p.dtype != bf16:
-                        raise AssertionError("bf16 x must give bf16 out")
-                    k, p = k.float(), p.float()
-                    mag = torch.matmul(x.float().abs(), w.float().abs())
-                    tol = 2 * K * 2.0 ** -24 * mag \
-                        + 2.0 ** -8 * (k.abs() + p.abs()) * (1 + 2.0 ** -7)
-                    err = (k - p).abs()
-                    if not bool((err <= tol).all()):
-                        raise AssertionError(
-                            f"fault_matmul bf16 {label} {dtype} {model}: max "
-                            f"err {err.max().item():.3g} above the bound")
-                    err_max = max(err_max, err.max().item())
-                    worst = max(worst, (err / tol).max().item())
-                    # the hash pass alone: every row's W' is bf16(q' s)
-                    t = ops.fault_weight_tiles(qw, scale, 7921, rates, fb,
-                                               fault_model=model)
-                    tw = ref.unpack_tiles(t, K, N)
-                    hash_err = max(hash_err, max_abs_err(tw, w))
-                    if not bits_equal(tw, w):
-                        raise AssertionError(
-                            f"fault_matmul bf16 {label} {dtype} {model}: "
-                            "the hash pass differs from bf16(q' scale)")
-                    # the product alone, within the same bound
-                    k = ops.matmul_tiles(x, t, K, N).float()
-                    p = ref.matmul_tiles_ref(x, t, K, N).float()
-                    tol = 2 * K * 2.0 ** -24 * mag \
-                        + 2.0 ** -8 * (k.abs() + p.abs()) * (1 + 2.0 ** -7)
-                    err = (k - p).abs()
-                    if not bool((err <= tol).all()):
-                        raise AssertionError(
-                            f"matmul_tiles {label} {dtype} {model}: max err "
-                            f"{err.max().item():.3g} above the bound")
-                    prod_err = max(prod_err, err.max().item())
-                    worst = max(worst, (err / tol).max().item())
-                    del k, p, mag, tol, err, w, t, tw
-                x1 = x[:1].contiguous()
-                w1 = (qw.float() * scale).to(bf16)
-                qb = qw.element_size()
-                n_tiles = ref.tile_elems(K, N)
-                b_ms, b_by = bound(2 * M * K + qb * K * N + 2 * M * N,
-                                   tc_flops=2 * M * K * N,
-                                   int_ops=K * N * fb * HASH_OPS_PER_DRAW)
-                h_ms, h_by = bound(qb * K * N + 2 * n_tiles,
-                                   int_ops=K * N * fb * HASH_OPS_PER_DRAW)
-                p_ms, p_by = bound(2 * M * K + 2 * n_tiles + 2 * M * N,
-                                   tc_flops=2 * M * K * N)
-                tiles = ops.fault_weight_tiles(qw, scale, 1, one, fb)
-                shape = (f"[1,{M},{K}] bf16 x [{K},{N}] "
-                         f"{str(dtype).removeprefix('torch.')}")
-                lib_ms = device_ms(lambda: torch.matmul(x1, w1))
-                out.append(dict(
-                    label=label, shape=shape,
-                    ms=device_ms(lambda: ops.fault_matmul(
-                        x1, qw, scale, 1, one, fb)),
-                    wrapper_ms=time_ms(lambda: ops.fault_matmul(
-                        x1, qw, scale, 1, one, fb), iters=10),
-                    plain_ms=time_ms(lambda: ref.fault_matmul_ref(
-                        x1, qw, scale, 1, one, fb), iters=3, warmup=1),
-                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                    max_abs_err=err_max))
-                hash_out.append(dict(
-                    label=label, shape=f"[1] x [{K},{N}] "
-                                       f"{str(dtype).removeprefix('torch.')}",
-                    ms=device_ms(lambda: ops.fault_weight_tiles(
-                        qw, scale, 1, one, fb, out=tiles)),
-                    wrapper_ms=time_ms(lambda: ops.fault_weight_tiles(
-                        qw, scale, 1, one, fb, out=tiles), iters=10),
-                    plain_ms=time_ms(lambda: ref.fault_weight_tiles_ref(
-                        qw, scale, 1, one, fb), iters=3, warmup=1),
-                    library_ms=None, bound_ms=h_ms, bound_by=h_by,
-                    max_abs_err=hash_err))
-                prod_out.append(dict(
-                    label=label, shape=shape,
-                    ms=device_ms(lambda: ops.matmul_tiles(x1, tiles, K, N)),
-                    wrapper_ms=time_ms(lambda: ops.matmul_tiles(
-                        x1, tiles, K, N), iters=10),
-                    plain_ms=time_ms(lambda: ref.matmul_tiles_ref(
-                        x1, tiles, K, N), iters=3, warmup=1),
-                    library_ms=lib_ms, bound_ms=p_ms, bound_by=p_by,
-                    max_abs_err=prod_err))
-                del qw, w1, tiles
-            del eye, x
-            torch.cuda.empty_cache()
+            worst = max(worst, _bf16_matmul_shape(
+                dev, gen, label, M, K, N,
+                ((torch.int8, 128), (torch.int32, 2 ** 15)), out, hash_out,
+                prod_out))
 
         # rows across row groups: at 2048x8192 a group is 8 rows, so 9
         # rows span two; then R = 8 rows at 2048x2048 (one group, one hash)
@@ -684,6 +738,143 @@ def check_fault_matmul_bf16(dev, records):
         for r in rs:
             log(f"phase3 time {name} {r['label']} at {r['shape']}: device "
                 f"{r['ms']:.4f} ms, wrapper {r['wrapper_ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max |err| "
+                f"{r['max_abs_err']:.3g}")
+
+
+# recurrentgemma-2b's projections at M = B S = 2048 (phase 10): (label, M,
+# K, N); its kv projection (one kv head of 256) cuts K into slices
+RG_MATMUL_SHAPES = (("recurrentgemma-2b wq/wo", 2048, 2560, 2560),
+                    ("recurrentgemma-2b wk/wv", 2048, 2560, 256),
+                    ("recurrentgemma-2b w1/w3", 2048, 2560, 7680),
+                    ("recurrentgemma-2b w2", 2048, 7680, 2560))
+# bitflip at the LM leaves it corrupts in phases 10 and 10b: (label, shape)
+LM_BITFLIP_SHAPES = (("mixtral-8x7b expert w1/w3", (8, 4096, 14336)),
+                     ("recurrentgemma-2b rec in_x/in_g/wa/wx/out",
+                      (2560, 2560)))
+
+
+def check_lm_family_kernels(dev, records):
+    """Phase 3 at the shapes of phases 10 and 10b (see the docstring):
+    ``bitflip`` bitwise against its plain version at mixtral-8x7b's expert
+    tensor (one row) and recurrentgemma-2b's recurrent weight (three rows,
+    all fault models), integers out and dequantized to float32 and bf16;
+    bf16 ``fault_matmul`` at recurrentgemma-2b's four projection shapes;
+    ``quant_bitflip`` bitwise at its unit input; each one timed."""
+    from repro_torch._device import fp32_exact
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.faultmodel import FAULT_MODELS
+    from repro_torch.quant import QuantSpec
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    fb, bf16, f32 = LM_FAULTY_BITS, torch.bfloat16, torch.float32
+    scale = torch.tensor(0.0123, device=dev)
+    rows = []
+    with torch.no_grad(), fp32_exact():
+        for label, shape in LM_BITFLIP_SHAPES:
+            big = len(shape) == 3
+            rates = torch.tensor([LM_RATE] if big else [0.0, 1e-3, LM_RATE],
+                                 device=dev)
+            q = torch.randint(-127, 128, shape, dtype=torch.int8,
+                              device=dev, generator=gen)
+            err = 0.0
+            for model in ("flip",) if big else FAULT_MODELS:
+                p = ref.bitflip_ref(q, 7925, rates, fb, fault_model=model)
+                if not bits_equal(ops.bitflip(q, 7925, rates, fb,
+                                              fault_model=model), p):
+                    raise AssertionError(f"bitflip {label} {model} differs "
+                                         "from its plain version")
+                for dt in (f32, bf16):
+                    k = ops.bitflip(q, 7925, rates, fb, fault_model=model,
+                                    scale=scale, dtype=dt)
+                    want = (p.float() * scale).to(dt)
+                    err = max(err, max_abs_err(k, want))
+                    if not bits_equal(k, want):
+                        raise AssertionError(
+                            f"bitflip {label} {model} dequantized to {dt} "
+                            "differs from (q'.float() * scale).to(dtype)")
+                    del k, want
+                del p
+            one = rates[-1:]
+            n = q.numel()
+            b_ms, b_by = bound(n + 2 * n, int_ops=n * fb * HASH_OPS_PER_DRAW)
+            rows.append(dict(
+                label=label,
+                shape=f"[1] x [{','.join(map(str, shape))}] int8, bf16 out",
+                ms=device_ms(lambda: ops.bitflip(q, 1, one, fb, scale=scale,
+                                                 dtype=bf16)),
+                f32_out_ms=device_ms(lambda: ops.bitflip(q, 1, one, fb,
+                                                         scale=scale)),
+                wrapper_ms=time_ms(lambda: ops.bitflip(
+                    q, 1, one, fb, scale=scale, dtype=bf16), iters=10),
+                plain_ms=time_ms(lambda: ref.bitflip_ref(
+                    q, 1, one, fb, scale=scale, dtype=bf16), iters=2,
+                    warmup=1),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                max_abs_err=err))
+            log(f"phase3 bitflip {label} at {list(shape)} int8: bitwise "
+                f"equal to plain, integers out and dequantized to float32 "
+                f"and bf16, {fb} faulty bits, rates {rates.tolist()}"
+                + ("" if big else f", {FAULT_MODELS}"))
+            del q
+            torch.cuda.empty_cache()
+        records["bitflip"]["lm_shapes"] = rows
+
+        out, hash_out, prod_out = [], [], []
+        worst = 0.0
+        for label, M, K, N in RG_MATMUL_SHAPES:
+            worst = max(worst, _bf16_matmul_shape(
+                dev, gen, label, M, K, N, ((torch.int8, 128),), out,
+                hash_out, prod_out))
+        records["fault_matmul"]["lm_shapes"] += out
+        records["fault_weight_tiles"]["lm_shapes"] += hash_out
+        records["matmul_tiles"]["lm_shapes"] += prod_out
+        log(f"phase3 fault_matmul bf16 x at recurrentgemma-2b's shapes "
+            f"{[s[1:] for s in RG_MATMUL_SHAPES]} (the kv projection in "
+            f"{ops._k_splits(2048, 2560, 256, 'bf16', dev)} K slices): x=I_K "
+            f"and the hash pass bitwise, the call and the product within "
+            f"the bound (worst ratio to it {worst:.3g}), int8 x "
+            f"{FAULT_MODELS}")
+
+        spec8 = QuantSpec(bits=8)
+        x = torch.randn(1, 8, 256, 2560, device=dev, generator=gen).to(bf16)
+        one = torch.tensor([LM_RATE], device=dev)
+        qb_err = 0.0
+        for model in FAULT_MODELS:
+            k = ops.quant_bitflip(x, 7926, one, fb, spec8, fault_model=model)
+            p = ref.quant_bitflip_ref(x, 7926, one, fb, spec8,
+                                      fault_model=model)
+            qb_err = max(qb_err, max_abs_err(k, p))
+            if not bits_equal(k, p):
+                raise AssertionError(f"quant_bitflip bf16 [1,8,256,2560] "
+                                     f"{model} differs from its plain "
+                                     "version")
+        n = x.numel()
+        b_ms, b_by = bound(2 * n + 2 * n, int_ops=n * fb * HASH_OPS_PER_DRAW)
+        records["quant_bitflip"]["lm_shapes"].append(dict(
+            label="recurrentgemma-2b / mamba2-2.7b unit input",
+            shape="[1,8,256,2560] bfloat16",
+            ms=device_ms(lambda: ops.quant_bitflip(x, 1, one, fb, spec8)),
+            wrapper_ms=time_ms(lambda: ops.quant_bitflip(x, 1, one, fb,
+                                                         spec8)),
+            plain_ms=time_ms(lambda: ref.quant_bitflip_ref(
+                x, 1, one, fb, spec8), iters=5),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            max_abs_err=qb_err))
+        log(f"phase3 quant_bitflip bf16 [1,8,256,2560]: bitwise equal to "
+            f"plain for {FAULT_MODELS} at {fb} faulty bits, rate {LM_RATE}")
+    for name, rs in (("bitflip", rows), ("fault_matmul", out),
+                     ("fault_weight_tiles", hash_out),
+                     ("matmul_tiles", prod_out),
+                     ("quant_bitflip",
+                      records["quant_bitflip"]["lm_shapes"][-1:])):
+        for r in rs:
+            log(f"phase3 time {name} {r['label']} at {r['shape']}: device "
+                f"{r['ms']:.4f} ms"
+                + (f" (float32 out {r['f32_out_ms']:.4f} ms)"
+                   if "f32_out_ms" in r else "")
+                + f", wrapper {r['wrapper_ms']:.4f} ms, plain "
                 f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max |err| "
                 f"{r['max_abs_err']:.3g}")
@@ -925,22 +1116,194 @@ def _spread_problem(dacc: np.ndarray, tokens: int) -> str | None:
     return None
 
 
+def _lm_fixture(tag, dev, cfg, B, S, seed=0, check=True):
+    """``init_lm``'s seeded params on ``dev``, the numpy-seeded batch and
+    the clean model's own argmax as labels, which must spread where
+    ``check`` (printed: the share of labels that are their own input token,
+    all of them when random tied weights make the probe the identity)."""
+    from repro_torch.lm_setup import calibration_batch, self_labels
+    from repro_torch.models.transformer import init_lm
+
+    tokens = B * S
+    t0 = time.perf_counter()
+    params = init_lm(cfg, seed=seed, device=dev)
+    batch = calibration_batch(cfg, B, S, seed=7, device=dev)
+    labels = self_labels(cfg, params, batch)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    counts = torch.bincount(labels.reshape(-1), minlength=cfg.vocab)
+    distinct, top = int((counts > 0).sum()), int(counts.max())
+    # with random weights and tied embeddings the clean argmax at full
+    # width is the input token itself (its logit leads by a margin that
+    # grows with d_model): the probe is then the identity on this batch,
+    # and dAcc counts the tokens a fault moves off themselves.  That is
+    # printed; what must not degenerate is the spread of dAcc, checked on
+    # the search rows
+    own = (labels == batch["tokens"]).sum().item()
+    log(f"{tag} init + self-labels {time.perf_counter() - t0:.2f} s; "
+        f"labels: {distinct} distinct tokens of {tokens}, the most common "
+        f"{top} times; {own} of {tokens} ({own / tokens:.4f}) are their own "
+        "input token" + (": the probe is the identity on this batch"
+                         if own == tokens else ""))
+    if check and (distinct < tokens // 16 or top > tokens // 4):
+        raise AssertionError("degenerate self-labels")
+    return params, batch, labels
+
+
+def _lm_evaluator(dev, cfg, params, batch, labels, faulty_bits=LM_FAULTY_BITS,
+                  **kw):
+    """The LM ΔAcc evaluator at ``FaultSpec(bits=8, faulty_bits)``, rates
+    ``LM_RATE`` over ``POD_TIERS_4``; kernel backend and a 16 GiB store
+    unless ``kw`` says otherwise."""
+    from repro_torch.core import (POD_TIERS_4, FaultSpec,
+                                  make_lm_accuracy_evaluator)
+    kw.setdefault("fault_backend", "kernel")
+    kw.setdefault("max_store_bytes", LM_STORE_BYTES)
+    scale = np.array([d.fault_scale for d in POD_TIERS_4], np.float32)
+    spec = FaultSpec(bits=8, faulty_bits=faulty_bits,
+                     weight_fault_rate=LM_RATE, act_fault_rate=LM_RATE)
+    return make_lm_accuracy_evaluator(cfg, params, batch, labels, spec, scale,
+                                      device=dev, **kw), spec
+
+
+def _lm_search(tag, dev, cfg, fixture, nsga, tokens, faulty_bits):
+    """``lm_partitioner`` staged and fused (``eval_batch_size="auto"``),
+    then through ``eval_strategy="full"``: every evaluated row and both
+    fronts bitwise equal, the spread of ΔAcc over the rows checked.  The
+    launch counters are zeroed just before each search and read just
+    after."""
+    from repro_torch.core import lm_partitioner
+    from repro_torch.kernels import ops
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    s_ev, spec = _lm_evaluator(dev, cfg, *fixture, faulty_bits=faulty_bits,
+                               eval_batch_size="auto")
+    log(f"{tag} eval_batch_size='auto' -> {s_ev.eval_batch_size} rows: "
+        f"peak bytes of a 1- and a 2-row dispatch {s_ev.auto_probe_bytes}, "
+        f"store cap {LM_STORE_BYTES}")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    plan = lm_partitioner(cfg, s_ev, fault_spec=spec, fault_backend="kernel",
+                          nsga2_config=nsga).optimize()
+    sync()
+    s_wall = time.perf_counter() - t0
+    s_launches = dict(ops.launches)
+    st = s_ev.staged_stats()
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    store_peak = s_ev._prefix_engine.store.peak_nbytes
+    s_rows = dict(s_ev._cache)
+    del s_ev
+    f_ev, _ = _lm_evaluator(dev, cfg, *fixture, faulty_bits=faulty_bits,
+                            eval_strategy="full", eval_batch_size=1)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    f_plan = lm_partitioner(cfg, f_ev, fault_spec=spec, fault_backend="kernel",
+                            eval_strategy="full", nsga2_config=nsga).optimize()
+    sync()
+    f_wall = time.perf_counter() - t0
+    f_launches = dict(ops.launches)
+    log(f"{tag} lm_partitioner staged+fused: {s_wall:.3f} s wall, launches "
+        f"{s_launches}; full: {f_wall:.3f} s wall, launches {f_launches}")
+    log(f"{tag} staged stats {json.dumps(st)}; peak store bytes "
+        f"{store_peak}; max_memory_allocated {peak}")
+    f_rows = dict(f_ev._cache)
+    if s_rows != f_rows:
+        bad = [k for k in f_rows if s_rows.get(k) != f_rows[k]]
+        raise AssertionError(f"staged rows differ from the full path: "
+                             f"{len(bad)} of {len(f_rows)}, e.g. {bad[:2]}")
+    if not (np.array_equal(plan.front, f_plan.front)
+            and np.array_equal(plan.front_objs, f_plan.front_objs)):
+        raise AssertionError("the staged front differs from the full one")
+    clean = f_ev.clean_accuracy()
+    dacc = np.maximum(0.0, clean - np.array(list(f_rows.values())))
+    log(f"{tag} staged = full bitwise: {len(f_rows)} rows' accuracies and "
+        f"the front ({len(plan.front)} points); clean accuracy {clean:.4f}; "
+        f"dAcc over the rows min {dacc.min():.4f} max {dacc.max():.4f}, "
+        f"{len(np.unique(dacc))} distinct values")
+    why = _spread_problem(dacc, tokens)
+    if why:
+        raise AssertionError(f"dAcc over the evaluated rows {why}")
+    for row, o in zip(plan.front, plan.front_objs):
+        log(f"  map={''.join(map(str, row))} lat={o[0] * 1e3:.3f}ms "
+            f"energy={o[1] * 1e3:.3f}mJ dAcc={o[2]:.4f}")
+    if on_card:
+        torch.cuda.empty_cache()
+    return dict(f_ev=f_ev, f_rows=f_rows, s_launches=s_launches,
+                f_launches=f_launches, s_wall=s_wall, f_wall=f_wall)
+
+
+# profiler ranges the port opens around its scans (``models/layers.py``)
+SCAN_RANGES = ("rglru_scan", "ssd_chunk_scan")
+
+
+def _profile_candidate(tag, dev, cfg, f_ev, row, B, S):
+    """One candidate's wall (5 readings of 3 back-to-back dispatches: the
+    host's share moves with what else the machine runs) and its device
+    time by kernel group (torch.profiler), with the scans' ranges.
+    Returns the groups."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    walls = sorted(time_ms(lambda: f_ev._dispatch(row), iters=3, warmup=1)
+                   for _ in range(5)) if on_card else [0.0]
+    t_row = walls[len(walls) // 2]
+    log(f"{tag} one {cfg.name} candidate wall, 5 readings: "
+        f"{[round(w, 3) for w in walls]} ms (median {t_row:.3f})")
+    with profile(activities=[ProfilerActivity.CPU]
+                 + ([ProfilerActivity.CUDA] if on_card else [])) as prof:
+        f_ev._dispatch(row)
+        sync()
+    # a range opened by record_function shows on the device timeline as
+    # an annotation (a span, not a kernel): kept out of the kernels, and
+    # the kernels that run inside its spans summed as its own time
+    kern = [a for a in prof.key_averages()
+            if a.device_type == DeviceType.CUDA and a.key not in SCAN_RANGES]
+    if on_card and not kern:
+        raise AssertionError("the profiler recorded no device kernel")
+    busy = sum(a.self_device_time_total for a in kern) / 1e3
+    groups = {}
+    for a in kern:
+        g = groups.setdefault(kernel_group(a.key, "cuBLAS matmul"), [0.0, 0])
+        g[0] += a.self_device_time_total / 1e3
+        g[1] += a.count
+    dev_ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    k_ev = [e.time_range for e in dev_ev if e.name not in SCAN_RANGES]
+    scans = {}
+    for name in SCAN_RANGES:
+        spans = [e.time_range for e in dev_ev if e.name == name]
+        if spans:
+            inside = [k for k in k_ev if any(
+                r.start <= k.start and k.end <= r.end for r in spans)]
+            scans[name] = (sum(k.elapsed_us() for k in inside) / 1e3,
+                           len(inside), len(spans),
+                           sum(r.elapsed_us() for r in spans) / 1e3)
+    log(f"{tag} one {cfg.name} candidate (kernel backend, {B}x{S} tokens): "
+        f"{t_row:.3f} ms median wall; profiler: kernels busy {busy:.3f} ms "
+        f"({100 * (1 - busy / max(t_row, 1e-9)):.1f}% idle); "
+        + ", ".join(f"{k} {v[0]:.3f} ms in {v[1]}" for k, v in
+                    sorted(groups.items(), key=lambda kv: -kv[1][0]))
+        + "".join(f"; of the glue, {k} {v[0]:.3f} ms in {v[1]} kernels "
+                  f"within {v[2]} ranges spanning {v[3]:.3f} ms"
+                  for k, v in scans.items()))
+    return groups
+
+
 def lm_phase(dev, records, cfg=None, sc_cfg=None, B=LM_B, S=LM_S,
              nsga=None):
     """Phase 9: the dense transformer ΔAcc path (see the docstring).  The
     arguments other than ``dev`` and ``records`` let a rehearsal on the
     CPU run it at a small size."""
     import dataclasses
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
-    from repro_torch.core import (POD_TIERS_4, FaultSpec, NSGA2Config,
-                                  lm_partitioner, make_lm_accuracy_evaluator)
+    from repro_torch.core import NSGA2Config
     from repro_torch.kernels import ops
-    from repro_torch.lm_setup import calibration_batch, self_labels
     from repro_torch.models.graph import lm_eval_strategy
-    from repro_torch.models.transformer import init_lm
 
     cfg = cfg or get_config("olmo-1b")
     sc_cfg = sc_cfg or dataclasses.replace(get_config("starcoder2-3b"),
@@ -956,154 +1319,48 @@ def lm_phase(dev, records, cfg=None, sc_cfg=None, B=LM_B, S=LM_S,
         f"lm_eval_strategy -> {strategy!r}")
     if strategy != "staged":
         raise AssertionError(f"lm_eval_strategy gave {strategy!r}")
-    t0 = time.perf_counter()
-    params = init_lm(cfg, seed=0, device=dev)
-    batch = calibration_batch(cfg, B, S, seed=7, device=dev)
-    labels = self_labels(cfg, params, batch)
-    sync()
-    counts = torch.bincount(labels.reshape(-1), minlength=cfg.vocab)
-    distinct, top = int((counts > 0).sum()), int(counts.max())
-    # with random weights and tied embeddings the clean argmax at full
-    # width is the input token itself (its logit leads by a margin that
-    # grows with d_model): the probe is then the identity on this batch,
-    # and dAcc counts the tokens a fault moves off themselves.  That is
-    # printed; what must not degenerate is the spread of dAcc, checked on
-    # the search rows below
-    own = (labels == batch["tokens"]).sum().item()
-    log(f"phase9 init + self-labels {time.perf_counter() - t0:.2f} s; "
-        f"labels: {distinct} distinct tokens of {tokens}, the most common "
-        f"{top} times; {own} of {tokens} ({own / tokens:.4f}) are their own "
-        "input token" + (": the probe is the identity on this batch"
-                         if own == tokens else ""))
-    if distinct < tokens // 16 or top > tokens // 4:
-        raise AssertionError("degenerate self-labels")
-    scale = np.array([d.fault_scale for d in POD_TIERS_4], np.float32)
+    fixture = _lm_fixture("phase9", dev, cfg, B, S)
     L = cfg.n_layers
-
-    def evaluator(c=cfg, p=params, b=batch, y=labels,
-                  faulty_bits=LM_FAULTY_BITS, **kw):
-        kw.setdefault("fault_backend", "kernel")
-        kw.setdefault("max_store_bytes", LM_STORE_BYTES)
-        spec = FaultSpec(bits=8, faulty_bits=faulty_bits,
-                         weight_fault_rate=LM_RATE, act_fault_rate=LM_RATE)
-        return make_lm_accuracy_evaluator(c, p, b, y, spec, scale,
-                                          device=dev, **kw), spec
 
     # the reference replay's 4 LSBs, printed only: with random weights the
     # input token's logit leads by a margin 4 of 8 bits do not close
-    probe = np.random.default_rng(5).integers(0, len(scale), size=(8, L))
-    ev, _ = evaluator(faulty_bits=4, eval_strategy="full", eval_batch_size=1)
+    probe = np.random.default_rng(5).integers(0, 4, size=(8, L))
+    ev, _ = _lm_evaluator(dev, cfg, *fixture, faulty_bits=4,
+                          eval_strategy="full", eval_batch_size=1)
     d = ev.delta_acc(probe)
     log(f"phase9 probe at the reference replay's 4 faulty bits, rates "
         f"{LM_RATE}/{LM_RATE}: clean accuracy {ev.clean_accuracy():.4f}, "
         f"dAcc {np.round(d, 4).tolist()} (not used)")
     del ev
     log(f"phase9 fault regime: FaultSpec(bits=8, faulty_bits={LM_FAULTY_BITS})"
-        f" at {LM_RATE}/{LM_RATE} over POD_TIERS_4 (fault scales "
-        f"{scale.tolist()})")
+        f" at {LM_RATE}/{LM_RATE} over POD_TIERS_4")
 
-    # the search, staged and fused, then through the whole forward
-    s_ev, spec = evaluator(eval_batch_size="auto")
-    log(f"phase9 eval_batch_size='auto' -> {s_ev.eval_batch_size} rows: "
-        f"peak bytes of a 1- and a 2-row dispatch {s_ev.auto_probe_bytes}, "
-        f"store cap {LM_STORE_BYTES}")
-    if on_card:
-        torch.cuda.reset_peak_memory_stats(dev)
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    plan = lm_partitioner(cfg, s_ev, fault_spec=spec, fault_backend="kernel",
-                          nsga2_config=nsga).optimize()
-    sync()
-    s_wall = time.perf_counter() - t0
-    s_launches = dict(ops.launches)
-    st = s_ev.staged_stats()
-    peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
-    f_ev, _ = evaluator(eval_strategy="full", eval_batch_size=1)
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    f_plan = lm_partitioner(cfg, f_ev, fault_spec=spec, fault_backend="kernel",
-                            eval_strategy="full", nsga2_config=nsga).optimize()
-    sync()
-    f_wall = time.perf_counter() - t0
-    f_launches = dict(ops.launches)
-    log(f"phase9 lm_partitioner staged+fused: {s_wall:.3f} s wall, launches "
-        f"{s_launches}; full: {f_wall:.3f} s wall, launches {f_launches}")
-    log(f"phase9 staged stats {json.dumps(st)}; peak store bytes "
-        f"{s_ev._prefix_engine.store.peak_nbytes}; max_memory_allocated "
-        f"{peak}")
+    res = _lm_search("phase9", dev, cfg, fixture, nsga, tokens,
+                     LM_FAULTY_BITS)
+    s_launches, f_launches = res["s_launches"], res["f_launches"]
     for name in LM_KERNELS:
         if on_card and min(s_launches[name], f_launches[name]) <= 0:
             raise AssertionError(f"{name} never launched on the LM path")
-    s_rows, f_rows = dict(s_ev._cache), dict(f_ev._cache)
-    if s_rows != f_rows:
-        bad = [k for k in f_rows if s_rows.get(k) != f_rows[k]]
-        raise AssertionError(f"staged rows differ from the full path: "
-                             f"{len(bad)} of {len(f_rows)}, e.g. {bad[:2]}")
-    if not (np.array_equal(plan.front, f_plan.front)
-            and np.array_equal(plan.front_objs, f_plan.front_objs)):
-        raise AssertionError("the staged front differs from the full one")
-    clean = f_ev.clean_accuracy()
-    dacc = np.maximum(0.0, clean - np.array(list(f_rows.values())))
-    log(f"phase9 staged = full bitwise: {len(f_rows)} rows' accuracies and "
-        f"the front ({len(plan.front)} points); clean accuracy {clean:.4f}; "
-        f"dAcc over the rows min {dacc.min():.4f} max {dacc.max():.4f}, "
-        f"{len(np.unique(dacc))} distinct values")
-    why = _spread_problem(dacc, tokens)
-    if why:
-        raise AssertionError(f"dAcc over the evaluated rows {why}")
-    for row, o in zip(plan.front, plan.front_objs):
-        log(f"  map={''.join(map(str, row))} lat={o[0] * 1e3:.3f}ms "
-            f"energy={o[1] * 1e3:.3f}mJ dAcc={o[2]:.4f}")
     for name, r in records.items():
         r["lm_launches"], r["lm_full_launches"] = \
             s_launches[name], f_launches[name]
         if name not in CNN_KERNELS:          # the LM path is their main path
             r["launches"] = s_launches[name]
-    del s_ev
-    if on_card:
-        torch.cuda.empty_cache()
+    f_ev, f_rows = res["f_ev"], res["f_rows"]
 
     # one candidate by kernel group
-    row = np.array(list(f_rows)[:1])
-    # the wall of one candidate, 5 readings of 3 back-to-back dispatches:
-    # the host's share moves with what else the machine runs
-    walls = sorted(time_ms(lambda: f_ev._dispatch(row), iters=3, warmup=1)
-                   for _ in range(5)) if on_card else [0.0]
-    t_row = walls[len(walls) // 2]
-    log(f"phase9 one {cfg.name} candidate wall, 5 readings: "
-        f"{[round(w, 3) for w in walls]} ms (median {t_row:.3f})")
-    with profile(activities=[ProfilerActivity.CPU]
-                 + ([ProfilerActivity.CUDA] if on_card else [])) as prof:
-        f_ev._dispatch(row)
-        sync()
-    kern = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
-    if on_card and not kern:
-        raise AssertionError("the profiler recorded no device kernel")
-    busy = sum(a.self_device_time_total for a in kern) / 1e3
-    groups = {}
-    for a in kern:
-        g = groups.setdefault(kernel_group(a.key, "cuBLAS matmul"), [0.0, 0])
-        g[0] += a.self_device_time_total / 1e3
-        g[1] += a.count
-    log(f"phase9 one {cfg.name} candidate (kernel backend, {B}x{S} tokens): "
-        f"{t_row:.3f} ms median wall; profiler: kernels busy {busy:.3f} ms "
-        f"({100 * (1 - busy / max(t_row, 1e-9)):.1f}% idle); "
-        + ", ".join(f"{k} {v[0]:.3f} ms in {v[1]}" for k, v in
-                    sorted(groups.items(), key=lambda kv: -kv[1][0])))
+    groups = _profile_candidate("phase9", dev, cfg, f_ev,
+                                np.array(list(f_rows)[:1]), B, S)
     for name, r in records.items():
         r["lm_candidate_ms"], r["lm_candidate_launches"] = \
             groups.get(name, (0.0, 0))
 
     # starcoder2-3b: GQA, LayerNorm with bias, gelu, an untied head
     t0 = time.perf_counter()
-    sc_params = init_lm(sc_cfg, seed=1, device=dev)
-    sc_batch = calibration_batch(sc_cfg, B, S, seed=7, device=dev)
-    sc_labels = self_labels(sc_cfg, sc_params, sc_batch)
-    sc_own = (sc_labels == sc_batch["tokens"]).sum().item()
-    sc_ev, _ = evaluator(c=sc_cfg, p=sc_params, b=sc_batch,
-                         y=sc_labels, eval_batch_size="auto")
-    P = np.random.default_rng(6).integers(0, len(scale),
-                                          size=(8, sc_cfg.n_layers))
+    sc_fix = _lm_fixture("phase9", dev, sc_cfg, B, S, seed=1, check=False)
+    sc_own = (sc_fix[2] == sc_fix[1]["tokens"]).sum().item()
+    sc_ev, _ = _lm_evaluator(dev, sc_cfg, *sc_fix, eval_batch_size="auto")
+    P = np.random.default_rng(6).integers(0, 4, size=(8, sc_cfg.n_layers))
     ops.reset_launches()
     d = sc_ev.delta_acc(P)
     sync()
@@ -1112,18 +1369,19 @@ def lm_phase(dev, records, cfg=None, sc_cfg=None, B=LM_B, S=LM_S,
         f"{sc_cfg.d_model}, kv heads {sc_cfg.n_kv_heads}, d_ff {sc_cfg.d_ff}, "
         f"vocab {sc_cfg.vocab}): dAcc {np.round(d, 4).tolist()} in "
         f"{time.perf_counter() - t0:.2f} s with set-up, launches "
-        f"{sc_launches}, {len(torch.unique(sc_labels))} distinct labels, "
+        f"{sc_launches}, {len(torch.unique(sc_fix[2]))} distinct labels, "
         f"{sc_own} of {tokens} their own input token")
     if (on_card and min(sc_launches[k] for k in ("bitflip", *LM_KERNELS))
             <= 0) or not np.isfinite(d).all():
         raise AssertionError("the starcoder2-3b population missed a kernel")
     for name, r in records.items():
         r["starcoder2_launches"] = sc_launches[name]
+    del sc_ev, sc_fix
 
     # generic against kernel on 4 rows of the olmo-1b search
     P4 = np.array(list(f_rows)[:4])
-    g_ev, _ = evaluator(fault_backend="generic", eval_strategy="full",
-                        eval_batch_size=1)
+    g_ev, _ = _lm_evaluator(dev, cfg, *fixture, fault_backend="generic",
+                            eval_strategy="full", eval_batch_size=1)
     dk, dg = f_ev.delta_acc(P4), g_ev.delta_acc(P4)
     diff = np.abs(dk - dg)
     log(f"phase9 kernel {dk.tolist()} generic {dg.tolist()}: "
@@ -1133,6 +1391,141 @@ def lm_phase(dev, records, cfg=None, sc_cfg=None, B=LM_B, S=LM_S,
     if diff.max() > 1.0 / tokens:
         raise AssertionError("generic and kernel dAcc differ by more than "
                              "1/(B S) in a row")
+
+
+# phase 10b's depth cuts: mixtral-8x7b's 32 layers resolve to the
+# surrogate on one card (a corrupted copy of the experts a row); mamba2's
+# 64 are cut to keep the run short
+MIXTRAL_LAYERS, MAMBA2_LAYERS = 2, 8
+# the kernels each family's path must launch: recurrentgemma-2b's
+# attention and MLP run fault_matmul (its two bf16 kernels), its recurrent
+# weights and norm gains bitflip; mixtral's experts and router bitflip;
+# mamba2 has no fault_matmul site
+FAMILY_KERNELS = {"recurrentgemma-2b": ("bitflip", *LM_KERNELS),
+                  "mixtral-8x7b": ("bitflip", *LM_KERNELS),
+                  "mamba2-2.7b": ("bitflip", "quant_bitflip")}
+
+
+def family_phase(dev, records, rg_cfg=None, mx_cfg=None, mb_cfg=None,
+                 B=LM_B, S=LM_S, nsga=None):
+    """Phase 10 (recurrentgemma-2b at full width and depth through
+    ``lm_partitioner``, staged = full bitwise, a profile of one candidate)
+    and phase 10b (one population each of mixtral-8x7b and mamba2-2.7b at
+    full width, depth cut).  The arguments other than ``dev`` and
+    ``records`` let a rehearsal on the CPU run it at a small size."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import NSGA2Config
+    from repro_torch.kernels import ops
+    from repro_torch.models.graph import lm_eval_strategy
+
+    rg_cfg = rg_cfg or get_config("recurrentgemma-2b")
+    mx_cfg = mx_cfg or dataclasses.replace(get_config("mixtral-8x7b"),
+                                           n_layers=MIXTRAL_LAYERS)
+    mb_cfg = mb_cfg or dataclasses.replace(get_config("mamba2-2.7b"),
+                                           n_layers=MAMBA2_LAYERS)
+    nsga = nsga or NSGA2Config(population=24, generations=3, seed=0)
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    tokens = B * S
+    cfg = rg_cfg
+    strategy = lm_eval_strategy(cfg, device=dev)
+    log(f"phase10 {cfg.name}: {cfg.n_layers} layers of "
+        f"{cfg.block_pattern} ({cfg.n_groups} groups, "
+        f"{cfg.n_groups * len(cfg.block_pattern)} slots), d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim_}, "
+        f"{cfg.n_kv_heads} kv, d_ff {cfg.d_ff}, lru_width {cfg.lru_width}, "
+        f"vocab {cfg.vocab}, {cfg.dtype}, tied {cfg.tie_embeddings}, "
+        f"{cfg.param_count() / 1e9:.3f} B params; lm_eval_strategy -> "
+        f"{strategy!r}")
+    if strategy != "staged":
+        raise AssertionError(f"lm_eval_strategy gave {strategy!r}")
+    fixture = _lm_fixture("phase10", dev, cfg, B, S)
+    probe = np.random.default_rng(5).integers(0, 4, size=(8, cfg.n_layers))
+    for fb in sorted({4, 6, 8, RG_FAULTY_BITS}):
+        ev, _ = _lm_evaluator(dev, cfg, *fixture, faulty_bits=fb,
+                              eval_strategy="full", eval_batch_size=1)
+        d = ev.delta_acc(probe)
+        log(f"phase10 probe at {fb} faulty bits, rates {LM_RATE}/{LM_RATE}: "
+            f"clean accuracy {ev.clean_accuracy():.4f}, dAcc "
+            f"{np.round(d, 4).tolist()}"
+            + (" (the search's regime)" if fb == RG_FAULTY_BITS
+               else " (not used)"))
+        del ev
+    res = _lm_search("phase10", dev, cfg, fixture, nsga, tokens,
+                     RG_FAULTY_BITS)
+    s_launches, f_launches = res["s_launches"], res["f_launches"]
+    for name in FAMILY_KERNELS[cfg.name.removesuffix('-smoke')]:
+        if on_card and min(s_launches[name], f_launches[name]) <= 0:
+            raise AssertionError(f"{name} never launched on the "
+                                 f"{cfg.name} path")
+    for name, r in records.items():
+        r["rg_launches"], r["rg_full_launches"] = \
+            s_launches[name], f_launches[name]
+    row = np.array(list(res["f_rows"])[:1])
+    groups = _profile_candidate("phase10", dev, cfg, res["f_ev"], row, B, S)
+    ops.reset_launches()
+    res["f_ev"]._dispatch(row)
+    sync()
+    log(f"phase10 one {cfg.name} candidate's launches (ops.launches): "
+        f"{dict(ops.launches)}")
+    for name, r in records.items():
+        r["rg_candidate_ms"], r["rg_candidate_launches"] = \
+            groups.get(name, (0.0, 0))
+    del res, fixture, groups
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # phase 10b: one population of 8 rows each
+    for cfg, seed in ((mx_cfg, 2), (mb_cfg, 3)):
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        fix = _lm_fixture("phase10b", dev, cfg, B, S, seed=seed, check=False)
+        P = np.random.default_rng(seed).integers(0, 4, size=(8, cfg.n_layers))
+        for fb in (7, 8):
+            p_ev, _ = _lm_evaluator(dev, cfg, *fix, faulty_bits=fb,
+                                    eval_batch_size="auto")
+            d = p_ev.delta_acc(P)
+            log(f"phase10b {cfg.name} probe at {fb} faulty bits: dAcc "
+                f"{np.round(d, 4).tolist()} (spread: "
+                f"{_spread_problem(d, tokens) or 'ok'}; not used)")
+            del p_ev
+            gc.collect()
+        ev, _ = _lm_evaluator(dev, cfg, *fix, faulty_bits=RG_FAULTY_BITS,
+                              eval_batch_size="auto")
+        ops.reset_launches()
+        t1 = time.perf_counter()
+        d = ev.delta_acc(P)
+        sync()
+        wall = time.perf_counter() - t1
+        launches = dict(ops.launches)
+        peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+        log(f"phase10b {cfg.name} at depth {cfg.n_layers} of "
+            f"{cfg.block_pattern} (d_model {cfg.d_model}, "
+            f"{cfg.param_count() / 1e9:.3f} B params, "
+            + (f"{cfg.n_experts} experts of d_ff {cfg.expert_d_ff}, top "
+               f"{cfg.top_k}, capacity factor {cfg.moe_capacity_factor}"
+               if cfg.is_moe else
+               f"d_inner {cfg.ssm_expand * cfg.d_model}, "
+               f"{cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim} heads, "
+               f"state {cfg.ssm_state}")
+            + f"): eval_batch_size='auto' -> {ev.eval_batch_size} rows "
+            f"(probe bytes {ev.auto_probe_bytes}); dAcc "
+            f"{np.round(d, 4).tolist()} (spread: "
+            f"{_spread_problem(d, tokens) or 'ok'}) in {wall:.2f} s, "
+            f"{time.perf_counter() - t0:.2f} s with set-up; launches "
+            f"{launches}; max_memory_allocated {peak}")
+        if (on_card and min(launches[k] for k in FAMILY_KERNELS[cfg.name.removesuffix('-smoke')])
+                <= 0) or not np.isfinite(d).all():
+            raise AssertionError(f"the {cfg.name} population missed a "
+                                 "kernel")
+        key = "mixtral_launches" if cfg.is_moe else "mamba2_launches"
+        for name, r in records.items():
+            r[key] = launches[name]
+        del ev, fix
 
 
 def main() -> int:
@@ -1180,6 +1573,7 @@ def main() -> int:
     }
     check_kernels(dev, records)
     check_fault_matmul_bf16(dev, records)
+    check_lm_family_kernels(dev, records)
 
     # phase 4: the main path
     spec = FaultSpec(**SPEC_RATES)
@@ -1298,6 +1692,10 @@ def main() -> int:
 
     # phase 9: the dense transformer path
     lm_phase(dev, records)
+    torch.cuda.empty_cache()
+
+    # phases 10 and 10b: the RG-LRU, MoE and SSD block kinds
+    family_phase(dev, records)
 
     kernels = [dict(name=name, **{k: r[k] for k in RECORD_KEYS if k in r})
                for name, r in records.items()]

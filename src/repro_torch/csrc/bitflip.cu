@@ -5,19 +5,22 @@
 // Port shape: the shared tensor q (n elements, e.g. one resident int8 conv
 // weight) is read once per row and written to out[R, n], one row per
 // candidate of the population, each at its own rate.  q is never written.
-// With a scale (one float32 on the device), out is float32 and holds
-// __fmul_rn(float(q'), scale): the dequantization the main path would
-// otherwise run as two more passes (a cast and a multiply), bitwise the
-// same.  Without one, out has q's type, the TPU kernel's contract.
+// With a scale (one float32 on the device), out is float32 or bf16 and
+// holds __fmul_rn(float(q'), scale), rounded once to bf16 for a bf16 leaf:
+// the dequantization the main path would otherwise run as two or three
+// more passes (a cast, a multiply, a cast to the leaf's dtype), bitwise
+// the same, with no float32 copy of a bf16 leaf.  Without a scale, out has
+// q's type, the TPU kernel's contract.
 //
 // Bound on the H100: the integer pipe.  One read and one write per
-// element (2 B for int8, 5 B with the fused dequant) are far below the
+// element (2 B for int8, 3-5 B with the fused dequant) are far below the
 // hash's ~20 integer operations per bit plane.  So a draw must cost
 // integer operations only: the rate enters as faultmodel.cuh's integer
 // threshold, computed once per row, and each plane is one integer compare
 // (no int-to-float conversion, which runs on a pipe a quarter as wide).
 // The random bits stay in registers; four elements per thread per step
 // (one 4-16 byte load); a grid-stride loop fills the card at any n.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -32,7 +35,8 @@ template <> struct Vec4<4> { using type = int; };
 template <> struct Vec4<8> { using type = int2; };
 template <> struct Vec4<16> { using type = int4; };
 
-// OUT is T (integers out) or float (dequantized by *scale).
+// OUT is T (integers out), or float or __nv_bfloat16 (dequantized by
+// *scale in float32, then rounded to nearest even once for bf16).
 template <typename T, typename OUT, int MODEL>
 __global__ void bitflip_kernel(const T* __restrict__ q, OUT* __restrict__ out,
                                const float* __restrict__ rate,
@@ -49,8 +53,10 @@ __global__ void bitflip_kernel(const T* __restrict__ q, OUT* __restrict__ out,
   auto emit = [&](T v) -> OUT {
     if constexpr (std::is_integral<OUT>::value) {
       return v;
-    } else {
+    } else if constexpr (std::is_same<OUT, float>::value) {
       return __fmul_rn(static_cast<float>(v), scale);
+    } else {
+      return __float2bfloat16_rn(__fmul_rn(static_cast<float>(v), scale));
     }
   };
   OUT* o = out + row * n;
@@ -76,15 +82,17 @@ __global__ void bitflip_kernel(const T* __restrict__ q, OUT* __restrict__ out,
 }  // namespace
 
 // q: n integers of `qbytes` bytes each; rate: rows float32; scale: null,
-// or one float32.  out: rows x n of q's type without a scale, of float32
-// with one.  Returns the cudaError_t of the launch.
+// or one float32.  out: rows x n of q's type without a scale; with one, of
+// float32 (out_bf16 0) or bf16 (out_bf16 1).  Returns the cudaError_t of
+// the launch.
 extern "C" int afp_bitflip(const void* q, void* out, const float* rate,
                            const float* scale, int64_t n, int64_t rows,
                            int qbytes, int model, uint32_t seed,
-                           int faulty_bits, int mbu_width, void* stream) {
+                           int faulty_bits, int mbu_width, int out_bf16,
+                           void* stream) {
   if (n <= 0 || rows <= 0) return static_cast<int>(cudaSuccess);
   if (rows > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const int obytes = scale ? 4 : qbytes;
+  const int obytes = scale ? (out_bf16 ? 2 : 4) : qbytes;
   const bool vec_ok = n % 4 == 0 &&
                       reinterpret_cast<uintptr_t>(q) % (4 * qbytes) == 0 &&
                       reinterpret_cast<uintptr_t>(out) % (4 * obytes) == 0;
@@ -94,7 +102,12 @@ extern "C" int afp_bitflip(const void* q, void* out, const float* rate,
   const dim3 grid(static_cast<unsigned>(blocks < 132 * 16 ? blocks : 132 * 16),
                   static_cast<unsigned>(rows));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (scale) {
+  if (scale && out_bf16) {
+    AFP_DISPATCH_INT(qbytes, AFP_DISPATCH_MODEL(model,
+        bitflip_kernel<QT, __nv_bfloat16, MODEL><<<grid, threads, 0, s>>>(
+            static_cast<const QT*>(q), static_cast<__nv_bfloat16*>(out), rate,
+            scale, n, seed, faulty_bits, mbu_width, vec_ok)));
+  } else if (scale) {
     AFP_DISPATCH_INT(qbytes, AFP_DISPATCH_MODEL(model,
         bitflip_kernel<QT, float, MODEL><<<grid, threads, 0, s>>>(
             static_cast<const QT*>(q), static_cast<float*>(out), rate, scale,

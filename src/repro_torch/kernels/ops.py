@@ -39,7 +39,7 @@ _P, _I64, _I32, _U32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
 # C entry point -> (library, argument types)
 _SIGNATURES = {
     "afp_bitflip": ("bitflip", [_P, _P, _P, _P, _I64, _I64, _I32, _I32, _U32,
-                                _I32, _I32, _P]),
+                                _I32, _I32, _I32, _P]),
     "afp_quant_bitflip": ("quant_bitflip", [_P, _P, _P, _P, _I64, _I64, _I32,
                                             _I32, _I32, _I32, _U32, _I32,
                                             _I32, _P]),
@@ -158,17 +158,21 @@ def row_groups(R: int, K: int, N: int, splits: int = 1) -> list[tuple[int, int]]
 
 def bitflip(q: torch.Tensor, seed, rate, faulty_bits: int, *,
             fault_model: str = "flip", mbu_width: int = 2,
-            scale=None) -> torch.Tensor:
+            scale=None, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Corrupt the ``faulty_bits`` LSBs of integer tensor ``q``; with a
     ``[R]`` rate, returns ``[R, *q.shape]`` (``q`` shared by the rows).
     With a one-element float32 ``scale`` the kernel also dequantizes in the
-    same pass and returns float32 ``float(q') * scale``."""
+    same pass and returns ``dtype`` (float32 or bfloat16): ``float(q') *
+    scale`` in float32, rounded once to ``dtype``, the reference's
+    ``(q'.astype(f32) * scale).astype(dtype)``."""
     if not _is_cuda(q):
         return _ref.bitflip_ref(q, seed, rate, faulty_bits,
                                 fault_model=fault_model, mbu_width=mbu_width,
-                                scale=scale)
+                                scale=scale, dtype=dtype)
     _check(q.dtype in _INT_BYTES, f"bitflip takes int8/16/32, got {q.dtype}")
     _check(q.is_contiguous(), "bitflip needs a contiguous q")
+    _check(dtype in (torch.float32, torch.bfloat16),
+           f"bitflip dequantizes to float32 or bfloat16, got {dtype}")
     rates, per_row = _ref.row_rates(rate, q.device)
     scale_ptr = None
     if scale is not None:
@@ -177,11 +181,12 @@ def bitflip(q: torch.Tensor, seed, rate, faulty_bits: int, *,
         scale_t = scale_t.contiguous()
         scale_ptr = scale_t.data_ptr()
     out = torch.empty((rates.numel(), *q.shape),
-                      dtype=q.dtype if scale is None else torch.float32,
+                      dtype=q.dtype if scale is None else dtype,
                       device=q.device)
     _launch("afp_bitflip", q.data_ptr(), out.data_ptr(), rates.data_ptr(),
             scale_ptr, q.numel(), rates.numel(), _INT_BYTES[q.dtype],
-            _model_id(fault_model, faulty_bits), seed_u32(seed), faulty_bits, mbu_width,
+            _model_id(fault_model, faulty_bits), seed_u32(seed), faulty_bits,
+            mbu_width, int(scale is not None and dtype == torch.bfloat16),
             _stream(q.device))
     launches["bitflip"] += 1
     return out if per_row else out[0]

@@ -10,7 +10,8 @@ always the C-order flat index within ONE row's tensor, and every row
 shares the seed, exactly as under ``vmap``.
 
   * ``bitflip_ref(q, ...)``: ``q`` is shared by the rows; a ``[R]`` rate
-    returns ``[R, *q.shape]``, dequantized to float32 by ``scale`` if given.
+    returns ``[R, *q.shape]``, dequantized by ``scale`` if given (in
+    float32, then cast to ``dtype``).
   * ``quant_bitflip_ref(x, ...)``: with a ``[R]`` rate ``x`` is
     ``[R, ...]`` and each row gets its own amax and scale.
   * ``fault_matmul_ref(x, qw, ...)``: with a ``[R]`` rate ``x`` is
@@ -81,9 +82,11 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def bitflip_ref(q: torch.Tensor, seed, rate, faulty_bits: int,
                 fault_model: str = "flip", mbu_width: int = 2,
-                scale=None) -> torch.Tensor:
+                scale=None, dtype: torch.dtype = torch.float32
+                ) -> torch.Tensor:
     """Corrupt the ``faulty_bits`` LSBs of integer tensor ``q``; with a
-    ``scale``, return the float32 dequantization ``float(q') * scale``."""
+    ``scale``, return the dequantization ``float(q') * scale`` computed in
+    float32 and cast to ``dtype``."""
     if q.is_floating_point() or q.is_complex():
         raise TypeError(f"bitflip needs an integer tensor, got {q.dtype}")
     rates, per_row = row_rates(rate, q.device)
@@ -93,8 +96,8 @@ def bitflip_ref(q: torch.Tensor, seed, rate, faulty_bits: int,
                       mbu_width=mbu_width)
     out = torch.broadcast_to(out, (rates.numel(), q.numel()))
     if scale is not None:
-        out = out.to(torch.float32) * torch.as_tensor(
-            scale, dtype=torch.float32, device=q.device)
+        out = (out.to(torch.float32) * torch.as_tensor(
+            scale, dtype=torch.float32, device=q.device)).to(dtype)
     return out.reshape(rates.numel(), *q.shape) if per_row \
         else out.reshape(q.shape)
 

@@ -1,8 +1,10 @@
 """Building blocks of the model zoo, the counterpart of
-``repro/models/layers.py``: the fault plumbing, and the dense decoder's
+``repro/models/layers.py``: the fault plumbing, the dense decoder's
 blocks (initialisers, the three norms, RoPE, chunked flash attention, the
-gated and plain MLPs).  MoE, the RG-LRU scan, the SSD chunk scan and decode
-attention are not ported yet (ROADMAP.md Queue A item 11).
+gated and plain MLPs), MoE with the sort-based capacity dispatch, the
+RG-LRU block (causal conv, associative scan) and the Mamba2 SSD block
+(chunked scan).  Decode attention is not ported yet (ROADMAP.md Queue A
+item 11c).
 
 Row convention: a rate is ``None`` (the float path: no quantization at
 all), or a float32 tensor ``[R]`` of per-row rates, one row per candidate
@@ -30,8 +32,10 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from repro_torch._tree import tree_flatten, tree_map, tree_unflatten
 from repro_torch.kernels import ops as kops
@@ -43,7 +47,9 @@ __all__ = ["QTensor", "FaultedQ", "quantize_leaf", "quantize_params",
            "dequantize_params", "maybe_corrupt", "corrupt_params",
            "fault_dense", "set_fault_bits", "set_fault_model", "dense_init",
            "init_norm", "norm_fwd", "rope", "init_attention",
-           "flash_attention", "attention_fwd", "init_mlp", "mlp_fwd"]
+           "flash_attention", "attention_fwd", "init_mlp", "mlp_fwd",
+           "init_moe", "moe_fwd", "causal_conv1d", "init_rglru",
+           "rglru_core", "rglru_fwd", "init_ssd", "ssd_fwd"]
 
 # Fixed-point width of the transformer-path fault model (the paper's
 # 16-bit / 4-LSB example); the CNNs pass their INT8-class widths
@@ -163,10 +169,11 @@ def maybe_corrupt(x, rate, seed, bits: int | None = None,
             return FaultedQ(qw=x.qw, scale=x.scale, dtype=x.dtype, rate=rate,
                             seed=seed, faulty_bits=faulty_bits,
                             fault_model=fault_model, mbu_width=mbu_width)
-        # the kernel dequantizes in the same pass: float(q') * scale
+        # the kernel dequantizes in the same pass, straight to the leaf's
+        # dtype: (float(q') * scale).to(dtype), one rounding
         return kops.bitflip(x.qw, seed, rate, faulty_bits,
                             fault_model=fault_model, mbu_width=mbu_width,
-                            scale=x.scale).to(x.dtype)
+                            scale=x.scale, dtype=x.dtype)
     if rate is None:
         return x
     bits = FAULT_BITS if bits is None else bits
@@ -411,3 +418,327 @@ def mlp_fwd(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     if act.endswith("_glu"):
         h = h * fault_dense(x, p["w3"])
     return fault_dense(h, p["w2"])
+
+
+# --------------------------------------------------------------------------
+# The MoE, RG-LRU and SSD blocks.  Each runs ONE row: x ``[B, S, D]`` and
+# that row's weights (the block loops over rows), so a row's sums never
+# depend on how many rows share the step.  Float32 transcendentals (exp,
+# sqrt, logistic, softplus) are PyTorch's, 1-3 ulp from XLA's CPU ones,
+# so these blocks agree with the reference within a stated tolerance in
+# float32; integer and bitwise-defined steps (routing, the scan's order,
+# the conv's roundings) follow it exactly.
+# --------------------------------------------------------------------------
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)``, with no threshold (which
+    ``F.softplus`` applies above 20)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def init_moe(gen: torch.Generator, d: int, n_experts: int, d_ff: int,
+             act: str, dtype: torch.dtype) -> dict:
+    def einit(din, dout):
+        return (torch.randn(n_experts, din, dout, generator=gen,
+                            device=gen.device) / math.sqrt(din)).to(dtype)
+    p = {"router": dense_init(gen, d, n_experts, torch.float32),
+         "w1": einit(d, d_ff), "w2": einit(d_ff, d)}
+    if act.endswith("_glu"):
+        p["w3"] = einit(d, d_ff)
+    return p
+
+
+def moe_capacity(T: int, n_experts: int, top_k: int,
+                 capacity_factor: float) -> int:
+    """Slots per expert for ``T`` tokens of ONE row (the reference's rule:
+    ``cf >= E / top_k`` or ``cf <= 0`` is dropless, ``C = T``)."""
+    if capacity_factor <= 0 or capacity_factor >= n_experts / top_k:
+        return T
+    return min(T, max(1, int(capacity_factor * top_k * T / n_experts)))
+
+
+def _expert_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("ecd,edf->ecf")``: on the CPU one ``ref.matmul`` an expert
+    (XLA's order for bf16), on the card one batched product (one row's
+    experts, so its shapes never depend on the row count)."""
+    if x.device.type == "cpu":
+        return torch.stack([kref.matmul(x[e], w[e])
+                            for e in range(w.shape[0])])
+    return torch.matmul(x, w)
+
+
+def moe_route(router: torch.Tensor, xt: torch.Tensor, top_k: int):
+    """``(gate_vals, gate_idx)`` of tokens ``xt [T, D]``: the float32
+    softmax of the router logits, its ``top_k`` by a stable descending
+    sort (ties toward the lower expert, as ``jax.lax.top_k``, which
+    ``torch.topk`` does not promise), the gates renormalised."""
+    logits = kref.matmul(xt.to(torch.float32), router)
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    vals, idx = vals[:, :top_k], idx[:, :top_k]
+    vals = vals / torch.clamp_min(vals.sum(-1, keepdim=True), 1e-9)
+    return vals, idx
+
+
+def moe_dispatch(gate_idx: torch.Tensor, C: int, n_experts: int):
+    """The reference's sort-based dispatch of the ``(token, k)`` pairs:
+    ``(order, slot, keep)``, with ``order`` the stable argsort of the
+    pairs by expert, ``slot`` each sorted pair's row of the ``[E C + 1]``
+    buffer (``E C``, the overflow slot, for a pair past its expert's
+    capacity) and ``keep`` whether it fits.  No host sync: no ``.item()``,
+    no boolean indexing."""
+    Tk = gate_idx.numel()
+    flat_e = gate_idx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    pos_in_e = torch.arange(Tk, device=se.device) \
+        - torch.searchsorted(se, se, side="left")
+    keep = pos_in_e < C
+    slot = torch.where(keep, se * C + pos_in_e,
+                       torch.full_like(se, n_experts * C))
+    return order, slot, keep
+
+
+def moe_fwd(p: dict, x: torch.Tensor, *, top_k: int, act: str,
+            capacity_factor: float = 1.25) -> torch.Tensor:
+    """One row's tokens ``x [B, S, D]`` through the experts: routed by
+    :func:`moe_route`, dispatched by :func:`moe_dispatch` into ``[E, C,
+    D]`` slots (``C`` from ``T = B S`` of this row), the expert products,
+    then each pair's output times its gate, summed back per token.
+
+    The reference sums the pairs with a scatter-add from 0 in sorted
+    order; here each token's ``top_k`` contributions are added from 0 in
+    k order.  For ``top_k <= 2`` the two agree exactly (``0 + a + b ==
+    0 + b + a`` in IEEE arithmetic) and no atomic is needed; a larger
+    ``top_k`` would make the sum order-dependent, and raises."""
+    if top_k > 2:
+        raise NotImplementedError(
+            f"moe_fwd sums a token's experts in a fixed order, exact only "
+            f"for top_k <= 2 (got {top_k})")
+    B, S, D = x.shape
+    E = p["router"].shape[-1]
+    T = B * S
+    xt = x.reshape(T, D)
+    gate_vals, gate_idx = moe_route(p["router"], xt, top_k)
+    C = moe_capacity(T, E, top_k, capacity_factor)
+    order, slot, keep = moe_dispatch(gate_idx, C, E)
+    st = order // top_k                   # the sorted pairs' tokens
+    sw = gate_vals.reshape(-1)[order]
+    buf = x.new_zeros((E * C + 1, D))
+    buf[slot] = torch.where(keep[:, None], xt[st], 0.0)
+    eb = buf[:E * C].reshape(E, C, D)
+    h = _act(_expert_matmul(eb, p["w1"]), act)
+    if act.endswith("_glu"):
+        h = h * _expert_matmul(eb, p["w3"])
+    eo = _expert_matmul(h, p["w2"])                            # [E, C, D]
+    flat_out = torch.cat([eo.reshape(E * C, D), eo.new_zeros((1, D))])
+    contrib = flat_out[slot] * sw[:, None] * keep[:, None]      # float32
+    # back to (token, k) order, then each token's pairs summed from 0
+    pairs = torch.empty_like(contrib)
+    pairs[order] = contrib
+    pairs = pairs.reshape(T, top_k, D)
+    out = torch.zeros((T, D), dtype=contrib.dtype, device=x.device)
+    for j in range(top_k):
+        out = out + pairs[:, j]
+    return out.reshape(B, S, D).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# RG-LRU (RecurrentGemma / Griffin)
+# --------------------------------------------------------------------------
+_RGLRU_C = 8.0
+
+
+def init_rglru(gen: torch.Generator, d: int, lru_width: int,
+               conv_kernel: int, dtype: torch.dtype) -> dict:
+    w, dev = lru_width, gen.device
+    lin = np.linspace(0.9, 0.999, w)
+    return {
+        "in_x": dense_init(gen, d, w, dtype),
+        "in_g": dense_init(gen, d, w, dtype),
+        "conv": (torch.randn(conv_kernel, w, generator=gen, device=dev)
+                 * (1.0 / math.sqrt(conv_kernel))).to(dtype),
+        "wa": dense_init(gen, w, w, dtype),
+        "wx": dense_init(gen, w, w, dtype),
+        # float32 whatever the model's dtype, as in the reference
+        "lam": torch.as_tensor(np.log(np.expm1(lin) / (1 - lin)),
+                               dtype=torch.float32, device=dev),
+        "out": dense_init(gen, w, d, dtype),
+    }
+
+
+def _interleave(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a`` at the even and ``b`` at the odd places of axis 1.  JAX pads
+    each with zeros and adds, so every element is ``v + 0`` (a -0.0 comes
+    out +0.0); the ``+ 0`` keeps that."""
+    n = a.shape[1] + b.shape[1]
+    out = a.new_zeros((a.shape[0], n, *a.shape[2:]))
+    out[:, 0::2] = a
+    out[:, 1::2] = b
+    return out + 0.0
+
+
+def _assoc_scan(a: torch.Tensor, b: torch.Tensor):
+    """The linear recurrence ``h_t = a_t h_{t-1} + b_t`` along axis 1 by
+    ``jax.lax.associative_scan``'s odd/even recursion, op for op, so it is
+    bitwise the reference's eager scan: combine the pairs ``[0:-1:2]``
+    with ``[1::2]``, scan that, combine the result with ``[2::2]``,
+    prepend the first element, interleave.  log2(S) levels of strided
+    elementwise ops instead of S steps.  Returns ``(a_scan, h)``."""
+    def combine(x, y):
+        (a1, b1), (a2, b2) = x, y
+        return a1 * a2, a2 * b1 + b2
+
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    ra, rb = combine((a[:, 0:-1:2], b[:, 0:-1:2]), (a[:, 1::2], b[:, 1::2]))
+    oa, ob = _assoc_scan(ra, rb)
+    if n % 2 == 0:
+        ea, eb = combine((oa[:, :-1], ob[:, :-1]), (a[:, 2::2], b[:, 2::2]))
+    else:
+        ea, eb = combine((oa, ob), (a[:, 2::2], b[:, 2::2]))
+    ea = torch.cat([a[:, :1], ea], dim=1)
+    eb = torch.cat([b[:, :1], eb], dim=1)
+    return _interleave(ea, oa), _interleave(eb, ob)
+
+
+def _rglru_scan(a: torch.Tensor, b: torch.Tensor, h0=None) -> torch.Tensor:
+    if h0 is not None:
+        b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
+    return _assoc_scan(a, b)[1]
+
+
+def rglru_core(p: dict, u: torch.Tensor, h0=None):
+    """``u [B, S, W]`` (the conv's output) -> ``(y, h_last)``, in float32."""
+    uf = u.to(torch.float32)
+    r = torch.sigmoid(kref.matmul(uf, p["wa"].to(torch.float32)))
+    i = torch.sigmoid(kref.matmul(uf, p["wx"].to(torch.float32)))
+    log_a = -_RGLRU_C * r * _softplus(p["lam"])
+    a = torch.exp(log_a)
+    gated = i * uf
+    b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) \
+        * gated
+    with record_function("rglru_scan"):      # a range for the profiler
+        h = _rglru_scan(a, b, h0)
+    return h.to(u.dtype), h[:, -1]
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, state=None):
+    """Depthwise causal conv of ``x [B, S, W]`` by ``w [K, W]``: ``(y,
+    tail)``, ``tail`` the last ``K - 1`` inputs (the decode state).  The
+    reference's ``sum(xp[:, i:i+S] * w[i] for i in range(K))``, each
+    product and partial sum rounded to x's dtype, as written."""
+    K, S = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, K - 1, 0)) if state is None \
+        else torch.cat([state, x], dim=1)
+    y = sum(xp[:, i:i + S] * w[i] for i in range(K))
+    return y.to(x.dtype), (xp[:, -(K - 1):] if K > 1 else None)
+
+
+def rglru_fwd(p: dict, x: torch.Tensor, state: dict | None = None):
+    """The Griffin recurrent block of one row: in-projections, causal conv,
+    RG-LRU, gated out-projection.  Returns ``(out, {"conv", "h"})``."""
+    u = kref.matmul(x, p["in_x"])
+    g = kref.matmul(x, p["in_g"])
+    u, new_conv = causal_conv1d(u, p["conv"],
+                                state["conv"] if state else None)
+    y, h_last = rglru_core(p, u, state["h"] if state else None)
+    out = kref.matmul(y * _act(g, "gelu"), p["out"])
+    return out, {"conv": new_conv, "h": h_last}
+
+
+# --------------------------------------------------------------------------
+# Mamba2 SSD (state-space duality, chunked scan)
+# --------------------------------------------------------------------------
+def init_ssd(gen: torch.Generator, d: int, *, expand: int, head_dim: int,
+             state: int, conv_kernel: int, dtype: torch.dtype) -> dict:
+    d_in = expand * d
+    nh = d_in // head_dim
+    dev = gen.device
+    return {
+        "in_proj": dense_init(gen, d, 2 * d_in + 2 * state + nh, dtype),
+        "conv": (torch.randn(conv_kernel, d_in + 2 * state, generator=gen,
+                             device=dev) * 0.5).to(dtype),
+        "A_log": torch.as_tensor(np.log(np.linspace(1.0, 16.0, nh)),
+                                 dtype=torch.float32, device=dev),
+        "D": torch.ones(nh, dtype=torch.float32, device=dev),
+        "dt_bias": torch.zeros(nh, dtype=torch.float32, device=dev),
+        "out_proj": dense_init(gen, d_in, d, dtype),
+        "norm_w": torch.ones(d_in, dtype=dtype, device=dev),
+    }
+
+
+def _ssd_chunk_scan(x, dt, A, Bm, Cm, chunk: int, h0=None):
+    """Chunked SSD in float32.  x ``[B, S, H, P]``; dt ``[B, S, H]``; A
+    ``[H]`` (positive decay rates, used as -A); Bm, Cm ``[B, S, N]``.
+    The last chunk is zero-padded.  The three-operand einsums contract
+    pairwise in ``jnp.einsum``'s order (its ``einsum_path``).  Returns
+    ``(y [B, S, H, P], h_last [B, H, P, N])``."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+    f32 = torch.float32
+    xc = x.reshape(Bsz, nc, chunk, H, P).to(f32)
+    dtc = dt.reshape(Bsz, nc, chunk, H).to(f32)
+    Bc = Bm.reshape(Bsz, nc, chunk, N).to(f32)
+    Cc = Cm.reshape(Bsz, nc, chunk, N).to(f32)
+    negA = -A.to(f32)
+    li = torch.arange(chunk, device=x.device)
+    causal = (li[:, None] >= li[None, :])[None, :, :, None]
+    h = torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device) \
+        if h0 is None else h0.to(f32)
+    ys = []
+    for c in range(nc):
+        xb, dtb, bb, cb = xc[:, c], dtc[:, c], Bc[:, c], Cc[:, c]
+        cum = torch.cumsum(dtb * negA[None, None, :], dim=1)    # [B,l,H]
+        # the incoming state: y_state[i] = exp(cum_i) C_i . h
+        y_state = torch.einsum("bln,bhpn->blhp", cb, h) \
+            * torch.exp(cum)[..., None]
+        # within the chunk: (C_i . B_j) exp(cum_i - cum_j) dt_j, j <= i;
+        # rel clamped before exp, as the reference does
+        rel = cum[:, :, None, :] - cum[:, None, :, :]            # [B,l,l,H]
+        w = torch.where(causal, torch.exp(torch.clamp_max(rel, 0.0)), 0.0) \
+            * dtb[:, None, :, :]
+        cb_dot = torch.einsum("bln,bmn->blm", cb, bb)
+        # "blm,blmh,bmhp->blhp" as (blm,blmh->blmh), then (.,bmhp->blhp)
+        y_intra = torch.einsum("blmh,bmhp->blhp", cb_dot[..., None] * w, xb)
+        # h' = exp(cum_L) h + sum_i exp(cum_L - cum_i) dt_i B_i x_i;
+        # "bln,blh,blhp->bhpn" as (blh,blhp->blhp), then (bln,.->bhpn)
+        dec = torch.exp(cum[:, -1:, :] - cum) * dtb
+        contrib = torch.einsum("bln,blhp->bhpn", bb, dec[..., None] * xb)
+        h = h * torch.exp(cum[:, -1])[:, :, None, None] + contrib
+        ys.append(y_state + y_intra)
+    y = torch.stack(ys, dim=1).reshape(Bsz, nc * chunk, H, P)[:, :S]
+    return y, h
+
+
+def ssd_fwd(p: dict, x: torch.Tensor, *, expand: int, head_dim: int,
+            state: int, chunk: int = 128, cache: dict | None = None):
+    """The Mamba2 block of one row, ``x [B, S, D]``: in-projection, the
+    causal conv over (x, B, C), the chunked scan, the skip ``D``, the gated
+    RMSNorm and the out-projection.  Returns ``(out, {"conv", "h"})``."""
+    B, S, D = x.shape
+    d_in = expand * D
+    nh = d_in // head_dim
+    proj = kref.matmul(x, p["in_proj"])
+    z, xbc, dt_raw = torch.split(proj, [d_in, d_in + 2 * state, nh], dim=-1)
+    xbc, new_conv = causal_conv1d(xbc, p["conv"],
+                                  cache["conv"] if cache else None)
+    xbc = _act(xbc, "silu")
+    xs, Bm, Cm = torch.split(xbc, [d_in, state, state], dim=-1)
+    dt = _softplus(dt_raw.to(torch.float32) + p["dt_bias"][None, None, :])
+    xh = xs.reshape(B, S, nh, head_dim)
+    A = torch.exp(p["A_log"])
+    with record_function("ssd_chunk_scan"):  # a range for the profiler
+        y, h_last = _ssd_chunk_scan(xh, dt, A, Bm, Cm, chunk,
+                                    cache["h"] if cache else None)
+    y = y + xh.to(torch.float32) * p["D"][None, None, :, None]
+    y = y.reshape(B, S, d_in).to(x.dtype)
+    y = norm_fwd({"w": p["norm_w"]}, y * _act(z, "silu"), "rmsnorm")
+    return kref.matmul(y, p["out_proj"]), {"conv": new_conv, "h": h_last}

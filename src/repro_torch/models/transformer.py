@@ -1,6 +1,8 @@
-"""The dense decoder LM, the counterpart of ``repro/models/transformer.py``
-for the block kinds ``attn``/``local``/``global`` without MoE: olmo-1b,
-starcoder2-3b, gemma2-27b, deepseek-coder-33b and phi-3-vision-4.2b.
+"""The decoder LM, the counterpart of ``repro/models/transformer.py`` for
+the block kinds ``attn``/``local``/``global`` (with MoE and arctic's dense
+residual), ``rglru`` and ``ssd``: olmo-1b, starcoder2-3b, gemma2-27b,
+deepseek-coder-33b, phi-3-vision-4.2b, mixtral-8x7b, arctic-480b,
+recurrentgemma-2b and mamba2-2.7b.
 
 Params keep the reference's tree: ``embed [V, D]``, ``groups`` (one entry
 ``b{s}`` per slot of ``block_pattern``, every leaf stacked over the groups),
@@ -12,17 +14,17 @@ Row axis: the reference adds the population axis with ``vmap``; here the
 hidden state is ``[R, B, S, D]`` and rates are ``[R]`` tensors (or None).
 Every computation whose algorithm could depend on the row count runs one
 row at a time (the attention einsums, the head matmul, the per-row weights
-of the generic and tables backends), and the norms reduce over the last
-axis only, so a row's logits are bitwise those of that row run alone.
+of the generic and tables backends, the MoE, RG-LRU and SSD blocks), and
+the norms reduce over the last axis only, so a row's logits are bitwise
+those of that row run alone.
 
 Fault injection (the paper's technique) enters through a ``(w_rates,
 a_rates, seed)`` triple: layer ``i`` corrupts its block at ``seed +
 7919 i`` (leaf ``j`` of the block at ``+ 977 j``) and its input at ``+ 1``;
 the embedding, the final norm and the head are never corrupted.
 
-MoE blocks, the ``rglru`` and ``ssd`` block kinds, the encoder-decoder,
-prefill/decode and the KV cache are not ported yet: they raise
-``NotImplementedError`` (ROADMAP.md Queue A item 11).
+The encoder-decoder raises ``NotImplementedError`` (ROADMAP.md Queue A
+item 11); prefill/decode and the caches are not ported yet (item 11c).
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch._tree import tree_map
+from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ref as kref
 from repro_torch.models import layers as L
@@ -42,39 +44,58 @@ _ATTN_KINDS = ("attn", "local", "global")
 
 
 def check_supported(cfg: ArchConfig):
-    """Raise for what the port cannot run yet."""
-    missing = []
+    """Raise for what the port cannot run yet: the encoder-decoder."""
     if cfg.is_encdec:
-        missing.append("the encoder-decoder")
-    if cfg.is_moe:
-        missing.append("MoE blocks")
-    kinds = sorted(set(cfg.block_pattern) - set(_ATTN_KINDS))
-    if kinds:
-        missing.append(f"block kinds {kinds}")
-    if missing:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP.md "
+            f"{cfg.name}: the encoder-decoder is not ported yet (ROADMAP.md "
             f"Queue A item 11, the transformer zoo); the port runs the "
-            f"dense attn/local/global decoders")
+            f"decoder-only attn/local/global (dense or MoE), rglru and ssd "
+            f"stacks")
 
 
 # ==========================================================================
 # Parameter construction
 # ==========================================================================
-def _init_block(cfg: ArchConfig, gen: torch.Generator, dtype) -> dict:
+def _init_block(cfg: ArchConfig, kind: str, gen: torch.Generator,
+                dtype) -> dict:
+    """One block of ``kind``, in the reference's tree layout (the keys
+    decide the sorted flatten order, and so each leaf's fault seed)."""
     d, dev = cfg.d_model, gen.device
-    return {"ln1": L.init_norm(cfg.norm_kind, d, dtype, dev),
-            "attn": L.init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
-                                     cfg.head_dim_, dtype),
-            "ln2": L.init_norm(cfg.norm_kind, d, dtype, dev),
-            "mlp": L.init_mlp(gen, d, cfg.d_ff, cfg.act_fn, dtype)}
+    p = {"ln1": L.init_norm(cfg.norm_kind, d, dtype, dev)}
+    if kind in _ATTN_KINDS:
+        p["attn"] = L.init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                     cfg.head_dim_, dtype)
+        p["ln2"] = L.init_norm(cfg.norm_kind, d, dtype, dev)
+        if cfg.is_moe:
+            p["moe"] = L.init_moe(gen, d, cfg.n_experts,
+                                  cfg.expert_d_ff or cfg.d_ff, cfg.act_fn,
+                                  dtype)
+            if cfg.moe_dense_residual:
+                p["dense_mlp"] = L.init_mlp(gen, d, cfg.dense_d_ff or cfg.d_ff,
+                                            cfg.act_fn, dtype)
+        else:
+            p["mlp"] = L.init_mlp(gen, d, cfg.d_ff, cfg.act_fn, dtype)
+    elif kind == "rglru":
+        p["rec"] = L.init_rglru(gen, d, cfg.lru_width or d, cfg.conv_kernel,
+                                dtype)
+        p["ln2"] = L.init_norm(cfg.norm_kind, d, dtype, dev)
+        p["mlp"] = L.init_mlp(gen, d, cfg.d_ff, cfg.act_fn, dtype)
+    elif kind == "ssd":
+        p["ssd"] = L.init_ssd(gen, d, expand=cfg.ssm_expand,
+                              head_dim=cfg.ssm_head_dim, state=cfg.ssm_state,
+                              conv_kernel=cfg.conv_kernel, dtype=dtype)
+    else:
+        raise ValueError(kind)
+    return p
 
 
 def init_lm(cfg: ArchConfig, seed: int = 0, device="cuda") -> dict:
     """Random params from a ``torch.Generator`` on ``device`` seeded with
     ``seed`` (drawn in float32 there, cast to the config's dtype): the
     reference's scales, not its values (``jax.random`` draws differently;
-    parity tests carry the reference's params across instead)."""
+    parity tests carry the reference's params across instead).  Every slot
+    of every group is built, as in the reference, also a slot past
+    ``n_layers`` (recurrentgemma-2b's 27th), which no unit runs."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = cfg.torch_dtype
@@ -82,8 +103,9 @@ def init_lm(cfg: ArchConfig, seed: int = 0, device="cuda") -> dict:
     params = {"embed": (torch.randn(cfg.vocab, cfg.d_model, generator=gen,
                                     device=dev) * 0.02).to(dtype)}
     groups = {}
-    for s in range(len(cfg.block_pattern)):
-        blocks = [_init_block(cfg, gen, dtype) for _ in range(cfg.n_groups)]
+    for s, kind in enumerate(cfg.block_pattern):
+        blocks = [_init_block(cfg, kind, gen, dtype)
+                  for _ in range(cfg.n_groups)]
         groups[f"b{s}"] = tree_map(lambda *ls: torch.stack(ls), *blocks)
         del blocks
     params["groups"] = groups
@@ -107,13 +129,31 @@ def _row_expand(p: dict, rate: torch.Tensor) -> dict:
 # ==========================================================================
 # Block forward
 # ==========================================================================
+def _per_row(fn, p: dict, x: torch.Tensor, per_row: bool) -> torch.Tensor:
+    """``fn(p_r, x[r])`` for each row ``r`` of ``x [R, B, S, D]``, with
+    ``p_r`` row r of the ``[R, ...]`` leaves (``per_row``) or ``p`` as
+    shared: a row's arithmetic then never depends on how many rows share
+    the step."""
+    out = None
+    for r in range(x.shape[0]):
+        pr = tree_map(lambda t, r=r: t[r], p) if per_row else p
+        y = fn(pr, x[r])
+        if out is None:
+            out = y.new_empty((x.shape[0], *y.shape))
+        out[r] = y
+    return out
+
+
 def _block_fwd(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor,
                positions: torch.Tensor, *, fault_rates=None, fault_bits=None,
-               fault_model=None, kv_chunk: int = 1024) -> torch.Tensor:
-    """One attn/local/global block on ``x [R, B, S, D]``.  ``fault_bits``
-    is an optional (bits, faulty_bits) override of the corruption width,
+               fault_model=None, kv_chunk: int = 1024,
+               ssd_chunk: int = 256) -> torch.Tensor:
+    """One block of ``kind`` on ``x [R, B, S, D]``.  ``fault_bits`` is an
+    optional (bits, faulty_bits) override of the corruption width,
     ``fault_model`` an optional (model, mbu_width) override; None takes the
-    ``layers`` module defaults."""
+    ``layers`` module defaults.  The MoE, RG-LRU and SSD sub-blocks run a
+    row at a time; whether their leaves carry the row axis (weight faults,
+    or a tables gather) is read from one leaf's rank."""
     wr, ar, seed = fault_rates if fault_rates is not None else (None,) * 3
     bits, lsbs = fault_bits if fault_bits is not None else (None, None)
     fm, mw = fault_model if fault_model is not None else (None, None)
@@ -125,17 +165,39 @@ def _block_fwd(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor,
     if ar is not None:
         x = L.maybe_corrupt(x, ar, seed + 1, bits=bits, faulty_bits=lsbs,
                             fault_model=fm, mbu_width=mw)
-    window = None
-    if kind == "local" or (kind == "attn" and cfg.attn_kind == "swa"):
-        window = cfg.window
-    h = L.norm_fwd(p["ln1"], x, cfg.norm_kind)
-    x = x + L.attention_fwd(p["attn"], h, positions, n_heads=cfg.n_heads,
-                            n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim_,
-                            rope_theta=cfg.rope_theta, window=window,
-                            softcap=cfg.logit_softcap or 0.0,
-                            kv_chunk=kv_chunk)
-    h = L.norm_fwd(p["ln2"], x, cfg.norm_kind)
-    return x + L.mlp_fwd(p["mlp"], h, cfg.act_fn)
+    if kind in _ATTN_KINDS:
+        window = None
+        if kind == "local" or (kind == "attn" and cfg.attn_kind == "swa"):
+            window = cfg.window
+        h = L.norm_fwd(p["ln1"], x, cfg.norm_kind)
+        x = x + L.attention_fwd(p["attn"], h, positions, n_heads=cfg.n_heads,
+                                n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim_,
+                                rope_theta=cfg.rope_theta, window=window,
+                                softcap=cfg.logit_softcap or 0.0,
+                                kv_chunk=kv_chunk)
+        h = L.norm_fwd(p["ln2"], x, cfg.norm_kind)
+        if not cfg.is_moe:
+            return x + L.mlp_fwd(p["mlp"], h, cfg.act_fn)
+        f = _per_row(lambda pr, hr: L.moe_fwd(
+            pr, hr, top_k=cfg.top_k, act=cfg.act_fn,
+            capacity_factor=cfg.moe_capacity_factor),
+            p["moe"], h, p["moe"]["router"].ndim == 3)
+        if cfg.moe_dense_residual:
+            f = f + L.mlp_fwd(p["dense_mlp"], h, cfg.act_fn)
+        return x + f
+    if kind == "rglru":
+        h = L.norm_fwd(p["ln1"], x, cfg.norm_kind)
+        x = x + _per_row(lambda pr, hr: L.rglru_fwd(pr, hr)[0], p["rec"], h,
+                         p["rec"]["lam"].ndim == 2)
+        h = L.norm_fwd(p["ln2"], x, cfg.norm_kind)
+        return x + L.mlp_fwd(p["mlp"], h, cfg.act_fn)
+    if kind == "ssd":
+        h = L.norm_fwd(p["ln1"], x, cfg.norm_kind)
+        return x + _per_row(lambda pr, hr: L.ssd_fwd(
+            pr, hr, expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
+            state=cfg.ssm_state, chunk=ssd_chunk)[0],
+            p["ssd"], h, p["ssd"]["A_log"].ndim == 2)
+    raise ValueError(kind)
 
 
 # ==========================================================================
@@ -255,8 +317,8 @@ def _unit_rates(w_rates, a_rates, seed, i: int):
 
 class LMStepModel:
     """Addressable per-unit view of the LM stack, the counterpart of the
-    reference's ``LMStepModel`` (``transformer.py:420-720``) for the dense
-    decoders.
+    reference's ``LMStepModel`` (``transformer.py:420-720``) for the
+    decoder-only stacks.
 
     Unit *i* is layer *i* (``block_pattern`` cyclic), in the order of the
     fault-rate vectors and ``models.graph.lm_layer_infos``.  Unit 0 also
@@ -310,10 +372,12 @@ class LMStepModel:
     def quant_unit_params(self, params: dict) -> list[dict]:
         """Per-unit params with every ``block`` float leaf quantized into
         residence (``layers.QTensor``) for the kernel backend.  The
-        attention projections and MLP matrices (the ``fault_dense`` sites)
-        are matmul-marked, so their flips happen inside ``fault_matmul``;
-        the norm gains and biases corrupt through ``bitflip``.  Boundary
-        leaves stay floats."""
+        attention projections and the 2-D ``mlp``/``dense_mlp`` matrices
+        (the ``fault_dense`` sites) are matmul-marked, so their flips
+        happen inside ``fault_matmul``; every other leaf (norm gains and
+        biases, the MoE experts and router, the RG-LRU and SSD weights)
+        corrupts at the leaf through ``bitflip``, the reference's rule
+        (``transformer.py:547-556``).  Boundary leaves stay floats."""
         bits = L.FAULT_BITS if self.fault_bits is None \
             or self.fault_bits[0] is None else self.fault_bits[0]
 
@@ -344,7 +408,7 @@ class LMStepModel:
             else (None, None)
         tables = []
         for i, u in enumerate(units):
-            leaf = u["block"]["attn"]["wq"]
+            leaf = tree_leaves(u["block"])[0]       # any leaf: its device
             rates = torch.as_tensor(np.asarray(w_rates_by_device, np.float32),
                                     device=leaf.device)
             D = rates.shape[0]

@@ -90,6 +90,27 @@ def test_bitflip_kernel_fused_dequant(dev, model, dtype):
                                              scale=scale))
 
 
+@pytest.mark.parametrize("model", FAULT_MODELS)
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16, torch.int32])
+def test_bitflip_kernel_dequant_bf16(dev, model, dtype):
+    """Dequantized straight to bf16: bf16(float(q') * scale), one rounding,
+    bitwise the float32 output cast, at lengths that take the vector and
+    the scalar loop."""
+    rates = torch.tensor([0.0, 1e-3, 0.3], device=dev)
+    scale = torch.tensor(0.0123, device=dev)
+    for shape in ((1,), (130,), (3, 3, 64, 32), (4, 2561)):
+        q = torch.randint(-100, 100, shape, dtype=dtype, device=dev)
+        k = ops.bitflip(q, 11, rates, 6, fault_model=model, scale=scale,
+                        dtype=torch.bfloat16)
+        f = ops.bitflip(q, 11, rates, 6, fault_model=model, scale=scale)
+        assert k.dtype == torch.bfloat16 and k.shape == (3, *shape)
+        assert torch.equal(k.view(torch.int16),
+                           f.to(torch.bfloat16).view(torch.int16))
+        want = ref.bitflip_ref(q, 11, rates, 6, fault_model=model,
+                               scale=scale, dtype=torch.bfloat16)
+        assert torch.equal(k.view(torch.int16), want.view(torch.int16))
+
+
 @pytest.mark.parametrize("shape", [(512, 512, 16), (135, 300, 77),
                                    (45, 301, 5), (600, 64, 130)])
 @pytest.mark.parametrize("dtype", [torch.int8, torch.int16, torch.int32])
