@@ -53,7 +53,17 @@ Phases (any failure raises, and the process exits nonzero):
      recurrentgemma-2b's four projection shapes (2560x2560, the kv
      projection 2560x256 with K in slices, 2560x7680, 7680x2560; int8,
      all four fault models) as at olmo-1b's; ``quant_bitflip`` bitwise at
-     its unit input [1, 8, 256, 2560] bf16; each timed as above.
+     its unit input [1, 8, 256, 2560] bf16; each timed as above.  For
+     phase 11, at 6 faulty bits: ``fault_matmul`` on float32 x with bf16
+     weights (``out_dtype=bfloat16``, the encoder's projections and the
+     cross-attention K/V, M = B Se = 8 x 32 = 256) at 1024x1024, 1024x4096
+     and 4096x1024, int8, all four fault models, bitwise
+     float(bf16(q' scale)) at x = I_K and at random x within
+     2 K 2^-24 (|x| @ |w|) of its plain version, timed beside
+     ``torch.matmul`` on the same float32 operands; bf16 x at the
+     decoder's shapes (M = 2048) as at olmo-1b's; ``quant_bitflip``
+     bitwise at [1, 8, 32, 1024] float32 and [1, 8, 256, 1024] bf16; and
+     ``bitflip`` bitwise on a [1024] LayerNorm leaf dequantized to bf16.
   4. The whole-forward path: ResNet18 at width 1.0 (channels 64-512), img
      32, 16 classes, n_eval=512, labels = the clean model's own argmax;
      ``AFarePart`` (NSGA-II pop 24, 3 generations) under the kernel backend
@@ -118,6 +128,32 @@ Phases (any failure raises, and the process exits nonzero):
      capacity factor 2.0, so C = T/2) cut to 2 layers, and mamba2-2.7b at
      full width (d_inner 5120, 80 heads, state 128) cut to 8 layers; each
      one's launches, ΔAcc spread and allocator peak.
+ 11. The encoder-decoder: seamless-m4t-medium at its published widths and
+     depth (12 encoder and 12 decoder layers, d_model 1024, 16 heads of
+     64, ReLU MLP of 4096, LayerNorm, an untied head of 256206 rows, bf16;
+     0.98 B params), ``init_lm``'s seeded weights on the card, B = 8
+     sequences of S = 256 tokens and the float32 encoder input [8, 32,
+     1024] from a numpy seed, self-labels (their spread and the share that
+     are their own input token printed).  Probes at 4, 6 and 8 faulty bits
+     are printed; the search runs at the first whose ΔAcc neither vanishes
+     nor saturates.  ``lm_partitioner`` staged and fused with
+     ``eval_batch_size="auto"``, then full, bitwise over every row and both
+     fronts; the staged store holds the memory once per encoder prefix
+     and every decoder carry's ``"mem"`` is a ``PrefixRef``;
+     ``fault_matmul`` on both x dtypes, ``quant_bitflip`` and ``bitflip``
+     each launched; one candidate's wall and profile.
+ 12. The online loop (paper Alg. 1, lines 13-19), run right after phase 8
+     on its ResNet18 plan and staged kernel-backend evaluator:
+     ``simulate_deployment`` over 8 ticks of a ``FaultEnvironment`` whose
+     one step, at t = 3, makes the most reliable device the plan uses 25x
+     worse; ``observe_fn`` sets the evaluator's ``device_fault_scale`` and
+     returns the deployed partition's true ΔAcc; θ is 1.5x the observed
+     ΔAcc at the base scales, 3 re-optimization generations.  At least one
+     swap, the observed ΔAcc after it no higher than at the trigger, no
+     rebuild of the kernel backend (``_fault_env_rebuilds``); a
+     ``ReoptJob`` drained a generation at a time equal, bitwise, to the
+     synchronous step from the same state, with all three CNN kernels
+     launched in it; each tick's wall time printed.
 The lines before the last are the ``{"kernels": [...]}`` record, one
 entry a kernel wrapper, each counting its own launches (``ops.launches``):
 ``launches`` are those of the kernel's main path, the CNN staged search of
@@ -127,7 +163,11 @@ x), phase 9's olmo-1b staged search for ``fault_weight_tiles`` and
 each a row group; ``full_launches`` phase 4's; ``lm_launches`` /
 ``lm_full_launches`` phase 9's staged and full olmo-1b searches;
 ``rg_launches`` / ``rg_full_launches`` phase 10's, ``mixtral_launches`` /
-``mamba2_launches`` phase 10b's; ``lm_shapes`` the LM shapes of phase 3.  Then come the card's
+``mamba2_launches`` phase 10b's, ``seamless_launches`` /
+``seamless_full_launches`` phase 11's (the main path of
+``fault_matmul_bf16w``, ``fault_matmul``'s float32-x route on bf16
+weights), ``reconfig_launches`` phase 12's drained re-optimization;
+``lm_shapes`` the LM shapes of phase 3.  Then come the card's
 ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -146,7 +186,9 @@ the guide's table has no integer ALU rate).
     N (bf16 x).  Whichever is larger; at AlexNet's fc0 and olmo-1b's
     projections the hash.  (The SIMT body of int16/int32 weights with
     float32 x would be bound by fp32 FMAs at 67 TFLOP/s; the CNN path
-    stores int8.)
+    stores int8.)  float32 x on bf16 weights (``fault_matmul_bf16w``)
+    takes the same bound as float32 x: the work could run as three exact
+    bf16 products of the split x, though the kernel runs fp32 FMAs.
   * ``fault_weight_tiles`` (bf16 x's hash pass): K N planes draws, or
     its bytes (qw read, W' written).
   * ``matmul_tiles`` (bf16 x's product): 2 M K N at 989 TFLOP/s, or its
@@ -162,6 +204,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -430,7 +473,9 @@ RECORD_KEYS = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
                "lm_candidate_ms", "lm_candidate_launches", "lm_shapes",
                "lm_rows8", "starcoder2_launches", "rg_launches",
                "rg_full_launches", "rg_candidate_ms", "rg_candidate_launches",
-               "mixtral_launches", "mamba2_launches")
+               "mixtral_launches", "mamba2_launches", "seamless_launches",
+               "seamless_full_launches", "seamless_candidate_ms",
+               "seamless_candidate_launches", "reconfig_launches")
 
 
 # fault_matmul on bf16 x at olmo-1b's projections, M = B S = 2048:
@@ -880,6 +925,184 @@ def check_lm_family_kernels(dev, records):
                 f"{r['max_abs_err']:.3g}")
 
 
+# seamless-m4t-medium's products (phase 11): float32 x on bf16 weights in
+# the encoder's projections and the decoder's cross-attention K/V, M = B Se
+# = 8 x 32; bf16 x in the decoder, M = B S = 2048: (label, M, K, N)
+ENC_MATMUL_SHAPES = (("seamless-m4t-medium enc wq/wk/wv/wo, cross wk/wv",
+                      256, 1024, 1024),
+                     ("seamless-m4t-medium enc w1", 256, 1024, 4096),
+                     ("seamless-m4t-medium enc w2", 256, 4096, 1024))
+DEC_MATMUL_SHAPES = (("seamless-m4t-medium dec wq/wk/wv/wo, cross wq/wo",
+                      2048, 1024, 1024),
+                     ("seamless-m4t-medium dec w1", 2048, 1024, 4096),
+                     ("seamless-m4t-medium dec w2", 2048, 4096, 1024))
+
+
+def check_encdec_kernels(dev, records):
+    """Phase 3 at the shapes of phase 11 (see the docstring), at
+    ``LM_FAULTY_BITS``: ``fault_matmul`` on float32 x with bf16 weights at
+    the encoder's three shapes, bitwise float(bf16(q' scale)) at x = I_K
+    and at random x within 2 K 2^-24 (|x| @ |w|) of its plain version,
+    int8, all four fault models; bf16 x at the decoder's three shapes as
+    at olmo-1b's; ``quant_bitflip`` bitwise at the encoder's float32 and
+    the decoder's bf16 unit inputs; ``bitflip`` bitwise on a [1024]
+    LayerNorm leaf dequantized to bf16; each one timed."""
+    from repro_torch._device import fp32_exact
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.faultmodel import FAULT_MODELS
+    from repro_torch.quant import QuantSpec
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    fb, bf16, f32 = LM_FAULTY_BITS, torch.bfloat16, torch.float32
+    rates = torch.tensor([0.0, 1e-3, LM_RATE], device=dev)
+    one = rates[-1:]
+    scale = torch.tensor(0.0123, device=dev)
+    enc_out, worst = [], 0.0
+    with torch.no_grad(), fp32_exact():
+        for label, M, K, N in ENC_MATMUL_SHAPES:
+            qw = torch.randint(-128, 128, (K, N), device=dev,
+                               dtype=torch.int8, generator=gen)
+            eye = torch.eye(K, device=dev).expand(3, K, K).contiguous()
+            x = torch.randn(3, M, K, device=dev, generator=gen)
+            err_max = 0.0
+            for model in FAULT_MODELS:
+                w = ref.bitflip_ref(qw, 7927, rates, fb, fault_model=model,
+                                    scale=scale).to(bf16).float()
+                k = ops.fault_matmul(eye, qw, scale, 7927, rates, fb,
+                                     fault_model=model, out_dtype=bf16)
+                if not bits_equal(k, w):
+                    raise AssertionError(
+                        f"fault_matmul float32 x bf16 w {label} {model}: "
+                        "x = I_K does not return float(bf16(q' scale))")
+                k = ops.fault_matmul(x, qw, scale, 7927, rates, fb,
+                                     fault_model=model, out_dtype=bf16)
+                p = ref.fault_matmul_ref(x, qw, scale, 7927, rates, fb,
+                                         fault_model=model, out_dtype=bf16)
+                tol = 2 * K * 2.0 ** -24 * torch.matmul(x.abs(), w.abs())
+                err = (k - p).abs()
+                if k.dtype != f32 or not bool((err <= tol).all()):
+                    raise AssertionError(
+                        f"fault_matmul float32 x bf16 w {label} {model}: "
+                        f"max err {err.max().item():.3g} above the bound")
+                err_max = max(err_max, err.max().item())
+                worst = max(worst, (err / tol).max().item())
+                del k, p, tol, err, w
+            del eye
+            x1 = x[:1].contiguous()
+            w1 = (qw.float() * scale).to(bf16).float()
+            b_ms, b_by = bound(4 * M * K + K * N + 4 * M * N,
+                               tc_flops=3 * 2 * M * K * N,
+                               int_ops=K * N * fb * HASH_OPS_PER_DRAW)
+            enc_out.append(dict(
+                label=label, shape=f"[1,{M},{K}] float32 x [{K},{N}] int8, "
+                                   "bf16 weights",
+                ms=device_ms(lambda: ops.fault_matmul(
+                    x1, qw, scale, 1, one, fb, out_dtype=bf16)),
+                wrapper_ms=time_ms(lambda: ops.fault_matmul(
+                    x1, qw, scale, 1, one, fb, out_dtype=bf16), iters=10),
+                plain_ms=time_ms(lambda: ref.fault_matmul_ref(
+                    x1, qw, scale, 1, one, fb, out_dtype=bf16), iters=3,
+                    warmup=1),
+                library_ms=device_ms(lambda: torch.matmul(x1, w1)),
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err_max,
+                splits=ops._k_splits(M, K, N, "simt", dev)))
+            del qw, x, x1, w1
+        log(f"phase3 fault_matmul float32 x bf16 weights at "
+            f"{[s[1:] for s in ENC_MATMUL_SHAPES]}: x=I_K bitwise "
+            f"float(bf16(q' scale)); random x within 2K2^-24(|x|@|w|) (worst "
+            f"ratio to it {worst:.3g}), int8 x {FAULT_MODELS} at {fb} faulty "
+            "bits, rates 0,1e-3,0.2")
+        records["fault_matmul_bf16w"].update(enc_out[0], shapes=enc_out)
+
+        out, hash_out, prod_out = [], [], []
+        worst = 0.0
+        for label, M, K, N in DEC_MATMUL_SHAPES:
+            worst = max(worst, _bf16_matmul_shape(
+                dev, gen, label, M, K, N, ((torch.int8, 128),), out,
+                hash_out, prod_out))
+        records["fault_matmul"]["lm_shapes"] += out
+        records["fault_weight_tiles"]["lm_shapes"] += hash_out
+        records["matmul_tiles"]["lm_shapes"] += prod_out
+        log(f"phase3 fault_matmul bf16 x at seamless-m4t-medium's decoder "
+            f"shapes {[s[1:] for s in DEC_MATMUL_SHAPES]}: x=I_K and the "
+            f"hash pass bitwise, the call and the product within the bound "
+            f"(worst ratio to it {worst:.3g}), int8 x {FAULT_MODELS}")
+
+        spec8, qb_rows = QuantSpec(bits=8), []
+        for label, shape, dt in (
+                ("seamless-m4t-medium encoder unit input", (1, 8, 32, 1024),
+                 f32),
+                ("seamless-m4t-medium decoder unit input", (1, 8, 256, 1024),
+                 bf16)):
+            x = torch.randn(shape, device=dev, generator=gen).to(dt)
+            qb_err = 0.0
+            for model in FAULT_MODELS:
+                k = ops.quant_bitflip(x, 7928, one, fb, spec8,
+                                      fault_model=model)
+                p = ref.quant_bitflip_ref(x, 7928, one, fb, spec8,
+                                          fault_model=model)
+                qb_err = max(qb_err, max_abs_err(k, p))
+                if not bits_equal(k, p):
+                    raise AssertionError(f"quant_bitflip {label} {model} "
+                                         "differs from its plain version")
+            n, eb = x.numel(), x.element_size()
+            b_ms, b_by = bound(2 * eb * n, int_ops=n * fb * HASH_OPS_PER_DRAW)
+            qb_rows.append(dict(
+                label=label, shape=f"{list(shape)} {str(dt)[6:]}",
+                ms=device_ms(lambda: ops.quant_bitflip(x, 1, one, fb, spec8)),
+                wrapper_ms=time_ms(lambda: ops.quant_bitflip(
+                    x, 1, one, fb, spec8)),
+                plain_ms=time_ms(lambda: ref.quant_bitflip_ref(
+                    x, 1, one, fb, spec8), iters=5),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                max_abs_err=qb_err))
+        records["quant_bitflip"]["lm_shapes"] += qb_rows
+        log(f"phase3 quant_bitflip at [1,8,32,1024] float32 and "
+            f"[1,8,256,1024] bf16: bitwise equal to plain for {FAULT_MODELS} "
+            f"at {fb} faulty bits, rate {LM_RATE}")
+
+        q = torch.randint(-127, 128, (1024,), dtype=torch.int8, device=dev,
+                          generator=gen)
+        bf_err = 0.0
+        for model in FAULT_MODELS:
+            p = ref.bitflip_ref(q, 7929, rates, fb, fault_model=model)
+            k = ops.bitflip(q, 7929, rates, fb, fault_model=model,
+                            scale=scale, dtype=bf16)
+            want = (p.float() * scale).to(bf16)
+            bf_err = max(bf_err, max_abs_err(k, want))
+            if not bits_equal(k, want) or not bits_equal(
+                    ops.bitflip(q, 7929, rates, fb, fault_model=model), p):
+                raise AssertionError(f"bitflip [1024] {model} differs from "
+                                     "its plain version")
+        n = q.numel()
+        b_ms, b_by = bound(n + 2 * n, int_ops=n * fb * HASH_OPS_PER_DRAW)
+        bf_row = dict(
+            label="seamless-m4t-medium LayerNorm gain/bias",
+            shape="[1] x [1024] int8, bf16 out",
+            ms=device_ms(lambda: ops.bitflip(q, 1, one, fb, scale=scale,
+                                             dtype=bf16)),
+            wrapper_ms=time_ms(lambda: ops.bitflip(q, 1, one, fb, scale=scale,
+                                                   dtype=bf16)),
+            plain_ms=time_ms(lambda: ref.bitflip_ref(q, 1, one, fb,
+                                                     scale=scale, dtype=bf16)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, max_abs_err=bf_err)
+        records["bitflip"]["lm_shapes"].append(bf_row)
+        log(f"phase3 bitflip [1024] int8: bitwise equal to plain, integers "
+            f"out and dequantized to bf16, {FAULT_MODELS}, {fb} faulty bits")
+    torch.cuda.empty_cache()
+    for name, rs in (("fault_matmul_bf16w", enc_out), ("fault_matmul", out),
+                     ("fault_weight_tiles", hash_out),
+                     ("matmul_tiles", prod_out), ("quant_bitflip", qb_rows),
+                     ("bitflip", [bf_row])):
+        for r in rs:
+            log(f"phase3 time {name} {r['label']} at {r['shape']}: device "
+                f"{r['ms']:.4f} ms, wrapper {r['wrapper_ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max |err| "
+                f"{r['max_abs_err']:.3g}"
+                + (f", {r['splits']} K slices" if "splits" in r else ""))
+
+
 def kernel_group(key: str, other: str = "convolution") -> str:
     """The group a profiled device kernel belongs to: one of the port's
     three kernels, or what PyTorch and the libraries run around them
@@ -894,6 +1117,8 @@ def kernel_group(key: str, other: str = "convolution") -> str:
     if "bfp::product_kernel" in key or "sum_splits_kernel<__nv_bfloat16>" \
             in key:
         return "matmul_tiles"
+    if "simt::kernel" in key and "true>" in key:
+        return "fault_matmul_bf16w"
     if "tc::kernel" in key or "simt::kernel" in key or "sum_splits" in key:
         return "fault_matmul"
     if "Memcpy" in key or "Memset" in key:
@@ -1096,6 +1321,7 @@ def staged_phase(dev, params, labels, spec, layers, cfg, full_plan, full_rows,
                              f"run saved: {objs}, {q_stats}")
     log(f"phase8 quickstart: {time.perf_counter() - t0:.2f} s, staged stats "
         f"{json.dumps(q_stats)}")
+    return s_ev, plan
 
 
 LM_B, LM_S = 8, 256             # phase 9's calibration batch
@@ -1166,12 +1392,13 @@ def _lm_evaluator(dev, cfg, params, batch, labels, faulty_bits=LM_FAULTY_BITS,
                                       device=dev, **kw), spec
 
 
-def _lm_search(tag, dev, cfg, fixture, nsga, tokens, faulty_bits):
+def _lm_search(tag, dev, cfg, fixture, nsga, tokens, faulty_bits,
+               inspect=None):
     """``lm_partitioner`` staged and fused (``eval_batch_size="auto"``),
     then through ``eval_strategy="full"``: every evaluated row and both
     fronts bitwise equal, the spread of ΔAcc over the rows checked.  The
     launch counters are zeroed just before each search and read just
-    after."""
+    after.  ``inspect(staged_evaluator)`` runs after the staged search."""
     from repro_torch.core import lm_partitioner
     from repro_torch.kernels import ops
 
@@ -1195,6 +1422,8 @@ def _lm_search(tag, dev, cfg, fixture, nsga, tokens, faulty_bits):
     peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
     store_peak = s_ev._prefix_engine.store.peak_nbytes
     s_rows = dict(s_ev._cache)
+    if inspect is not None:
+        inspect(s_ev)
     del s_ev
     f_ev, _ = _lm_evaluator(dev, cfg, *fixture, faulty_bits=faulty_bits,
                             eval_strategy="full", eval_batch_size=1)
@@ -1239,6 +1468,25 @@ def _lm_search(tag, dev, cfg, fixture, nsga, tokens, faulty_bits):
 SCAN_RANGES = ("rglru_scan", "ssd_chunk_scan")
 
 
+def _host_waits(ev, row) -> int:
+    """How many times the kernel backend's whole forward of ``row`` makes
+    the host wait on the card (PyTorch's sync debug mode warns at each
+    synchronizing call); 0 off the card."""
+    if ev.device.type != "cuda":
+        return 0
+    wr = torch.as_tensor(ev.w_rates_by_device[row], device=ev.device)
+    ar = torch.as_tensor(ev.a_rates_by_device[row], device=ev.device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            ev._apply_fn(ev._qparams, ev._x, wr, ar, int(ev.base_seed))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
 def _profile_candidate(tag, dev, cfg, f_ev, row, B, S):
     """One candidate's wall (5 readings of 3 back-to-back dispatches: the
     host's share moves with what else the machine runs) and its device
@@ -1253,7 +1501,8 @@ def _profile_candidate(tag, dev, cfg, f_ev, row, B, S):
                    for _ in range(5)) if on_card else [0.0]
     t_row = walls[len(walls) // 2]
     log(f"{tag} one {cfg.name} candidate wall, 5 readings: "
-        f"{[round(w, 3) for w in walls]} ms (median {t_row:.3f})")
+        f"{[round(w, 3) for w in walls]} ms (median {t_row:.3f}); the "
+        f"forward waits on the card {_host_waits(f_ev, row)} times")
     with profile(activities=[ProfilerActivity.CPU]
                  + ([ProfilerActivity.CUDA] if on_card else [])) as prof:
         f_ev._dispatch(row)
@@ -1528,6 +1777,224 @@ def family_phase(dev, records, rg_cfg=None, mx_cfg=None, mb_cfg=None,
         del ev, fix
 
 
+# the kernels seamless-m4t-medium's path must launch: float32 x on bf16
+# weights in the encoder and the cross-attention K/V, bf16 x in the
+# decoder, bitflip on the LayerNorm leaves, quant_bitflip on both inputs
+ENCDEC_KERNELS = ("bitflip", "quant_bitflip", "fault_matmul_bf16w",
+                  "fault_weight_tiles", "matmul_tiles")
+
+
+def encdec_phase(dev, records, cfg=None, B=LM_B, S=LM_S, nsga=None):
+    """Phase 11: seamless-m4t-medium at its published widths and depth
+    through ``lm_partitioner`` (see the docstring).  The arguments other
+    than ``dev`` and ``records`` let a rehearsal on the CPU run it at a
+    small size."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import NSGA2Config
+    from repro_torch.core.eval_engine import PrefixRef
+    from repro_torch.kernels import ops
+    from repro_torch.models.graph import lm_eval_strategy
+
+    cfg = cfg or get_config("seamless-m4t-medium")
+    nsga = nsga or NSGA2Config(population=24, generations=3, seed=0)
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    tokens, ne = B * S, cfg.n_enc_layers
+    L = ne + cfg.n_layers
+    strategy = lm_eval_strategy(cfg, device=dev)
+    log(f"phase11 {cfg.name}: {ne} encoder + {cfg.n_layers} decoder layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim_}, "
+        f"d_ff {cfg.d_ff} ({cfg.act_fn}), {cfg.norm_kind}, vocab {cfg.vocab}"
+        f" (untied head), {cfg.dtype}, {cfg.param_count() / 1e9:.3f} B "
+        f"params; encoder input {B} x {max(1, S // cfg.enc_ratio)} x "
+        f"{cfg.d_model} float32; lm_eval_strategy -> {strategy!r}")
+    if strategy != "staged":
+        raise AssertionError(f"lm_eval_strategy gave {strategy!r}")
+    # the spread of the labels is printed, not required: with random
+    # weights the deep ReLU stack sends most tokens to a few labels (the
+    # reference's does too); what must not degenerate is ΔAcc, checked on
+    # the probe and the search rows
+    fixture = _lm_fixture("phase11", dev, cfg, B, S, check=False)
+    probe = np.random.default_rng(5).integers(0, 4, size=(8, L))
+    fb = None
+    for bits in (4, 6, 8):
+        ev, _ = _lm_evaluator(dev, cfg, *fixture, faulty_bits=bits,
+                              eval_strategy="full", eval_batch_size=1)
+        d = ev.delta_acc(probe)
+        why = _spread_problem(d, tokens)
+        log(f"phase11 probe at {bits} faulty bits, rates {LM_RATE}/{LM_RATE}"
+            f": clean accuracy {ev.clean_accuracy():.4f}, dAcc "
+            f"{np.round(d, 4).tolist()} (spread: {why or 'ok'})")
+        del ev
+        if fb is None and why is None:
+            fb = bits
+    if fb is None:
+        raise AssertionError("dAcc vanishes or saturates at 4, 6 and 8 "
+                             "faulty bits")
+    log(f"phase11 fault regime: FaultSpec(bits=8, faulty_bits={fb}) at "
+        f"{LM_RATE}/{LM_RATE} over POD_TIERS_4")
+    store_seen = {}
+
+    def inspect(s_ev):
+        eng = s_ev._prefix_engine
+        store = eng.store._store
+        enc = {k for k in store if len(k) == ne}
+        dec = [a for k, a in store.items() if len(k) > ne]
+        if eng.shared_fields != {"mem": ne - 1} or not dec or not all(
+                isinstance(a["mem"], PrefixRef) for a in dec) or not all(
+                a["mem"].prefix in enc or a["mem"].prefix not in store
+                for a in dec):
+            raise AssertionError("a decoder carry holds no PrefixRef to an "
+                                 "encoder prefix's memory")
+        store_seen.update(memories=len(enc), decoder_carries=len(dec),
+                          encoder_prefixes=len({k[:ne] for k in store
+                                                if len(k) >= ne}),
+                          entries=len(store), nbytes=eng.store.nbytes)
+
+    res = _lm_search("phase11", dev, cfg, fixture, nsga, tokens, fb,
+                     inspect=inspect)
+    log(f"phase11 store after the staged search: {store_seen['memories']} "
+        f"memories stored for {store_seen['encoder_prefixes']} encoder "
+        f"prefixes held, {store_seen['decoder_carries']} decoder carries each"
+        f" with a PrefixRef, {store_seen['entries']} entries, "
+        f"{store_seen['nbytes']} bytes")
+    if store_seen["memories"] > store_seen["encoder_prefixes"]:
+        raise AssertionError("a memory is stored more than once")
+    s_launches, f_launches = res["s_launches"], res["f_launches"]
+    for name in ENCDEC_KERNELS:
+        if on_card and min(s_launches[name], f_launches[name]) <= 0:
+            raise AssertionError(f"{name} never launched on the {cfg.name} "
+                                 "path")
+    for name, r in records.items():
+        r["seamless_launches"], r["seamless_full_launches"] = \
+            s_launches[name], f_launches[name]
+    records["fault_matmul_bf16w"]["launches"] = s_launches[
+        "fault_matmul_bf16w"]
+    row = np.array(list(res["f_rows"])[:1])
+    groups = _profile_candidate("phase11", dev, cfg, res["f_ev"], row, B, S)
+    # no tensor-core float32 body runs here: the float32 split-K sums are
+    # the float32-x, bf16-weight route's
+    if "fault_matmul" in groups:
+        g = groups.setdefault("fault_matmul_bf16w", [0.0, 0])
+        ms, n = groups.pop("fault_matmul")
+        g[0] += ms
+        g[1] += n
+    ops.reset_launches()
+    res["f_ev"]._dispatch(row)
+    sync()
+    log(f"phase11 one {cfg.name} candidate's launches (ops.launches): "
+        f"{dict(ops.launches)}")
+    for name, r in records.items():
+        r["seamless_candidate_ms"], r["seamless_candidate_launches"] = \
+            groups.get(name, (0.0, 0))
+    del res, fixture
+    if on_card:
+        torch.cuda.empty_cache()
+
+
+def reconfig_phase(dev, records, ev, plan, layers, nsga, ticks=8):
+    """Phase 12: the online loop (paper Alg. 1, lines 13-19) on phase 8's
+    ResNet18 plan and its staged kernel-backend evaluator (see the
+    docstring)."""
+    from repro_torch.core import (PAPER_DEVICES, AFarePart, FaultEnvironment,
+                                  OnlineReconfigurator, simulate_deployment)
+    from repro_torch.kernels import ops
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    part = AFarePart(layers, PAPER_DEVICES, acc_evaluator=ev,
+                     nsga2_config=nsga)
+    base = np.asarray(ev.device_fault_scale, float).copy()
+    rebuilds0 = ev._fault_env_rebuilds
+
+    def observe(partition, scales):
+        ev.device_fault_scale = np.asarray(scales, np.float32)
+        return float(ev.delta_acc(np.asarray(partition)[None])[0])
+
+    # the most reliable device the deployed plan uses turns 25x worse at t=3
+    used = np.unique(plan.partition)
+    reliable = int(used[np.argmin(base[used])])
+    shifted = base.copy()
+    shifted[reliable] *= 25.0
+    theta = 1.5 * observe(plan.partition, base) + 1e-9
+    rec = OnlineReconfigurator(part, plan, theta=theta, observe_fn=observe,
+                               reopt_generations=3)
+    walls, inner = [], rec.step
+
+    def timed_step(t, scales):
+        t0 = time.perf_counter()
+        out = inner(t, scales)
+        sync()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    rec.step = timed_step
+    env = FaultEnvironment(base_scale=base, schedule={3: shifted})
+    t0 = time.perf_counter()
+    log_ = simulate_deployment(rec, env, ticks)
+    wall = time.perf_counter() - t0
+    events, obs = log_["events"], log_["observed_delta_acc"]
+    log(f"phase12 deployed P={''.join(map(str, plan.partition))} on scales "
+        f"{base.tolist()}; device {reliable} x25 at t=3 -> "
+        f"{shifted.tolist()}; theta {theta:.4f}; {ticks} ticks in "
+        f"{wall:.3f} s; tick walls (ms) {[round(w, 3) for w in walls]}; "
+        f"observed dAcc {np.round(obs, 4).tolist()}")
+    for e in events:
+        log(f"phase12 event at t={e.step}: observed {e.observed_delta_acc:.4f}"
+            f" -> P={''.join(map(str, e.new_partition))} predicted "
+            f"{e.new_predicted_delta_acc:.4f} (re-optimization in the tick's "
+            f"{walls[e.step]:.3f} ms)")
+    if not events:
+        raise AssertionError("the environment shift triggered no swap")
+    if obs[-1] > events[0].observed_delta_acc:
+        raise AssertionError("the swap did not lower the observed dAcc")
+    if ev._fault_env_rebuilds != rebuilds0:
+        raise AssertionError("a hot swap rebuilt the kernel backend's "
+                             "functions")
+    # a ReoptJob drained a generation at a time against the synchronous
+    # step, each from the same state: the deployed plan, the evaluator's
+    # row cache and activation store emptied (the loop above stored the
+    # very search both repeat, and would serve it from the store)
+    def fresh():
+        ev._cache.clear()
+        ev._prefix_engine.store.clear()
+
+    sync_rec = OnlineReconfigurator(part, plan, theta=-1.0,
+                                    observe_fn=observe, reopt_generations=3)
+    job_rec = OnlineReconfigurator(part, plan, theta=-1.0,
+                                   observe_fn=observe, reopt_generations=3)
+    fresh()
+    sync_rec.step(3, shifted)
+    fresh()
+    observed = observe(plan.partition, shifted)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    job = job_rec.start_reconfigure(3, observed, shifted)
+    while not job.advance(1):
+        pass
+    sync()
+    job_wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    a, b = sync_rec.events[0], job_rec.events[0]
+    if not (np.array_equal(a.new_partition, b.new_partition)
+            and a.new_predicted_delta_acc == b.new_predicted_delta_acc):
+        raise AssertionError("the drained ReoptJob differs from the "
+                             "synchronous step")
+    if on_card and min(launches[k] for k in CNN_KERNELS) <= 0:
+        raise AssertionError(f"a CNN kernel did not launch in the "
+                             f"re-optimization: {launches}")
+    if ev._fault_env_rebuilds != rebuilds0:
+        raise AssertionError("the re-optimization rebuilt the kernel "
+                             "backend's functions")
+    log(f"phase12 ReoptJob drained in {job.generations_run} advances "
+        f"({job_wall:.3f} s) = the synchronous step bitwise: P="
+        f"{''.join(map(str, b.new_partition))} predicted "
+        f"{b.new_predicted_delta_acc:.4f}; launches {launches}; "
+        f"_fault_env_rebuilds {ev._fault_env_rebuilds}")
+    for name, r in records.items():
+        r["reconfig_launches"] = launches[name]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1564,6 +2031,9 @@ def main() -> int:
         "fault_matmul": dict(
             route="cuda", source="src/repro_torch/csrc/fault_matmul.cu",
             replaces="src/repro/kernels/fault_matmul.py:61"),
+        "fault_matmul_bf16w": dict(
+            route="cuda", source="src/repro_torch/csrc/fault_matmul.cu",
+            replaces="src/repro/kernels/fault_matmul.py:61"),
         "fault_weight_tiles": dict(
             route="cuda", source="src/repro_torch/csrc/fault_matmul.cu",
             replaces="src/repro/kernels/fault_matmul.py:61"),
@@ -1574,6 +2044,7 @@ def main() -> int:
     check_kernels(dev, records)
     check_fault_matmul_bf16(dev, records)
     check_lm_family_kernels(dev, records)
+    check_encdec_kernels(dev, records)
 
     # phase 4: the main path
     spec = FaultSpec(**SPEC_RATES)
@@ -1685,9 +2156,12 @@ def main() -> int:
             f"{a.key[:90]}")
 
     # phase 8: the staged path
-    staged_phase(dev, params, labels, spec, layers, cfg, plan, full_rows, ev,
-                 records)
-    del params, ev
+    s_ev, s_plan = staged_phase(dev, params, labels, spec, layers, cfg, plan,
+                                full_rows, ev, records)
+    # phase 12, run here while phase 8's evaluator is at hand: the online
+    # loop on its plan
+    reconfig_phase(dev, records, s_ev, s_plan, layers, cfg)
+    del params, ev, s_ev
     torch.cuda.empty_cache()
 
     # phase 9: the dense transformer path
@@ -1696,6 +2170,10 @@ def main() -> int:
 
     # phases 10 and 10b: the RG-LRU, MoE and SSD block kinds
     family_phase(dev, records)
+    torch.cuda.empty_cache()
+
+    # phase 11: the encoder-decoder
+    encdec_phase(dev, records)
 
     kernels = [dict(name=name, **{k: r[k] for k in RECORD_KEYS if k in r})
                for name, r in records.items()]

@@ -1,6 +1,6 @@
 """AFarePart core, the counterpart of ``repro.core``: fault model, cost
 model, NSGA-II, the population and staged engines, ΔAcc objectives,
-partitioners."""
+partitioners and the online reconfiguration loop."""
 from repro_torch.core.costmodel import (CostModel, DeviceProfile, LayerInfo,
                                         EYERISS, SIMBA, TPU_V5E,
                                         TPU_V5E_LOWVOLT, TPU_V5E_MID,
@@ -22,6 +22,9 @@ from repro_torch.core.objectives import (InferenceAccuracyEvaluator,
 from repro_torch.core.partitioner import (AFarePart, CNNPartedLike,
                                           FaultUnawareBaseline, PartitionPlan,
                                           contiguous_stages, lm_partitioner)
+from repro_torch.core.runtime import (FaultEnvironment, OnlineReconfigurator,
+                                      ReconfigEvent, ReoptJob,
+                                      simulate_deployment)
 
 __all__ = [
     "CostModel", "DeviceProfile", "LayerInfo", "EYERISS", "SIMBA",
@@ -34,5 +37,6 @@ __all__ = [
     "InferenceAccuracyEvaluator", "SurrogateAccuracyEvaluator",
     "ObjectiveFn", "profile_layer_sensitivity", "make_lm_accuracy_evaluator",
     "AFarePart", "CNNPartedLike", "FaultUnawareBaseline", "PartitionPlan",
-    "contiguous_stages", "lm_partitioner",
+    "contiguous_stages", "lm_partitioner", "ReconfigEvent", "ReoptJob",
+    "OnlineReconfigurator", "FaultEnvironment", "simulate_deployment",
 ]

@@ -557,7 +557,7 @@ def make_lm_accuracy_evaluator(cfg, params, batch, labels, spec: FaultSpec,
                                fuse_chains: bool = True,
                                fault_backend: str | None = "auto",
                                device="cuda") -> InferenceAccuracyEvaluator:
-    """Staged-capable ΔAcc evaluator for a dense ``configs.ArchConfig`` LM
+    """Staged-capable ΔAcc evaluator for a ``configs.ArchConfig`` LM
     (the counterpart of the reference's, ``objectives.py:891-972``).
 
     The model is wrapped in ``models.transformer.LMStepModel`` (one unit
@@ -571,7 +571,8 @@ def make_lm_accuracy_evaluator(cfg, params, batch, labels, spec: FaultSpec,
         ``models.graph.lm_eval_strategy`` says whether a full config fits).
       params: ``transformer.init_lm`` output for ``cfg`` on ``device``.
       batch: calibration batch, ``{"tokens": [B, S]}`` (or the stub
-        frontend's ``{"embeds": [B, S, D]}``).
+        frontend's ``{"embeds": [B, S, D]}``), plus ``{"enc_embeds": [B,
+        Se, D]}`` for the encoder-decoder.
       labels: ``[B, S]`` target tokens; ΔAcc is the token-level Top-1
         drop.  The clean model's own argmax makes clean accuracy ~1.
       eval_strategy: ``"auto"`` resolves to ``"staged"``; ``"full"`` runs
@@ -584,10 +585,21 @@ def make_lm_accuracy_evaluator(cfg, params, batch, labels, spec: FaultSpec,
 
     ``spec.bits``/``spec.faulty_bits`` (and the fault model) pin the
     fixed-point fault width of the corruption.
+
+    The encoder-decoder gets the lean staged carries: the decoder's input
+    is bound into the step model (read by the first decoder unit, never
+    carried through the encoder's units) and the encoder's memory is
+    interned by encoder prefix (``shared_carry_fields={"mem":
+    n_enc_layers - 1}``), so the store holds it once per encoder prefix.
     """
     from repro_torch.models.transformer import LMStepModel
+    # one copy of the batch on the card, shared by the step model and the
+    # evaluator (the step model then knows its rows without reading them)
+    batch = _as_input(batch, resolve_device(device))
     sm = LMStepModel(cfg, bits=spec.bits, faulty_bits=spec.faulty_bits,
+                     batch=batch if cfg.is_encdec else None,
                      fault_model=spec.fault_model, mbu_width=spec.mbu_width)
+    shared = {"mem": cfg.n_enc_layers - 1} if cfg.is_encdec else None
     units = sm.unit_params(params)
     if fault_backend in (None, "auto"):
         fault_backend = "generic"    # no LM tables unless asked for
@@ -606,7 +618,7 @@ def make_lm_accuracy_evaluator(cfg, params, batch, labels, spec: FaultSpec,
         fault_backend=fault_backend, step_fn=sm.step,
         eval_strategy=eval_strategy, n_units=sm.n_units,
         max_store_bytes=max_store_bytes, devices=devices,
-        fuse_chains=fuse_chains, device=device)
+        shared_carry_fields=shared, fuse_chains=fuse_chains, device=device)
 
 
 class SurrogateAccuracyEvaluator:

@@ -18,7 +18,7 @@ import numpy as np
 from repro_torch.core.costmodel import (POD_TIERS_4, CostModel,
                                         DeviceProfile, LayerInfo)
 from repro_torch.core.fault import FaultSpec
-from repro_torch.core.nsga2 import NSGA2Config, NSGA2Result, nsga2
+from repro_torch.core.nsga2 import NSGA2Config, NSGA2Result, nsga2, nsga2_steps
 from repro_torch.core.objectives import ObjectiveFn, SurrogateAccuracyEvaluator
 
 __all__ = ["PartitionPlan", "AFarePart", "FaultUnawareBaseline",
@@ -108,6 +108,20 @@ class _BasePartitioner:
             n_devices=len(self.devices), config=config or self.config,
             violation_fn=self.objective.violation,
             initial_pop=initial_pop, callback=callback)
+        return self._plan_from_result(res)
+
+    def optimize_steps(self, initial_pop: np.ndarray | None = None,
+                       config: NSGA2Config | None = None):
+        """Generator form of :meth:`optimize`: yields ``(gen, pop, objs)``
+        after each NSGA-II generation and returns the
+        :class:`PartitionPlan` (``StopIteration.value``), so an online
+        re-optimization can advance a generation at a time
+        (``core.runtime.ReoptJob``).  Draining it gives the plan
+        :meth:`optimize` gives with the same arguments."""
+        res: NSGA2Result = yield from nsga2_steps(
+            self.objective, n_genes=len(self.layers),
+            n_devices=len(self.devices), config=config or self.config,
+            violation_fn=self.objective.violation, initial_pop=initial_pop)
         return self._plan_from_result(res)
 
     def _plan_from_result(self, res: NSGA2Result) -> PartitionPlan:

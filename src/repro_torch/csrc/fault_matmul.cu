@@ -92,6 +92,18 @@
 // shared-memory SGEMM that corrupts and dequantizes each weight tile in
 // shared memory (once per 128-row block of x), with fp32 FMAs and the
 // same split-K.
+//
+// float32 x with a bf16 weight dtype (the encoder-decoder: its float32
+// encoder input meets the bf16 weights in every encoder projection and in
+// the decoder's cross-attention K/V) computes the reference's CPU function
+// for that pair: w = bf16(fp32(q') * scale), out = x @ float(w) in fp32,
+// float32 out.  The scale cannot move to the epilogue (w is rounded after
+// it), so the tensor-core body does not serve it.  It runs the SIMT body
+// with the dequantized weight rounded to bf16 in its shared-memory tile
+// (simt::kernel<..., true>, entry afp_fault_matmul_bf16w), for every
+// storage type.  A simple kernel: at the encoder's M = B Se = 256 its grid
+// is 2 row blocks by N / 128, each block hashes its weight tiles again, and
+// its fp32 FMAs run far below the tensor cores' rate (PERF.md §6).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -107,7 +119,8 @@ namespace simt {
 constexpr int BM = 128, BN = 128, BK = 8, TM = 8, TN = 8, THREADS = 256;
 constexpr int APAD = BM + 4;  // row stride of the transposed x tile
 
-template <typename T, int MODEL>
+// BF16W: round each dequantized weight to bf16 (a bf16 weight dtype)
+template <typename T, int MODEL, bool BF16W = false>
 __global__ void __launch_bounds__(THREADS)
 kernel(const float* __restrict__ x, const T* __restrict__ qw,
        float* __restrict__ out, const float* __restrict__ scale_p,
@@ -149,6 +162,7 @@ kernel(const float* __restrict__ x, const T* __restrict__ qw,
         const T q = afp::apply_fault<MODEL>(qw[flat], static_cast<uint32_t>(flat),
                                             seed, thresh, faulty_bits, mbu_width);
         w = __fmul_rn(static_cast<float>(q), scale);
+        if (BF16W) w = __bfloat162float(__float2bfloat16_rn(w));
       }
       Bs[kk][nn] = w;
     }
@@ -1130,6 +1144,43 @@ extern "C" int afp_fault_matmul(const void* x, const void* qw, void* out,
     }
     err = cudaGetLastError();
   }
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  return static_cast<int>(sum_splits<float>(
+      partial, static_cast<float*>(out), rows * M * N, splits, s));
+}
+
+// float32 x on a bf16 weight dtype: as afp_fault_matmul, but every storage
+// type runs the SIMT body with each dequantized weight rounded to bf16,
+// out = x @ float(bf16(fp32(q') scale)), float32; K is cut into `splits`
+// slices of whole 8-deep k-steps.
+extern "C" int afp_fault_matmul_bf16w(const void* x, const void* qw,
+                                      void* out, float* partial,
+                                      const float* scale, const float* rate,
+                                      int64_t rows, int64_t M, int64_t K,
+                                      int64_t N, int splits, int qbytes,
+                                      int model, uint32_t seed,
+                                      int faulty_bits, int mbu_width,
+                                      void* stream) {
+  if (rows <= 0 || M <= 0 || N <= 0) return static_cast<int>(cudaSuccess);
+  if (bad_sizes(rows, M, K, N, splits) ||
+      (M + simt::BM - 1) / simt::BM > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t k_steps = (K + simt::BK - 1) / simt::BK;
+  const int k_chunk =
+      static_cast<int>((k_steps + splits - 1) / splits * simt::BK);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  float* dst = splits > 1 ? partial : static_cast<float*>(out);
+  const int r = static_cast<int>(rows), m = static_cast<int>(M),
+            k = static_cast<int>(K), n = static_cast<int>(N);
+  const dim3 grid(static_cast<unsigned>((N + simt::BN - 1) / simt::BN),
+                  static_cast<unsigned>((M + simt::BM - 1) / simt::BM),
+                  static_cast<unsigned>(rows * splits));
+  AFP_DISPATCH_INT(qbytes, AFP_DISPATCH_MODEL(model,
+      simt::kernel<QT, MODEL, true><<<grid, simt::THREADS, 0, s>>>(
+          xf, static_cast<const QT*>(qw), dst, scale, rate, r, m, k, n,
+          k_chunk, seed, faulty_bits, mbu_width)));
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   return static_cast<int>(sum_splits<float>(
       partial, static_cast<float*>(out), rows * M * N, splits, s));

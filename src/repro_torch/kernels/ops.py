@@ -14,7 +14,8 @@ port's population axis).  The seed is one per call, shared by all rows.
 of its C entry point: the kernel, and where K is split, the sum of the
 slices).  ``fault_matmul`` on bf16 x launches the kernels of
 ``fault_weight_tiles`` and ``matmul_tiles``, once each a row group, and
-they count there.
+they count there; on float32 x with a bf16 weight dtype (the
+encoder-decoder's encoder) it counts under ``"fault_matmul_bf16w"``.
 """
 from __future__ import annotations
 
@@ -46,6 +47,10 @@ _SIGNATURES = {
     "afp_fault_matmul": ("fault_matmul", [_P, _P, _P, _P, _P, _P, _I64, _I64,
                                           _I64, _I64, _I32, _I32, _I32, _U32,
                                           _I32, _I32, _P]),
+    "afp_fault_matmul_bf16w": ("fault_matmul", [_P, _P, _P, _P, _P, _P,
+                                                _I64, _I64, _I64, _I64, _I32,
+                                                _I32, _I32, _U32, _I32, _I32,
+                                                _P]),
     "afp_fault_weight_tiles": ("fault_matmul", [_P, _P, _P, _P, _I64, _I64,
                                                 _I64, _I32, _I32, _U32, _I32,
                                                 _I32, _P]),
@@ -54,7 +59,8 @@ _SIGNATURES = {
 }
 
 launches = {"bitflip": 0, "quant_bitflip": 0, "fault_matmul": 0,
-            "fault_weight_tiles": 0, "matmul_tiles": 0}
+            "fault_matmul_bf16w": 0, "fault_weight_tiles": 0,
+            "matmul_tiles": 0}
 _MAX_GRID_Z = 65535          # fault_matmul's grid.z is rows x K slices
 # The bf16 route's W' workspace (``fault_matmul``): a call hashes its rows
 # in groups whose W' fits this many bytes
@@ -130,8 +136,9 @@ def _k_splits(M: int, K: int, N: int, body: str,
     192 KB of shared memory), slices of >= 64 of K (one stage; the kernel
     rounds a slice up to whole stages); every olmo-1b projection (M =
     2048) is one slice, starcoder2-3b's kv projection (2048 x 3072 x 256,
-    16 blocks) eight.  ``"simt"`` (float32 x with int16/int32 weights):
-    128x128 tiles, two blocks a SM, slices of >= 128 of K."""
+    16 blocks) eight.  ``"simt"`` (float32 x with int16/int32 weights, and
+    float32 x with a bf16 weight dtype): 128x128 tiles, two blocks a SM,
+    slices of >= 128 of K."""
     sms = _sm_count(device.index or 0)
     if body == "tc":
         tiles = -(-M // 512) * -(-N // (16 if N <= 16 else 64))
@@ -303,28 +310,37 @@ def matmul_tiles(x: torch.Tensor, tiles: torch.Tensor, K: int,
 
 def fault_matmul(x: torch.Tensor, qw: torch.Tensor, scale, seed, rate,
                  faulty_bits: int, *, fault_model: str = "flip",
-                 mbu_width: int = 2) -> torch.Tensor:
+                 mbu_width: int = 2,
+                 out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """``x @ dequant(corrupt(qw))`` with fp32 accumulation; ``qw`` is the
     shared ``(K, N)`` integer matrix, ``scale`` its float32 scale.  With a
     ``[R]`` rate ``x`` is ``[R, ..., K]`` and returns ``[R, ..., N]``.
-    The dequantized weight is cast to ``x.dtype`` before the product, as
-    the reference's ``out_dtype`` does for a model of that dtype: float32
-    x with float32 weights, or bfloat16 x with bfloat16 weights (the
-    result is then bfloat16, rounded once from the fp32 sum).
+    The dequantized weight is cast to ``out_dtype`` (the original weight
+    dtype, the reference's ``out_dtype``; ``x.dtype`` if None) before the
+    product, which runs in the promoted dtype: float32 x with float32
+    weights; bfloat16 x with bfloat16 weights (the result bfloat16,
+    rounded once from the fp32 sum); or float32 x with bfloat16 weights
+    (x times the weights' bf16 values, float32 out).
 
     On the card, bfloat16 x runs two kernels for each group of
     ``row_groups``: the hash pass (``fault_weight_tiles``'s kernel) into a
     W' workspace of at most ``WORKSPACE_BYTES``, then the product
     (``matmul_tiles``'s), each counted under its own name; float32 x runs
-    one kernel a launch, counted under ``"fault_matmul"``."""
+    one kernel a launch, counted under ``"fault_matmul"``, or with bf16
+    weights under ``"fault_matmul_bf16w"``."""
     if not _is_cuda(x):
         return _ref.fault_matmul_ref(x, qw, scale, seed, rate, faulty_bits,
                                      fault_model=fault_model,
-                                     mbu_width=mbu_width)
+                                     mbu_width=mbu_width, out_dtype=out_dtype)
+    out_dtype = out_dtype or x.dtype
+    _check((x.dtype, out_dtype) in ((torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16),
+                                    (torch.float32, torch.bfloat16)),
+           f"fault_matmul takes float32 x on float32 or bfloat16 weights, "
+           f"or bfloat16 x on bfloat16 weights; got {x.dtype} x, "
+           f"{out_dtype} weights")
     _check(qw.ndim == 2 and x.ndim >= 1 and x.shape[-1] == qw.shape[0],
            f"contraction mismatch: x {tuple(x.shape)} @ qw {tuple(qw.shape)}")
-    _check(x.dtype in (torch.float32, torch.bfloat16),
-           f"fault_matmul takes float32 or bfloat16 x, got {x.dtype}")
     _check(qw.dtype in _INT_BYTES, f"fault_matmul takes int8/16/32 qw, got {qw.dtype}")
     _check(x.is_contiguous() and qw.is_contiguous(),
            "fault_matmul needs contiguous x and qw")
@@ -356,18 +372,21 @@ def fault_matmul(x: torch.Tensor, qw: torch.Tensor, scale, seed, rate,
                             out.data_ptr() + 2 * r0 * M * N, rows, M, K, N,
                             splits, p_ptr)
         return out
-    body = "tc" if qw.dtype == torch.int8 else "simt"
+    bf16w = out_dtype == torch.bfloat16
+    body = "tc" if qw.dtype == torch.int8 and not bf16w else "simt"
+    entry = "afp_fault_matmul_bf16w" if bf16w else "afp_fault_matmul"
+    name = "fault_matmul_bf16w" if bf16w else "fault_matmul"
     splits = _k_splits(M, K, N, body, x.device)
     step = _MAX_GRID_Z // splits       # rows a launch, within the grid
     partial = torch.empty((splits, min(R, step), M, N) if splits > 1
                           else (0,), dtype=torch.float32, device=x.device)
     for r0 in range(0, R, step):
         rows = min(step, R - r0)
-        _launch("afp_fault_matmul", x.data_ptr() + r0 * M * K * 4,
+        _launch(entry, x.data_ptr() + r0 * M * K * 4,
                 qw.data_ptr(), out.data_ptr() + r0 * M * N * 4,
                 partial.data_ptr(), scale_t.data_ptr(),
                 rates.data_ptr() + r0 * 4, rows, M, K, N, splits,
                 _INT_BYTES[qw.dtype], model_id, seed_u32(seed), faulty_bits,
                 mbu_width, _stream(x.device))
-        launches["fault_matmul"] += 1
+        launches[name] += 1
     return out

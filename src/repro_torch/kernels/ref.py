@@ -123,19 +123,25 @@ def quant_bitflip_ref(x: torch.Tensor, seed, rate, faulty_bits: int,
 
 def fault_matmul_ref(x: torch.Tensor, qw: torch.Tensor, scale, seed, rate,
                      faulty_bits: int, fault_model: str = "flip",
-                     mbu_width: int = 2) -> torch.Tensor:
+                     mbu_width: int = 2,
+                     out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """``x @ dequant(corrupt(qw))``: corrupt, dequantize in float32, cast
-    the weights to ``x.dtype``, then one ``matmul`` (one per row for a
-    ``[R]`` rate).  In bfloat16 that product sums in fp32 and rounds once,
-    the reference's CPU function (``repro/kernels/ops.py:74-79``); on the
-    CPU in XLA's order, on the card in cuBLAS's."""
+    the weights to ``out_dtype`` (the weight dtype; ``x.dtype`` if None),
+    then one ``matmul`` (one per row for a ``[R]`` rate) in the promoted
+    dtype, as JAX promotes.  In bfloat16 that product sums in fp32 and
+    rounds once, the reference's CPU function
+    (``repro/kernels/ops.py:74-79``); on the CPU in XLA's order, on the
+    card in cuBLAS's.  float32 x with bf16 weights is float32 x times the
+    weights' bf16 values, float32 out."""
     if qw.ndim != 2 or x.shape[-1] != qw.shape[0]:
         raise ValueError(f"contraction mismatch: x {tuple(x.shape)} "
                          f"@ qw {tuple(qw.shape)}")
     rates, per_row = row_rates(rate, x.device)
     w = bitflip_ref(qw, seed, rates if per_row else rate, faulty_bits,
                     fault_model=fault_model, mbu_width=mbu_width, scale=scale)
-    w = w.to(x.dtype)
+    w = w.to(out_dtype or x.dtype)
+    dt = torch.promote_types(x.dtype, w.dtype)
+    x, w = x.to(dt), w.to(dt)
     if not per_row:
         return matmul(x, w)
     R, K, N = rates.numel(), qw.shape[0], qw.shape[1]

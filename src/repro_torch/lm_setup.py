@@ -18,10 +18,18 @@ __all__ = ["lm_calibration_setup", "calibration_batch", "self_labels"]
 def calibration_batch(cfg, B: int = 2, S: int = 16, seed: int = 7,
                       device="cuda") -> dict:
     """``{"tokens": [B, S] int32}`` from ``np.random.default_rng(seed)``,
-    the reference harness's draw."""
+    the reference harness's draw; the encoder-decoder's batch also holds
+    ``"enc_embeds" [B, max(1, S // enc_ratio), D]`` float32, drawn from
+    the same generator after the tokens."""
+    dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     tokens = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
-    return {"tokens": torch.from_numpy(tokens).to(resolve_device(device))}
+    batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+    if cfg.is_encdec:
+        enc = rng.standard_normal((B, max(1, S // cfg.enc_ratio),
+                                   cfg.d_model)).astype(np.float32)
+        batch["enc_embeds"] = torch.from_numpy(enc).to(dev)
+    return batch
 
 
 @torch.no_grad()

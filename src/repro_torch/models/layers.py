@@ -1,10 +1,10 @@
 """Building blocks of the model zoo, the counterpart of
 ``repro/models/layers.py``: the fault plumbing, the dense decoder's
-blocks (initialisers, the three norms, RoPE, chunked flash attention, the
-gated and plain MLPs), MoE with the sort-based capacity dispatch, the
-RG-LRU block (causal conv, associative scan) and the Mamba2 SSD block
-(chunked scan).  Decode attention is not ported yet (ROADMAP.md Queue A
-item 11c).
+blocks (initialisers, the three norms, RoPE, chunked flash attention,
+causal or to an encoder's memory, the gated and plain MLPs), MoE with the
+sort-based capacity dispatch, the RG-LRU block (causal conv, associative
+scan) and the Mamba2 SSD block (chunked scan).  Decode attention is not
+ported yet (ROADMAP.md Queue A item 11c).
 
 Row convention: a rate is ``None`` (the float path: no quantization at
 all), or a float32 tensor ``[R]`` of per-row rates, one row per candidate
@@ -202,16 +202,25 @@ def corrupt_params(params, rate, seed, bits: int | None = None,
 def fault_dense(x: torch.Tensor, w) -> torch.Tensor:
     """``x @ w`` whose weight may be fault-wrapped: a :class:`FaultedQ`
     runs the ``fault_matmul`` kernel (rows of ``x`` at their own rates,
-    the weights cast to ``x.dtype``, which is the original weight dtype
-    on every path of the port), a clean :class:`QTensor` dequantizes
-    first, a tensor multiplies as is (``[K, N]`` shared or ``[R, K, N]``
-    per row), through ``ref.matmul``: in XLA's order on the CPU."""
+    the weights dequantized to their own dtype, the reference's
+    ``out_dtype``), a clean :class:`QTensor` dequantizes first, a tensor
+    multiplies as is (``[K, N]`` shared or ``[R, K, N]`` per row), through
+    ``ref.matmul``: in XLA's order on the CPU.
+
+    The weight's dtype is the model's, and x's is too except in the
+    encoder-decoder, whose float32 encoder input meets bf16 weights: the
+    encoder's projections and the decoder's cross-attention K/V.  There the
+    result follows JAX's promotion, float32, computed on the weight's bf16
+    values (``w.float()``)."""
     if isinstance(w, FaultedQ):
         return kops.fault_matmul(x.contiguous(), w.qw, w.scale, w.seed, w.rate,
                                  w.faulty_bits, fault_model=w.fault_model,
-                                 mbu_width=w.mbu_width)
+                                 mbu_width=w.mbu_width, out_dtype=w.dtype)
     if isinstance(w, QTensor):
         w = w.dequant()
+    if w.dtype != x.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
     if w.ndim == 3:      # per-row weights: one matmul per row, like the
         # conv loop, so a row never depends on how many rows share the call
         return torch.stack([kref.matmul(x[r], w[r])
@@ -347,8 +356,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             valid = valid & (pb[None, :] <= pos_q[:, None])
         if window is not None:
             valid = valid & (pos_q[:, None] - pb[None, :] < window)
-        s = torch.where(valid[None, :, None, None, :], s,
-                        torch.tensor(-1e30, dtype=s.dtype, device=s.device))
+        # a Python scalar, not a tensor made on the card: that would be a
+        # host-to-device copy the host waits on, once a call
+        s = torch.where(valid[None, :, None, None, :], s, -1e30)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -363,21 +373,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention_fwd(p: dict, x: torch.Tensor, positions: torch.Tensor, *,
                   n_heads: int, n_kv: int, head_dim: int, rope_theta: float,
                   window: int | None = None, softcap: float = 0.0,
-                  kv_chunk: int = 1024) -> torch.Tensor:
-    """Causal self-attention of ``x [R, B, S, D]``.  The projections go
-    through :func:`fault_dense`; the attention itself runs one row at a
-    time, so its einsums see the same shapes whatever the row count (a
-    batched einsum may pick another algorithm, and so another summation
-    order, for another R)."""
+                  kv_chunk: int = 1024, memory: torch.Tensor | None = None,
+                  memory_pos: torch.Tensor | None = None) -> torch.Tensor:
+    """Causal self-attention of ``x [R, B, S, D]``, or, with ``memory [R,
+    B, Sk, D]`` given, attention to the memory: K and V projected from it,
+    no rope on either side, not causal (the encoder's bidirectional
+    self-attention is ``memory = x``).  The projections go through
+    :func:`fault_dense`; the attention itself runs one row at a time, so
+    its einsums see the same shapes whatever the row count (a batched
+    einsum may pick another algorithm, and so another summation order, for
+    another R)."""
     R, B, S, _ = x.shape
+    src = x if memory is None else memory
+    Sk = src.shape[2]
     q = fault_dense(x, p["wq"]).reshape(R, B, S, n_heads, head_dim)
-    k = fault_dense(x, p["wk"]).reshape(R, B, S, n_kv, head_dim)
-    v = fault_dense(x, p["wv"]).reshape(R, B, S, n_kv, head_dim)
-    q = rope(q, positions, rope_theta)
-    k = rope(k, positions, rope_theta)
-    o = torch.stack([flash_attention(q[r], k[r], v[r], positions, positions,
+    k = fault_dense(src, p["wk"]).reshape(R, B, Sk, n_kv, head_dim)
+    v = fault_dense(src, p["wv"]).reshape(R, B, Sk, n_kv, head_dim)
+    if memory is None:
+        q = rope(q, positions, rope_theta)
+        k = rope(k, positions, rope_theta)
+        pos_k, causal = positions, True
+    else:
+        pos_k = memory_pos if memory_pos is not None else torch.arange(
+            Sk, dtype=torch.int32, device=x.device)
+        causal = False
+    o = torch.stack([flash_attention(q[r], k[r], v[r], positions, pos_k,
                                      window=window, softcap=softcap,
-                                     kv_chunk=kv_chunk) for r in range(R)])
+                                     kv_chunk=kv_chunk, causal=causal)
+                     for r in range(R)])
     return fault_dense(o.reshape(R, B, S, n_heads * head_dim), p["wo"])
 
 

@@ -1,14 +1,18 @@
-"""The decoder LM, the counterpart of ``repro/models/transformer.py`` for
+"""The LM stack, the counterpart of ``repro/models/transformer.py`` for
 the block kinds ``attn``/``local``/``global`` (with MoE and arctic's dense
-residual), ``rglru`` and ``ssd``: olmo-1b, starcoder2-3b, gemma2-27b,
-deepseek-coder-33b, phi-3-vision-4.2b, mixtral-8x7b, arctic-480b,
-recurrentgemma-2b and mamba2-2.7b.
+residual), ``rglru`` and ``ssd`` and the encoder-decoder: olmo-1b,
+starcoder2-3b, gemma2-27b, deepseek-coder-33b, phi-3-vision-4.2b,
+mixtral-8x7b, arctic-480b, recurrentgemma-2b, mamba2-2.7b and
+seamless-m4t-medium.
 
 Params keep the reference's tree: ``embed [V, D]``, ``groups`` (one entry
-``b{s}`` per slot of ``block_pattern``, every leaf stacked over the groups),
-``final_norm`` and, untied, ``lm_head [D, V]``, so a reference tree carries
-across leaf for leaf (``repro_torch.convert``).  The reference scans the
-groups; here they are a Python loop.
+``b{s}`` per slot of ``block_pattern``, every leaf stacked over the groups;
+for the encoder-decoder the decoder's cross blocks, stacked over its
+layers), ``final_norm``, untied ``lm_head [D, V]``, and for the
+encoder-decoder ``enc_groups`` (its ``attn`` blocks, stacked) and
+``enc_norm``, so a reference tree carries across leaf for leaf
+(``repro_torch.convert``).  The reference scans the groups; here they are
+a Python loop.
 
 Row axis: the reference adds the population axis with ``vmap``; here the
 hidden state is ``[R, B, S, D]`` and rates are ``[R]`` tensors (or None).
@@ -19,12 +23,18 @@ the norms reduce over the last axis only, so a row's logits are bitwise
 those of that row run alone.
 
 Fault injection (the paper's technique) enters through a ``(w_rates,
-a_rates, seed)`` triple: layer ``i`` corrupts its block at ``seed +
-7919 i`` (leaf ``j`` of the block at ``+ 977 j``) and its input at ``+ 1``;
-the embedding, the final norm and the head are never corrupted.
+a_rates, seed)`` triple: layer ``i`` (encoder layers first for the
+encoder-decoder) corrupts its block at ``seed + 7919 i`` (leaf ``j`` of
+the block at ``+ 977 j``) and its input at ``+ 1``; the embedding, the
+encoder's and the final norm and the head are never corrupted.
 
-The encoder-decoder raises ``NotImplementedError`` (ROADMAP.md Queue A
-item 11); prefill/decode and the caches are not ported yet (item 11c).
+The encoder-decoder keeps the reference's dtypes: its encoder input
+``enc_embeds`` is float32 and is never cast, so in a bf16 model the
+encoder's hidden state and its memory are float32 (every encoder
+projection and the decoder's cross-attention K/V are float32 x on bf16
+weights, ``layers.fault_dense``) while the decoder's hidden state is bf16.
+Prefill/decode and the caches are not ported yet (ROADMAP.md Queue A item
+11c).
 """
 from __future__ import annotations
 
@@ -37,20 +47,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ref as kref
 from repro_torch.models import layers as L
 
-__all__ = ["init_lm", "forward", "embed_tokens", "unembed", "LMStepModel",
-           "check_supported"]
+__all__ = ["init_lm", "forward", "embed_tokens", "unembed", "LMStepModel"]
 
 _ATTN_KINDS = ("attn", "local", "global")
-
-
-def check_supported(cfg: ArchConfig):
-    """Raise for what the port cannot run yet: the encoder-decoder."""
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder is not ported yet (ROADMAP.md "
-            f"Queue A item 11, the transformer zoo); the port runs the "
-            f"decoder-only attn/local/global (dense or MoE), rglru and ssd "
-            f"stacks")
 
 
 # ==========================================================================
@@ -89,29 +88,58 @@ def _init_block(cfg: ArchConfig, kind: str, gen: torch.Generator,
     return p
 
 
+def _init_cross_block(cfg: ArchConfig, gen: torch.Generator,
+                      dtype) -> dict:
+    """A decoder block of the encoder-decoder: causal self-attention,
+    cross-attention to the encoder's memory, MLP."""
+    d, dev = cfg.d_model, gen.device
+    return {
+        "ln1": L.init_norm(cfg.norm_kind, d, dtype, dev),
+        "attn": L.init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                 cfg.head_dim_, dtype),
+        "ln_x": L.init_norm(cfg.norm_kind, d, dtype, dev),
+        "xattn": L.init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                  cfg.head_dim_, dtype),
+        "ln2": L.init_norm(cfg.norm_kind, d, dtype, dev),
+        "mlp": L.init_mlp(gen, d, cfg.d_ff, cfg.act_fn, dtype),
+    }
+
+
+def _stacked(make, n: int) -> dict:
+    """``n`` blocks from ``make()``, every leaf stacked on a leading axis."""
+    blocks = [make() for _ in range(n)]
+    return tree_map(lambda *ls: torch.stack(ls), *blocks)
+
+
 def init_lm(cfg: ArchConfig, seed: int = 0, device="cuda") -> dict:
     """Random params from a ``torch.Generator`` on ``device`` seeded with
     ``seed`` (drawn in float32 there, cast to the config's dtype): the
     reference's scales, not its values (``jax.random`` draws differently;
     parity tests carry the reference's params across instead).  Every slot
     of every group is built, as in the reference, also a slot past
-    ``n_layers`` (recurrentgemma-2b's 27th), which no unit runs."""
-    check_supported(cfg)
+    ``n_layers`` (recurrentgemma-2b's 27th), which no unit runs.  The
+    encoder-decoder's ``groups`` are its decoder's cross blocks."""
     dev = resolve_device(device)
     dtype = cfg.torch_dtype
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = {"embed": (torch.randn(cfg.vocab, cfg.d_model, generator=gen,
                                     device=dev) * 0.02).to(dtype)}
-    groups = {}
-    for s, kind in enumerate(cfg.block_pattern):
-        blocks = [_init_block(cfg, kind, gen, dtype)
-                  for _ in range(cfg.n_groups)]
-        groups[f"b{s}"] = tree_map(lambda *ls: torch.stack(ls), *blocks)
-        del blocks
-    params["groups"] = groups
+    if cfg.is_encdec:
+        params["groups"] = _stacked(
+            lambda: _init_cross_block(cfg, gen, dtype), cfg.n_layers)
+    else:
+        params["groups"] = {
+            f"b{s}": _stacked(lambda: _init_block(cfg, kind, gen, dtype),
+                              cfg.n_groups)
+            for s, kind in enumerate(cfg.block_pattern)}
     params["final_norm"] = L.init_norm(cfg.norm_kind, cfg.d_model, dtype, dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab, dtype)
+    if cfg.is_encdec:
+        params["enc_groups"] = _stacked(
+            lambda: _init_block(cfg, "attn", gen, dtype), cfg.n_enc_layers)
+        params["enc_norm"] = L.init_norm(cfg.norm_kind, cfg.d_model, dtype,
+                                         dev)
     return params
 
 
@@ -144,16 +172,11 @@ def _per_row(fn, p: dict, x: torch.Tensor, per_row: bool) -> torch.Tensor:
     return out
 
 
-def _block_fwd(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor,
-               positions: torch.Tensor, *, fault_rates=None, fault_bits=None,
-               fault_model=None, kv_chunk: int = 1024,
-               ssd_chunk: int = 256) -> torch.Tensor:
-    """One block of ``kind`` on ``x [R, B, S, D]``.  ``fault_bits`` is an
-    optional (bits, faulty_bits) override of the corruption width,
-    ``fault_model`` an optional (model, mbu_width) override; None takes the
-    ``layers`` module defaults.  The MoE, RG-LRU and SSD sub-blocks run a
-    row at a time; whether their leaves carry the row axis (weight faults,
-    or a tables gather) is read from one leaf's rank."""
+def _inject(p: dict, x: torch.Tensor, fault_rates, fault_bits,
+            fault_model) -> tuple[dict, torch.Tensor]:
+    """A block's fault injection: its params corrupted at the unit's
+    weight rates (leaf ``j`` at ``seed + 977 j``; dequantized without), its
+    input at the activation rates (``seed + 1``)."""
     wr, ar, seed = fault_rates if fault_rates is not None else (None,) * 3
     bits, lsbs = fault_bits if fault_bits is not None else (None, None)
     fm, mw = fault_model if fault_model is not None else (None, None)
@@ -165,6 +188,20 @@ def _block_fwd(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor,
     if ar is not None:
         x = L.maybe_corrupt(x, ar, seed + 1, bits=bits, faulty_bits=lsbs,
                             fault_model=fm, mbu_width=mw)
+    return p, x
+
+
+def _block_fwd(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor,
+               positions: torch.Tensor, *, fault_rates=None, fault_bits=None,
+               fault_model=None, kv_chunk: int = 1024,
+               ssd_chunk: int = 256) -> torch.Tensor:
+    """One block of ``kind`` on ``x [R, B, S, D]``.  ``fault_bits`` is an
+    optional (bits, faulty_bits) override of the corruption width,
+    ``fault_model`` an optional (model, mbu_width) override; None takes the
+    ``layers`` module defaults.  The MoE, RG-LRU and SSD sub-blocks run a
+    row at a time; whether their leaves carry the row axis (weight faults,
+    or a tables gather) is read from one leaf's rank."""
+    p, x = _inject(p, x, fault_rates, fault_bits, fault_model)
     if kind in _ATTN_KINDS:
         window = None
         if kind == "local" or (kind == "attn" and cfg.attn_kind == "swa"):
@@ -198,6 +235,48 @@ def _block_fwd(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor,
             state=cfg.ssm_state, chunk=ssd_chunk)[0],
             p["ssd"], h, p["ssd"]["A_log"].ndim == 2)
     raise ValueError(kind)
+
+
+def _enc_block_fwd(cfg: ArchConfig, p: dict, x: torch.Tensor,
+                   positions: torch.Tensor, *, fault_rates=None,
+                   fault_bits=None, fault_model=None) -> torch.Tensor:
+    """One encoder block of ``x [R, B, Se, D]``: bidirectional
+    self-attention (attention to the memory ``h`` itself, no rope, not
+    causal) and the MLP."""
+    p, x = _inject(p, x, fault_rates, fault_bits, fault_model)
+    h = L.norm_fwd(p["ln1"], x, cfg.norm_kind)
+    x = x + L.attention_fwd(p["attn"], h, positions, n_heads=cfg.n_heads,
+                            n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim_,
+                            rope_theta=cfg.rope_theta, memory=h,
+                            memory_pos=positions)
+    h = L.norm_fwd(p["ln2"], x, cfg.norm_kind)
+    return x + L.mlp_fwd(p["mlp"], h, cfg.act_fn)
+
+
+def _dec_block_fwd(cfg: ArchConfig, p: dict, x: torch.Tensor,
+                   positions: torch.Tensor, memory: torch.Tensor,
+                   mem_pos: torch.Tensor, *, fault_rates=None,
+                   fault_bits=None, fault_model=None,
+                   kv_chunk: int = 1024) -> torch.Tensor:
+    """One decoder block of the encoder-decoder on ``x [R, B, S, D]``:
+    causal self-attention, cross-attention to ``memory [R, B, Se, D]``,
+    the MLP.  Only ``x`` is corrupted at the activation rate."""
+    p, x = _inject(p, x, fault_rates, fault_bits, fault_model)
+    h = L.norm_fwd(p["ln1"], x, cfg.norm_kind)
+    x = x + L.attention_fwd(p["attn"], h, positions, n_heads=cfg.n_heads,
+                            n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim_,
+                            rope_theta=cfg.rope_theta, kv_chunk=kv_chunk)
+    h = L.norm_fwd(p["ln_x"], x, cfg.norm_kind)
+    x = x + L.attention_fwd(p["xattn"], h, positions, n_heads=cfg.n_heads,
+                            n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim_,
+                            rope_theta=cfg.rope_theta, memory=memory,
+                            memory_pos=mem_pos)
+    h = L.norm_fwd(p["ln2"], x, cfg.norm_kind)
+    return x + L.mlp_fwd(p["mlp"], h, cfg.act_fn)
+
+
+def _arange(n: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.arange(n, dtype=torch.int32, device=like.device)
 
 
 # ==========================================================================
@@ -270,12 +349,12 @@ def forward(params: dict, cfg: ArchConfig, batch: dict, *, fault=None,
             kv_chunk: int = 1024) -> torch.Tensor:
     """Full-sequence logits, the groups as a loop.
 
-    batch: ``{"tokens": [B, S]}`` or ``{"embeds": [B, S, D]}``.
-    fault: optional ``(w_rates, a_rates, seed)``; rates ``[L]`` give
-    ``[B, S, V]``, rates ``[R, L]`` run R candidates and give
-    ``[R, B, S, V]``.
+    batch: ``{"tokens": [B, S]}`` or ``{"embeds": [B, S, D]}``, and for
+    the encoder-decoder ``{"enc_embeds": [B, Se, D]}`` too.
+    fault: optional ``(w_rates, a_rates, seed)``, rates indexed by layer
+    (encoder layers first); rates ``[L]`` give ``[B, S, V]``, rates
+    ``[R, L]`` run R candidates and give ``[R, B, S, V]``.
     """
-    check_supported(cfg)
     if fault is not None:
         wr, single = _single_or_rows(fault[0])
         ar, _ = _single_or_rows(fault[1])
@@ -283,18 +362,35 @@ def forward(params: dict, cfg: ArchConfig, batch: dict, *, fault=None,
         R = wr.shape[0]
     else:
         single, R = True, 1
-    x = _embed_batch(cfg, params["embed"], _rows(batch, R))
-    positions = torch.arange(x.shape[2], dtype=torch.int32, device=x.device)
-    P = len(cfg.block_pattern)
-    for g in range(cfg.n_groups):
-        for s, kind in enumerate(cfg.block_pattern):
-            lidx = g * P + s
-            if lidx >= cfg.n_layers:
-                continue
-            p = tree_map(lambda t: t[g], params["groups"][f"b{s}"])
-            fr = None if fault is None else _unit_rates(*fault, lidx)
-            x = _block_fwd(cfg, kind, p, x, positions, fault_rates=fr,
-                           kv_chunk=kv_chunk)
+
+    def rates(i):
+        return None if fault is None else _unit_rates(*fault, i)
+
+    rows = _rows(batch, R)
+    x = _embed_batch(cfg, params["embed"], rows)
+    positions = _arange(x.shape[2], x)
+    if cfg.is_encdec:
+        ne = cfg.n_enc_layers
+        mem = rows["enc_embeds"]
+        enc_pos = _arange(mem.shape[2], mem)
+        for i in range(ne):
+            p = tree_map(lambda t: t[i], params["enc_groups"])
+            mem = _enc_block_fwd(cfg, p, mem, enc_pos, fault_rates=rates(i))
+        mem = L.norm_fwd(params["enc_norm"], mem, cfg.norm_kind)
+        for g in range(cfg.n_layers):
+            p = tree_map(lambda t: t[g], params["groups"])
+            x = _dec_block_fwd(cfg, p, x, positions, mem, enc_pos,
+                               fault_rates=rates(ne + g), kv_chunk=kv_chunk)
+    else:
+        P = len(cfg.block_pattern)
+        for g in range(cfg.n_groups):
+            for s, kind in enumerate(cfg.block_pattern):
+                lidx = g * P + s
+                if lidx >= cfg.n_layers:
+                    continue
+                p = tree_map(lambda t: t[g], params["groups"][f"b{s}"])
+                x = _block_fwd(cfg, kind, p, x, positions,
+                               fault_rates=rates(lidx), kv_chunk=kv_chunk)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     logits = _unembed_unit(cfg, {"final_norm": params["final_norm"],
                                  "head": head}, x)
@@ -317,54 +413,89 @@ def _unit_rates(w_rates, a_rates, seed, i: int):
 
 class LMStepModel:
     """Addressable per-unit view of the LM stack, the counterpart of the
-    reference's ``LMStepModel`` (``transformer.py:420-720``) for the
-    decoder-only stacks.
+    reference's ``LMStepModel`` (``transformer.py:420-717``).
 
-    Unit *i* is layer *i* (``block_pattern`` cyclic), in the order of the
-    fault-rate vectors and ``models.graph.lm_layer_infos``.  Unit 0 also
-    owns the never-corrupted embedding, the final unit the final norm and
-    the head.  ``step(i, p, x, wr, ar, seed)`` takes ``x`` with its row
-    axis: at unit 0 the batch dict (``{"tokens": [R, B, S]}``), then
-    ``[R, B, S, D]``; the final unit returns logits ``[R, B, S, V]``.
-    ``segment`` composes a run of units and ``apply`` is the whole model,
-    so staged and whole-forward evaluation run the same code.
+    Unit *i* is layer *i* (``block_pattern`` cyclic; for the
+    encoder-decoder the encoder layers first, then the decoder's), in the
+    order of the fault-rate vectors and ``models.graph.lm_layer_infos``.
+    Unit 0 also owns the never-corrupted embedding, the final unit the
+    final norm and the head; in the encoder-decoder the last encoder unit
+    owns the encoder's norm and the first decoder unit the embedding.
+    ``step(i, p, x, wr, ar, seed)`` takes ``x`` with its row axis: at unit
+    0 the batch dict (``{"tokens": [R, B, S]}``, plus ``{"enc_embeds":
+    [R, B, Se, D]}``), then ``[R, B, S, D]``; the final unit returns
+    logits ``[R, B, S, V]``.  ``segment`` composes a run of units and
+    ``apply`` is the whole model, so staged and whole-forward evaluation
+    run the same code.
+
+    The encoder-decoder's carries are lean, as in the reference: the
+    encoder units carry the encoder's hidden state, the last one returns
+    the memory, the decoder units carry ``{"x", "mem"}``.  The decoder's
+    input is never carried: the model is built with ``batch=`` (the fixed
+    calibration batch of a search), which the first decoder unit reads,
+    and the staged engine stores the memory once per encoder prefix
+    (``shared_carry_fields={"mem": n_enc_layers - 1}``).
 
     ``bits``/``faulty_bits`` pin the fixed-point fault width (e.g. from
     ``FaultSpec``); None takes the ``layers`` module defaults.
     """
 
     def __init__(self, cfg: ArchConfig, bits: int | None = None,
-                 faulty_bits: int | None = None,
+                 faulty_bits: int | None = None, batch: dict | None = None,
                  fault_model: str | None = None,
                  mbu_width: int | None = None):
-        check_supported(cfg)
         self.cfg = cfg
         self.fault_bits = None if bits is None and faulty_bits is None \
             else (bits, faulty_bits)
         self.fault_model = None \
             if fault_model is None and mbu_width is None \
             else (fault_model, mbu_width)
-        self.n_units = cfg.n_layers
+        self.n_units = cfg.n_enc_layers + cfg.n_layers if cfg.is_encdec \
+            else cfg.n_layers
+        if cfg.is_encdec and batch is None:
+            raise ValueError(
+                "the encoder-decoder's LMStepModel needs the calibration "
+                "batch bound at construction, LMStepModel(cfg, batch=batch): "
+                "the first decoder unit reads its decoder input, which the "
+                "encoder's carries do not hold")
+        self._batch = batch
 
     # -- structure ----------------------------------------------------------
     def unit_kind(self, i: int) -> str:
-        return self.cfg.block_pattern[i % len(self.cfg.block_pattern)]
+        cfg = self.cfg
+        if cfg.is_encdec:
+            return "enc" if i < cfg.n_enc_layers else "dec"
+        return cfg.block_pattern[i % len(cfg.block_pattern)]
 
     def unit_params(self, params: dict) -> list[dict]:
         """Slice the stacked tree into per-unit trees: the block under
         ``"block"`` (what fault injection corrupts), boundary params under
-        ``embed`` / ``final_norm`` + ``head`` (never corrupted)."""
-        P = len(self.cfg.block_pattern)
+        ``embed`` / ``enc_norm`` / ``final_norm`` + ``head`` (never
+        corrupted)."""
+        cfg = self.cfg
+        if cfg.is_encdec:
+            ne = cfg.n_enc_layers
+            blocks = [tree_map(lambda t, i=i: t[i], params["enc_groups"])
+                      for i in range(ne)]
+            blocks += [tree_map(lambda t, j=j: t[j], params["groups"])
+                       for j in range(cfg.n_layers)]
+            first, last_enc = ne, ne - 1
+        else:
+            P = len(cfg.block_pattern)
+            blocks = [tree_map(lambda t, g=i // P: t[g],
+                               params["groups"][f"b{i % P}"])
+                      for i in range(self.n_units)]
+            first, last_enc = 0, None
         units = []
-        for i in range(self.n_units):
-            g, s = divmod(i, P)
-            u = {"block": tree_map(lambda t, g=g: t[g],
-                                   params["groups"][f"b{s}"])}
-            if i == 0:
+        for i, block in enumerate(blocks):
+            u = {"block": block}
+            if i == first:
                 u["embed"] = params["embed"]
+            if i == last_enc:
+                u["enc_norm"] = params["enc_norm"]
             if i == self.n_units - 1:
                 u["final_norm"] = params["final_norm"]
-                u["head"] = params["embed"] if self.cfg.tie_embeddings \
+                u["head"] = params["embed"] if cfg.tie_embeddings \
                     else params["lm_head"]
             units.append(u)
         return units
@@ -426,16 +557,77 @@ class LMStepModel:
         """Unit *i*'s fault injection + compute + boundary glue, on rows."""
         cfg = self.cfg
         fr = None if (wr is None and ar is None) else (wr, ar, seed)
+        if cfg.is_encdec:
+            return self._step_encdec(i, p, x, fr)
         if i == 0:
             x = _embed_batch(cfg, p["embed"], x)
-        positions = torch.arange(x.shape[2], dtype=torch.int32,
-                                 device=x.device)
+        positions = _arange(x.shape[2], x)
         x = _block_fwd(cfg, self.unit_kind(i), p["block"], x, positions,
                        fault_rates=fr, fault_bits=self.fault_bits,
                        fault_model=self.fault_model)
         if i == self.n_units - 1:
             x = _unembed_unit(cfg, p, x)
         return x
+
+    @staticmethod
+    def _dec_input(batch: dict) -> dict:
+        """The decoder-side entries of an encoder-decoder batch:
+        ``{"tokens"}`` or the stub frontend's ``{"embeds"}``."""
+        return {k: batch[k] for k in ("tokens", "embeds") if k in batch}
+
+    def _check_dec_input(self, x: dict):
+        """The decoder reads the batch bound at construction, so a unit-0
+        input whose decoder entries differ from it would mix two batches:
+        refuse it.  A row-expanded view of the bound tensor (the
+        evaluator's path) is accepted without reading the card; anything
+        else is compared by value."""
+        for k in ("tokens", "embeds"):
+            a, b = x.get(k), self._batch.get(k)
+            if a is b:
+                continue
+            if a is not None and b is not None:
+                b = torch.as_tensor(b, device=a.device)
+                if (a.dtype == b.dtype and a.ndim == b.ndim + 1
+                        and a.shape[1:] == b.shape
+                        and (a.stride(0) == 0 and a.stride()[1:] == b.stride()
+                             and a.data_ptr() == b.data_ptr()
+                             or bool(torch.equal(a, b.expand_as(a))))):
+                    continue
+            raise ValueError(
+                f"the encoder-decoder's step/apply received a decoder input "
+                f"{k!r} that differs from the batch bound at construction; "
+                f"the decoder reads the bound batch, so this call would mix "
+                f"two batches: build the LMStepModel with batch=<this batch>")
+
+    def _step_encdec(self, i: int, p: dict, x, fr):
+        """The lean carries: the encoder's hidden state ``[R, B, Se, D]``
+        through the encoder units (unit 0 takes the batch dict, the last
+        returns the memory), ``{"x", "mem"}`` through the decoder units.
+        The first decoder unit embeds the bound batch's decoder input."""
+        cfg = self.cfg
+        ne = cfg.n_enc_layers
+        kw = dict(fault_rates=fr, fault_bits=self.fault_bits,
+                  fault_model=self.fault_model)
+        if i < ne:
+            if i == 0:
+                self._check_dec_input(x)
+                x = x["enc_embeds"]
+            x = _enc_block_fwd(cfg, p["block"], x, _arange(x.shape[2], x),
+                               **kw)
+            if i == ne - 1:
+                return L.norm_fwd(p["enc_norm"], x, cfg.norm_kind)
+            return x
+        if i == ne:
+            dec = {k: torch.as_tensor(v, device=x.device) for k, v in
+                   self._dec_input(self._batch).items()}
+            x = {"x": _embed_batch(cfg, p["embed"], _rows(dec, x.shape[0])),
+                 "mem": x}
+        h, mem = x["x"], x["mem"]
+        h = _dec_block_fwd(cfg, p["block"], h, _arange(h.shape[2], h), mem,
+                           _arange(mem.shape[2], mem), **kw)
+        if i == self.n_units - 1:
+            return _unembed_unit(cfg, p, h)
+        return {"x": h, "mem": mem}
 
     def segment(self, start: int, params: list[dict], x, w_rates=None,
                 a_rates=None, seed=0):

@@ -307,8 +307,8 @@ def test_fault_matmul_bf16_rows_across_groups(dev, monkeypatch, dtype):
     ops.reset_launches()
     many = ops.fault_matmul(x, qw, scale, 9, rates, 6)
     assert ops.launches == {"bitflip": 0, "quant_bitflip": 0,
-                            "fault_matmul": 0, "fault_weight_tiles": 3,
-                            "matmul_tiles": 3}
+                            "fault_matmul": 0, "fault_matmul_bf16w": 0,
+                            "fault_weight_tiles": 3, "matmul_tiles": 3}
     for r in range(5):
         one = ops.fault_matmul(x[r:r + 1].contiguous(), qw, scale, 9,
                                rates[r:r + 1], 6)
@@ -380,3 +380,160 @@ def test_matmul_tiles_rows_match_one_row_calls(dev, shape):
     for r in range(3):
         one = ops.matmul_tiles(x[r:r + 1].contiguous(), tiles[r:r + 1], K, N)
         assert _same_bits(many[r:r + 1], one)
+
+
+@pytest.mark.parametrize("model", FAULT_MODELS)
+@pytest.mark.parametrize("shape", [(256, 1024, 1024), (135, 300, 77),
+                                   (256, 4096, 1024)])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16])
+def test_fault_matmul_f32_x_bf16_weights(dev, model, shape, dtype):
+    """float32 x on a bf16 weight dtype (the encoder-decoder's encoder):
+    float(bf16(q' scale)) bitwise at x = I_K, within the fp32 accumulation
+    bound of the plain version at random x, float32 out, counted under
+    ``fault_matmul_bf16w``; each row of an R-row call bitwise its one-row
+    call."""
+    M, K, N = shape
+    hi = 127 if dtype == torch.int8 else 2 ** 14
+    qw = torch.randint(-hi, hi, (K, N), dtype=dtype, device=dev)
+    rates = torch.tensor([0.0, 1e-3, 0.2], device=dev)
+    scale = torch.tensor(0.0123, device=dev)
+    bf = torch.bfloat16
+    w = ref.bitflip_ref(qw, 7, rates, 6, fault_model=model,
+                        scale=scale).to(bf).float()
+    eye = torch.eye(K, device=dev).expand(3, K, K).contiguous()
+    ops.reset_launches()
+    got = ops.fault_matmul(eye, qw, scale, 7, rates, 6, fault_model=model,
+                           out_dtype=bf)
+    assert got.dtype == torch.float32 and _same_bits(got, w)
+    assert ops.launches["fault_matmul_bf16w"] == 1
+    assert ops.launches["fault_matmul"] == 0
+    x = torch.randn(3, M, K, device=dev)
+    got = ops.fault_matmul(x, qw, scale, 7, rates, 6, fault_model=model,
+                           out_dtype=bf)
+    want = ref.fault_matmul_ref(x, qw, scale, 7, rates, 6,
+                                fault_model=model, out_dtype=bf)
+    tol = 2 * K * 2.0 ** -24 * torch.matmul(x.abs(), w.abs())
+    assert bool(((got - want).abs() <= tol).all())
+    for r in range(3):
+        one = ops.fault_matmul(x[r:r + 1].contiguous(), qw, scale, 7,
+                               rates[r:r + 1], 6, fault_model=model,
+                               out_dtype=bf)
+        assert _same_bits(got[r:r + 1], one)
+
+
+def test_flash_attention_waits_on_nothing(dev):
+    """The attention's mask value is a Python scalar: a causal, a windowed
+    and a memory attention run with the host never waiting on the card,
+    bitwise what the tensor constant gave."""
+    from repro_torch.models import layers as TL
+    q = torch.randn(2, 64, 4, 16, device=dev).to(torch.bfloat16)
+    k = torch.randn(2, 64, 2, 16, device=dev).to(torch.bfloat16)
+    mem = torch.randn(2, 9, 2, 16, device=dev)
+    pos = torch.arange(64, dtype=torch.int32, device=dev)
+    mpos = torch.arange(9, dtype=torch.int32, device=dev)
+    cases = ((k, k, pos, {}), (k, k, pos, dict(window=8, kv_chunk=16)),
+             (mem, mem, mpos, dict(causal=False, kv_chunk=4)))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [TL.flash_attention(q, kk, vv, pos, pk, **kw)
+                for kk, vv, pk, kw in cases]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    real_where = torch.where
+
+    def tensor_where(c, a, b):
+        if isinstance(b, float):
+            b = torch.tensor(b, dtype=a.dtype, device=a.device)
+        return real_where(c, a, b)
+
+    torch.where = tensor_where
+    try:
+        for out, (kk, vv, pk, kw) in zip(outs, cases):
+            assert torch.equal(out, TL.flash_attention(q, kk, vv, pos, pk,
+                                                       **kw))
+    finally:
+        torch.where = real_where
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_encdec_staged_matches_full_on_card(dev, dtype):
+    """The reduced encoder-decoder under the kernel backend on the card:
+    staged (fused, chunks of 3) bitwise the whole forward, the memory once
+    per encoder prefix, and the float32-x route launched (its encoder)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import FaultSpec, make_lm_accuracy_evaluator
+    from repro_torch.core.eval_engine import PrefixRef
+    from repro_torch.lm_setup import lm_calibration_setup
+    cfg = dataclasses.replace(get_config("seamless-m4t-medium").reduced(),
+                              dtype=dtype)
+    params, batch, labels = lm_calibration_setup(cfg, B=2, S=32, device=dev)
+    ne, L = cfg.n_enc_layers, cfg.n_enc_layers + cfg.n_layers
+    P = np.random.default_rng(0).integers(0, 4, size=(10, L))
+    P[:5, :ne] = P[0, :ne]
+    scale = np.array([0.0, 0.5, 1.0, 2.0], np.float32)
+    res = {}
+    for strategy, ebs in (("full", 1), ("staged", 3)):
+        ev = make_lm_accuracy_evaluator(
+            cfg, params, batch, labels, FaultSpec(bits=8, faulty_bits=4),
+            scale, fault_backend="kernel", eval_strategy=strategy,
+            eval_batch_size=ebs, device=dev)
+        ops.reset_launches()
+        res[strategy] = ev.delta_acc(P)
+        assert ops.launches["fault_matmul_bf16w" if dtype == "bfloat16"
+                            else "fault_matmul"] > 0
+    np.testing.assert_array_equal(res["staged"], res["full"])
+    store = ev._prefix_engine.store._store
+    assert sum(len(k) == ne for k in store) == len({tuple(r[:ne]) for r in P})
+    assert all(isinstance(a["mem"], PrefixRef)
+               for k, a in store.items() if len(k) > ne)
+
+
+def test_online_loop_kernel_backend_on_card(dev):
+    """The online loop on a small ResNet18 under the kernel backend on the
+    card: a swap at the step, no rebuild, and a drained ReoptJob equal to
+    the synchronous step."""
+    from repro_torch.cnn_setup import clean_argmax_labels, make_evaluator
+    from repro_torch.core import (PAPER_DEVICES, AFarePart, FaultEnvironment,
+                                  FaultSpec, NSGA2Config,
+                                  OnlineReconfigurator, simulate_deployment)
+    from repro_torch.models.cnn import ResNet18
+    params = ResNet18.init(11, 16, width=0.5, img=32, device=dev)
+    labels = clean_argmax_labels("resnet18", params, 64, device=dev)
+    assert len(torch.unique(labels)) >= 2, "probe collapsed"
+    spec = FaultSpec(weight_fault_rate=0.2, act_fault_rate=0.2,
+                     faulty_bits=4, bits=8)
+    layers = ResNet18.layer_infos(num_classes=16, width=0.5, img=32)
+    base = np.array([d.fault_scale for d in PAPER_DEVICES])
+    shifted = base * np.array([1.0, 25.0])
+
+    def loop():
+        ev = make_evaluator("resnet18", params, spec, n_eval=64,
+                            labels=labels, device=dev)
+        part = AFarePart(layers, PAPER_DEVICES, acc_evaluator=ev,
+                         nsga2_config=NSGA2Config(8, 2, seed=0))
+        plan = part.optimize()
+
+        def observe(p, scales):
+            ev.device_fault_scale = np.asarray(scales, np.float32)
+            return float(ev.delta_acc(np.asarray(p)[None])[0])
+
+        rec = OnlineReconfigurator(part, plan, theta=-1.0, observe_fn=observe,
+                                   reopt_generations=2)
+        return ev, rec, observe, plan
+
+    ev, rec, *_ = loop()
+    log = simulate_deployment(rec, FaultEnvironment(base, {1: shifted}), 2)
+    assert len(log["events"]) == 2 and ev._fault_env_rebuilds == 0
+    ev1, rec1, _, _ = loop()
+    rec1.step(1, shifted)
+    ev2, rec2, obs2, plan2 = loop()
+    job = rec2.start_reconfigure(1, obs2(plan2.partition, shifted), shifted)
+    while not job.advance(1):
+        pass
+    a, b = rec1.events[0], rec2.events[0]
+    np.testing.assert_array_equal(a.new_partition, b.new_partition)
+    assert a.new_predicted_delta_acc == b.new_predicted_delta_acc
+    assert ev2._fault_env_rebuilds == 0

@@ -42,7 +42,7 @@ def test_scan_sees_every_kernel_source_module():
     assert {"ops.py", "ref.py", "faultmodel.py", "_build.py", "cnn.py",
             "objectives.py", "chip_smoke.py", "host_cost.py",
             "transformer.py", "graph.py", "lm_setup.py", "registry.py",
-            "base.py", "olmo_1b.py"} <= names
+            "base.py", "olmo_1b.py", "runtime.py"} <= names
 
 
 def test_entry_points_refuse_cuda_without_a_card(monkeypatch):

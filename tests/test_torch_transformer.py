@@ -121,18 +121,16 @@ def test_config_graph_and_strategy_match_reference(arch):
                                   "seamless-m4t-medium", "recurrentgemma-2b",
                                   "arctic-480b"])
 def test_unported_families_raise(arch):
-    """Only the encoder-decoder (seamless-m4t-medium) still raises, naming
-    Queue A item 11.  The MoE, RG-LRU and SSD families build: the step
-    model has a unit a layer, ``init_lm`` the reference's tree layout, and
-    a reference tree carries across leaf for leaf."""
+    """Every family builds now (the name is kept from when some raised):
+    the step model has a unit a layer (``n_enc_layers + n_layers`` for the
+    encoder-decoder, seamless-m4t-medium), ``init_lm`` the reference's tree
+    layout, and a reference tree carries across leaf for leaf."""
     cfg = get_config(arch).reduced()
     if cfg.is_encdec:
-        with pytest.raises(NotImplementedError, match="Queue A item 11"):
-            T.LMStepModel(cfg)
-        with pytest.raises(NotImplementedError, match="Queue A item 11"):
-            T.init_lm(cfg, device="cpu")
-        return
-    assert T.LMStepModel(cfg).n_units == cfg.n_layers
+        assert T.LMStepModel(cfg, batch={}).n_units == \
+            cfg.n_enc_layers + cfg.n_layers
+    else:
+        assert T.LMStepModel(cfg).n_units == cfg.n_layers
     jcfg = jget(arch).reduced()
     jp = JT.init_lm(jcfg, jax.random.PRNGKey(0))
     tp = T.init_lm(cfg, seed=3, device="cpu")
