@@ -58,9 +58,12 @@ Phases (any failure raises, and the process exits nonzero):
      weights (``out_dtype=bfloat16``, the encoder's projections and the
      cross-attention K/V, M = B Se = 8 x 32 = 256) at 1024x1024, 1024x4096
      and 4096x1024, int8, all four fault models, bitwise
-     float(bf16(q' scale)) at x = I_K and at random x within
-     2 K 2^-24 (|x| @ |w|) of its plain version, timed beside
-     ``torch.matmul`` on the same float32 operands; bf16 x at the
+     float(bf16(q' scale)) at x = I_K, at random x within
+     2 K 2^-24 (|x| @ |w|) of its plain version, each of 3 rows bitwise
+     its one-row call; its product alone (``matmul_tiles_f32``) within the
+     same bound of its plain version on the hash pass's W'; the call and
+     the product each timed beside ``torch.matmul`` on the same float32
+     operands and its own bound; bf16 x at the
      decoder's shapes (M = 2048) as at olmo-1b's; ``quant_bitflip``
      bitwise at [1, 8, 32, 1024] float32 and [1, 8, 256, 1024] bf16; and
      ``bitflip`` bitwise on a [1024] LayerNorm leaf dequantized to bf16.
@@ -165,8 +168,11 @@ each a row group; ``full_launches`` phase 4's; ``lm_launches`` /
 ``rg_launches`` / ``rg_full_launches`` phase 10's, ``mixtral_launches`` /
 ``mamba2_launches`` phase 10b's, ``seamless_launches`` /
 ``seamless_full_launches`` phase 11's (the main path of
-``fault_matmul_bf16w``, ``fault_matmul``'s float32-x route on bf16
-weights), ``reconfig_launches`` phase 12's drained re-optimization;
+``matmul_tiles_f32``, the product of ``fault_matmul``'s float32-x route
+on bf16 weights, and of that route's entry ``fault_matmul_bf16w``, whose
+launches are its calls' row groups: one hash pass, counted under
+``fault_weight_tiles``, and one ``matmul_tiles_f32`` each),
+``reconfig_launches`` phase 12's drained re-optimization;
 ``lm_shapes`` the LM shapes of phase 3.  Then come the card's
 ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -187,12 +193,15 @@ the guide's table has no integer ALU rate).
     projections the hash.  (The SIMT body of int16/int32 weights with
     float32 x would be bound by fp32 FMAs at 67 TFLOP/s; the CNN path
     stores int8.)  float32 x on bf16 weights (``fault_matmul_bf16w``)
-    takes the same bound as float32 x: the work could run as three exact
-    bf16 products of the split x, though the kernel runs fp32 FMAs.
+    takes the same bound as float32 x; it runs as the hash pass and
+    three exact bf16 products of the split x.
   * ``fault_weight_tiles`` (bf16 x's hash pass): K N planes draws, or
     its bytes (qw read, W' written).
   * ``matmul_tiles`` (bf16 x's product): 2 M K N at 989 TFLOP/s, or its
     bytes (x and W' read, out written).
+  * ``matmul_tiles_f32`` (the float32-x route's product): 3 x 2 M K N at
+    989 TFLOP/s (the three parts of x), or its bytes (float32 x and W'
+    read, float32 out written).
 Rates are the H100 SXM's published peaks at 700 W.
 """
 from __future__ import annotations
@@ -942,8 +951,10 @@ def check_encdec_kernels(dev, records):
     """Phase 3 at the shapes of phase 11 (see the docstring), at
     ``LM_FAULTY_BITS``: ``fault_matmul`` on float32 x with bf16 weights at
     the encoder's three shapes, bitwise float(bf16(q' scale)) at x = I_K
-    and at random x within 2 K 2^-24 (|x| @ |w|) of its plain version,
-    int8, all four fault models; bf16 x at the decoder's three shapes as
+    and at random x, with its product alone (``matmul_tiles_f32``), within
+    2 K 2^-24 (|x| @ |w|) of its plain version, each row bitwise its
+    one-row call, int8, all four fault models; bf16 x at the decoder's
+    three shapes as
     at olmo-1b's; ``quant_bitflip`` bitwise at the encoder's float32 and
     the decoder's bf16 unit inputs; ``bitflip`` bitwise on a [1024]
     LayerNorm leaf dequantized to bf16; each one timed."""
@@ -957,14 +968,14 @@ def check_encdec_kernels(dev, records):
     rates = torch.tensor([0.0, 1e-3, LM_RATE], device=dev)
     one = rates[-1:]
     scale = torch.tensor(0.0123, device=dev)
-    enc_out, worst = [], 0.0
+    enc_out, enc_prod, worst = [], [], 0.0
     with torch.no_grad(), fp32_exact():
         for label, M, K, N in ENC_MATMUL_SHAPES:
             qw = torch.randint(-128, 128, (K, N), device=dev,
                                dtype=torch.int8, generator=gen)
             eye = torch.eye(K, device=dev).expand(3, K, K).contiguous()
             x = torch.randn(3, M, K, device=dev, generator=gen)
-            err_max = 0.0
+            err_max = prod_err = 0.0
             for model in FAULT_MODELS:
                 w = ref.bitflip_ref(qw, 7927, rates, fb, fault_model=model,
                                     scale=scale).to(bf16).float()
@@ -986,16 +997,41 @@ def check_encdec_kernels(dev, records):
                         f"max err {err.max().item():.3g} above the bound")
                 err_max = max(err_max, err.max().item())
                 worst = max(worst, (err / tol).max().item())
-                del k, p, tol, err, w
+                for r in range(3):
+                    if not bits_equal(k[r:r + 1], ops.fault_matmul(
+                            x[r:r + 1].contiguous(), qw, scale, 7927,
+                            rates[r:r + 1], fb, fault_model=model,
+                            out_dtype=bf16)):
+                        raise AssertionError(
+                            f"fault_matmul float32 x bf16 w {label} {model}"
+                            f": row {r} differs from its one-row call")
+                # the product alone, on the hash pass's W'
+                t = ops.fault_weight_tiles(qw, scale, 7927, rates, fb,
+                                           fault_model=model)
+                k = ops.matmul_tiles_f32(x, t, K, N)
+                p = ref.matmul_tiles_f32_ref(x, t, K, N)
+                err = (k - p).abs()
+                if not bool((err <= tol).all()):
+                    raise AssertionError(
+                        f"matmul_tiles_f32 {label} {model}: max err "
+                        f"{err.max().item():.3g} above the bound")
+                prod_err = max(prod_err, err.max().item())
+                worst = max(worst, (err / tol).max().item())
+                del k, p, tol, err, w, t
             del eye
             x1 = x[:1].contiguous()
             w1 = (qw.float() * scale).to(bf16).float()
+            n_tiles = ref.tile_elems(K, N)
             b_ms, b_by = bound(4 * M * K + K * N + 4 * M * N,
                                tc_flops=3 * 2 * M * K * N,
                                int_ops=K * N * fb * HASH_OPS_PER_DRAW)
+            p_ms, p_by = bound(4 * M * K + 2 * n_tiles + 4 * M * N,
+                               tc_flops=3 * 2 * M * K * N)
+            lib_ms = device_ms(lambda: torch.matmul(x1, w1))
+            splits = ops._k_splits(M, K, N, "f32w", dev)
+            shape = f"[1,{M},{K}] float32 x [{K},{N}] int8, bf16 weights"
             enc_out.append(dict(
-                label=label, shape=f"[1,{M},{K}] float32 x [{K},{N}] int8, "
-                                   "bf16 weights",
+                label=label, shape=shape,
                 ms=device_ms(lambda: ops.fault_matmul(
                     x1, qw, scale, 1, one, fb, out_dtype=bf16)),
                 wrapper_ms=time_ms(lambda: ops.fault_matmul(
@@ -1003,16 +1039,27 @@ def check_encdec_kernels(dev, records):
                 plain_ms=time_ms(lambda: ref.fault_matmul_ref(
                     x1, qw, scale, 1, one, fb, out_dtype=bf16), iters=3,
                     warmup=1),
-                library_ms=device_ms(lambda: torch.matmul(x1, w1)),
-                bound_ms=b_ms, bound_by=b_by, max_abs_err=err_max,
-                splits=ops._k_splits(M, K, N, "simt", dev)))
-            del qw, x, x1, w1
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=err_max, splits=splits))
+            tiles = ops.fault_weight_tiles(qw, scale, 1, one, fb)
+            enc_prod.append(dict(
+                label=label, shape=shape,
+                ms=device_ms(lambda: ops.matmul_tiles_f32(x1, tiles, K, N)),
+                wrapper_ms=time_ms(lambda: ops.matmul_tiles_f32(
+                    x1, tiles, K, N), iters=10),
+                plain_ms=time_ms(lambda: ref.matmul_tiles_f32_ref(
+                    x1, tiles, K, N), iters=3, warmup=1),
+                library_ms=lib_ms, bound_ms=p_ms, bound_by=p_by,
+                max_abs_err=prod_err, splits=splits))
+            del qw, x, x1, w1, tiles
         log(f"phase3 fault_matmul float32 x bf16 weights at "
             f"{[s[1:] for s in ENC_MATMUL_SHAPES]}: x=I_K bitwise "
-            f"float(bf16(q' scale)); random x within 2K2^-24(|x|@|w|) (worst "
-            f"ratio to it {worst:.3g}), int8 x {FAULT_MODELS} at {fb} faulty "
-            "bits, rates 0,1e-3,0.2")
+            f"float(bf16(q' scale)); random x, the call and its product "
+            f"alone, within 2K2^-24(|x|@|w|) (worst ratio to it "
+            f"{worst:.3g}); 3 rows each bitwise its one-row call; int8 x "
+            f"{FAULT_MODELS} at {fb} faulty bits, rates 0,1e-3,0.2")
         records["fault_matmul_bf16w"].update(enc_out[0], shapes=enc_out)
+        records["matmul_tiles_f32"].update(enc_prod[0], shapes=enc_prod)
 
         out, hash_out, prod_out = [], [], []
         worst = 0.0
@@ -1090,7 +1137,8 @@ def check_encdec_kernels(dev, records):
         log(f"phase3 bitflip [1024] int8: bitwise equal to plain, integers "
             f"out and dequantized to bf16, {FAULT_MODELS}, {fb} faulty bits")
     torch.cuda.empty_cache()
-    for name, rs in (("fault_matmul_bf16w", enc_out), ("fault_matmul", out),
+    for name, rs in (("fault_matmul_bf16w", enc_out),
+                     ("matmul_tiles_f32", enc_prod), ("fault_matmul", out),
                      ("fault_weight_tiles", hash_out),
                      ("matmul_tiles", prod_out), ("quant_bitflip", qb_rows),
                      ("bitflip", [bf_row])):
@@ -1103,11 +1151,29 @@ def check_encdec_kernels(dev, records):
                 + (f", {r['splits']} K slices" if "splits" in r else ""))
 
 
+def launch_counts() -> dict:
+    """``ops.launches`` with the float32-x, bf16-weight route's entry
+    ``fault_matmul_bf16w`` added: its row groups, each one hash pass
+    (counted under ``fault_weight_tiles``) and one ``matmul_tiles_f32``
+    launch."""
+    from repro_torch.kernels import ops
+    counts = dict(ops.launches)
+    counts["fault_matmul_bf16w"] = counts["matmul_tiles_f32"]
+    return counts
+
+
+# the SIMT body of fault_matmul (float32 x on int16/int32 storage with a
+# float32 weight dtype), a group of its own so a profile shows whether it
+# ran
+SIMT_GROUP = "fault_matmul SIMT"
+
+
 def kernel_group(key: str, other: str = "convolution") -> str:
     """The group a profiled device kernel belongs to: one of the port's
-    three kernels, or what PyTorch and the libraries run around them
-    (``other``: cuDNN's convolutions on the CNN path, cuBLAS's products on
-    the transformer path)."""
+    kernels (the float32 split-K sums count under ``fault_matmul``), or
+    what PyTorch and the libraries run around them (``other``: cuDNN's
+    convolutions on the CNN path, cuBLAS's products on the transformer
+    path)."""
     if "quant_bitflip_kernel" in key or "amax_kernel" in key:
         return "quant_bitflip"
     if "bitflip_kernel" in key:
@@ -1117,9 +1183,11 @@ def kernel_group(key: str, other: str = "convolution") -> str:
     if "bfp::product_kernel" in key or "sum_splits_kernel<__nv_bfloat16>" \
             in key:
         return "matmul_tiles"
-    if "simt::kernel" in key and "true>" in key:
-        return "fault_matmul_bf16w"
-    if "tc::kernel" in key or "simt::kernel" in key or "sum_splits" in key:
+    if "fwp::product_kernel" in key:
+        return "matmul_tiles_f32"
+    if "simt::kernel" in key:
+        return SIMT_GROUP
+    if "tc::kernel" in key or "sum_splits" in key:
         return "fault_matmul"
     if "Memcpy" in key or "Memset" in key:
         return "copies"
@@ -1191,7 +1259,7 @@ def staged_phase(dev, params, labels, spec, layers, cfg, full_plan, full_rows,
                      nsga2_config=cfg).optimize()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(ops.launches)
+    launches = launch_counts()
     st = s_ev.staged_stats()
     peak = torch.cuda.max_memory_allocated(dev)
     log(f"phase8 AFarePart staged+fused: {wall:.3f} s wall against "
@@ -1417,7 +1485,7 @@ def _lm_search(tag, dev, cfg, fixture, nsga, tokens, faulty_bits,
                           nsga2_config=nsga).optimize()
     sync()
     s_wall = time.perf_counter() - t0
-    s_launches = dict(ops.launches)
+    s_launches = launch_counts()
     st = s_ev.staged_stats()
     peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
     store_peak = s_ev._prefix_engine.store.peak_nbytes
@@ -1433,7 +1501,7 @@ def _lm_search(tag, dev, cfg, fixture, nsga, tokens, faulty_bits,
                             eval_strategy="full", nsga2_config=nsga).optimize()
     sync()
     f_wall = time.perf_counter() - t0
-    f_launches = dict(ops.launches)
+    f_launches = launch_counts()
     log(f"{tag} lm_partitioner staged+fused: {s_wall:.3f} s wall, launches "
         f"{s_launches}; full: {f_wall:.3f} s wall, launches {f_launches}")
     log(f"{tag} staged stats {json.dumps(st)}; peak store bytes "
@@ -1613,7 +1681,7 @@ def lm_phase(dev, records, cfg=None, sc_cfg=None, B=LM_B, S=LM_S,
     ops.reset_launches()
     d = sc_ev.delta_acc(P)
     sync()
-    sc_launches = dict(ops.launches)
+    sc_launches = launch_counts()
     log(f"phase9 {sc_cfg.name} at depth {sc_cfg.n_layers} (d_model "
         f"{sc_cfg.d_model}, kv heads {sc_cfg.n_kv_heads}, d_ff {sc_cfg.d_ff}, "
         f"vocab {sc_cfg.vocab}): dAcc {np.round(d, 4).tolist()} in "
@@ -1750,7 +1818,7 @@ def family_phase(dev, records, rg_cfg=None, mx_cfg=None, mb_cfg=None,
         d = ev.delta_acc(P)
         sync()
         wall = time.perf_counter() - t1
-        launches = dict(ops.launches)
+        launches = launch_counts()
         peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
         log(f"phase10b {cfg.name} at depth {cfg.n_layers} of "
             f"{cfg.block_pattern} (d_model {cfg.d_model}, "
@@ -1780,8 +1848,8 @@ def family_phase(dev, records, rg_cfg=None, mx_cfg=None, mb_cfg=None,
 # the kernels seamless-m4t-medium's path must launch: float32 x on bf16
 # weights in the encoder and the cross-attention K/V, bf16 x in the
 # decoder, bitflip on the LayerNorm leaves, quant_bitflip on both inputs
-ENCDEC_KERNELS = ("bitflip", "quant_bitflip", "fault_matmul_bf16w",
-                  "fault_weight_tiles", "matmul_tiles")
+ENCDEC_KERNELS = ("bitflip", "quant_bitflip", "fault_weight_tiles",
+                  "matmul_tiles", "matmul_tiles_f32")
 
 
 def encdec_phase(dev, records, cfg=None, B=LM_B, S=LM_S, nsga=None):
@@ -1868,22 +1936,39 @@ def encdec_phase(dev, records, cfg=None, B=LM_B, S=LM_S, nsga=None):
     for name, r in records.items():
         r["seamless_launches"], r["seamless_full_launches"] = \
             s_launches[name], f_launches[name]
-    records["fault_matmul_bf16w"]["launches"] = s_launches[
-        "fault_matmul_bf16w"]
+    for name in ("fault_matmul_bf16w", "matmul_tiles_f32"):
+        records[name]["launches"] = s_launches[name]
     row = np.array(list(res["f_rows"])[:1])
     groups = _profile_candidate("phase11", dev, cfg, res["f_ev"], row, B, S)
-    # no tensor-core float32 body runs here: the float32 split-K sums are
-    # the float32-x, bf16-weight route's
+    if SIMT_GROUP in groups:
+        raise AssertionError(f"the SIMT body ran in a {cfg.name} candidate: "
+                             f"{groups[SIMT_GROUP]}")
+    # no float32-weight body runs here: the float32 split-K sums are the
+    # float32-x, bf16-weight route's product's
     if "fault_matmul" in groups:
-        g = groups.setdefault("fault_matmul_bf16w", [0.0, 0])
+        g = groups.setdefault("matmul_tiles_f32", [0.0, 0])
         ms, n = groups.pop("fault_matmul")
         g[0] += ms
         g[1] += n
     ops.reset_launches()
     res["f_ev"]._dispatch(row)
     sync()
+    counts = launch_counts()
     log(f"phase11 one {cfg.name} candidate's launches (ops.launches): "
-        f"{dict(ops.launches)}")
+        f"{counts}")
+    # the route: its products and sums, and the hash passes of its row
+    # groups.  The decoder's bf16 x hashes the same shapes as many times
+    # (72 at 1024^2, 12 at each MLP shape), so the profile's mean hash
+    # launch stands for the route's
+    h_ms, h_n = groups.get("fault_weight_tiles", (0.0, 0))
+    p_ms, p_n = groups.get("matmul_tiles_f32", (0.0, 0))
+    n_route = counts["fault_matmul_bf16w"]
+    groups["fault_matmul_bf16w"] = (
+        p_ms + (h_ms / h_n * n_route if h_n else 0.0), p_n + n_route)
+    log(f"phase11 the float32-x route in one candidate: {n_route} calls, "
+        f"{groups['fault_matmul_bf16w'][0]:.3f} ms of device time in "
+        f"{groups['fault_matmul_bf16w'][1]} kernels (its products and sums "
+        f"{p_ms:.3f} ms, its hash passes at the mean hash launch)")
     for name, r in records.items():
         r["seamless_candidate_ms"], r["seamless_candidate_launches"] = \
             groups.get(name, (0.0, 0))
@@ -1974,7 +2059,7 @@ def reconfig_phase(dev, records, ev, plan, layers, nsga, ticks=8):
         pass
     sync()
     job_wall = time.perf_counter() - t0
-    launches = dict(ops.launches)
+    launches = launch_counts()
     a, b = sync_rec.events[0], job_rec.events[0]
     if not (np.array_equal(a.new_partition, b.new_partition)
             and a.new_predicted_delta_acc == b.new_predicted_delta_acc):
@@ -2040,6 +2125,9 @@ def main() -> int:
         "matmul_tiles": dict(
             route="cuda", source="src/repro_torch/csrc/fault_matmul.cu",
             replaces="src/repro/kernels/fault_matmul.py:61"),
+        "matmul_tiles_f32": dict(
+            route="cuda", source="src/repro_torch/csrc/fault_matmul.cu",
+            replaces="src/repro/kernels/fault_matmul.py:61"),
     }
     check_kernels(dev, records)
     check_fault_matmul_bf16(dev, records)
@@ -2066,7 +2154,7 @@ def main() -> int:
     full_rows = dict(ev._cache)
     base = FaultUnawareBaseline(layers, PAPER_DEVICES,
                                 nsga2_config=cfg).optimize()
-    main_launches = dict(ops.launches)
+    main_launches = launch_counts()
     log(f"phase4 AFarePart (full): {wall:.3f} s wall, "
         f"{ev.dispatches} dispatches, {ev._engine.rows_evaluated} rows, "
         f"launches {main_launches}")

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Host cost of the port's bf16 path on one NVIDIA card.
+"""Host cost of the port's LM paths on one NVIDIA card.
 
-    python3 host_cost.py [--src DIR]
+    python3 host_cost.py [--src DIR] [--config olmo-1b|seamless-m4t-medium]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is imported (this
 checkout's by default).  To set this tree beside another commit on one
@@ -10,21 +10,26 @@ and run the script for each in one machine, in the order parent, change,
 change, parent.
 
 Prints the card's name and power limit, then one JSON line each for:
-  * ``fault_matmul`` on bf16 x at olmo-1b's three projection shapes, one
-    row at 6 faulty bits, int8 weights; 5 readings each of the host's
+  * ``fault_matmul`` at the config's projection shapes, one row, 6 faulty
+    bits, int8 weights: for olmo-1b on bf16 x at its three shapes (M = B S
+    = 2048), for seamless-m4t-medium on float32 x with bf16 weights at its
+    encoder's three (M = B Se = 256); 5 readings each of the host's
     time a call (20 calls queued behind a kernel that keeps the card busy,
     so the host never waits on it), the wrapper time (CUDA events around
     20 back-to-back calls) and the device time (20 calls in a CUDA graph);
-  * one olmo-1b candidate at full width (8 x 256 tokens, the kernel
-    backend's whole forward, 6 faulty bits at rate 0.2): the host's time
+  * one candidate at full width (8 x 256 tokens, the kernel backend's
+    whole forward at rate 0.2, 6 faulty bits for olmo-1b and 4 for
+    seamless-m4t-medium, phase 11's regime): the host's time
     to issue its forward queued behind the busy kernel (3 readings; a
     reading above the busy kernel's ~1 s means the forward waited on the
     card somewhere), the lines where it waits (``torch.cuda``'s sync
     debug mode), its
     wall (5 readings of 3 back-to-back dispatches), and its kernels' busy
-    time and launch count (``torch.profiler``);
-  * the ``eval_batch_size="auto"`` probe (``peak_memory_bytes``) of a
-    1-row dispatch: with the garbage an evaluator leaves when it is
+    time and launch count, and its eight costliest kernels
+    (``torch.profiler``);
+  * for olmo-1b, the ``eval_batch_size="auto"`` probe
+    (``peak_memory_bytes``) of a 1-row dispatch: with the garbage an
+    evaluator leaves when it is
     dropped freed inside the probed call (as a collection the interpreter
     starts there frees it), and with none; and the bytes of that garbage.
 """
@@ -41,13 +46,19 @@ import time
 import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SHAPES = ((2048, 2048, 2048), (2048, 2048, 8192), (2048, 8192, 2048))
+# (M, K, N) of the timed fault_matmul calls, and their x dtype
+SHAPES = {"olmo-1b": ((2048, 2048, 2048), (2048, 2048, 8192),
+                      (2048, 8192, 2048)),
+          "seamless-m4t-medium": ((256, 1024, 1024), (256, 1024, 4096),
+                                  (256, 4096, 1024))}
+FAULTY_BITS = {"olmo-1b": 6, "seamless-m4t-medium": 4}
 SLEEP_CYCLES = 2_000_000_000      # about 1 s of a busy card at 1.98 GHz
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=os.path.join(HERE, "src"))
+    ap.add_argument("--config", default="olmo-1b", choices=sorted(SHAPES))
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.src))
     import numpy as np
@@ -107,30 +118,34 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     scale = torch.tensor(0.0123, device=dev)
     one = torch.tensor([0.2], device=dev)
-    for M, K, N in SHAPES:
+    olmo = args.config == "olmo-1b"
+    x_dtype = torch.bfloat16 if olmo else torch.float32
+    for M, K, N in SHAPES[args.config]:
         qw = torch.randint(-127, 128, (K, N), device=dev, dtype=torch.int8,
                            generator=gen)
-        x = torch.randn(1, M, K, device=dev, generator=gen).to(torch.bfloat16)
+        x = torch.randn(1, M, K, device=dev, generator=gen).to(x_dtype)
 
         def call():
-            ops.fault_matmul(x, qw, scale, 1, one, 6)
+            ops.fault_matmul(x, qw, scale, 1, one, 6,
+                             out_dtype=torch.bfloat16)
         call()
         reads = {"host_ms": [], "wrapper_ms": [], "device_ms": []}
         for _ in range(5):
             reads["host_ms"].append(host_ms(call, 20))
             reads["wrapper_ms"].append(events_ms(call, 20))
             reads["device_ms"].append(graph_ms(call))
-        print(json.dumps({"fault_matmul_bf16": f"[1,{M},{K}] x [{K},{N}] "
+        key = "fault_matmul_bf16" if olmo else "fault_matmul_f32x_bf16w"
+        print(json.dumps({key: f"[1,{M},{K}] {str(x_dtype)[6:]} x [{K},{N}] "
                           "int8", **reads}), flush=True)
         del qw, x
 
-    cfg = get_config("olmo-1b")
+    cfg = get_config(args.config)
     params = init_lm(cfg, seed=0, device=dev)
     batch = calibration_batch(cfg, 8, 256, seed=7, device=dev)
     labels = self_labels(cfg, params, batch)
     scale_t = np.array([d.fault_scale for d in POD_TIERS_4], np.float32)
 
-    def evaluator(faulty_bits=6):
+    def evaluator(faulty_bits=FAULTY_BITS[args.config]):
         spec = FaultSpec(bits=8, faulty_bits=faulty_bits,
                          weight_fault_rate=0.2, act_fault_rate=0.2)
         return make_lm_accuracy_evaluator(
@@ -138,8 +153,8 @@ def main(argv=None) -> int:
             fault_backend="kernel", eval_strategy="full", eval_batch_size=1)
 
     ev = evaluator()
-    row = np.random.default_rng(3).integers(0, len(scale_t),
-                                            size=(1, cfg.n_layers))
+    row = np.random.default_rng(3).integers(
+        0, len(scale_t), size=(1, cfg.n_enc_layers + cfg.n_layers))
     ev._dispatch(row)
     torch.cuda.synchronize()
     # the dispatch minus its two small host-to-card copies of the rates,
@@ -168,12 +183,18 @@ def main(argv=None) -> int:
         f"{os.path.relpath(w.filename, args.src)}:{w.lineno}" for w in caught
         if "synchroniz" in str(w.message))
     print(json.dumps({
-        "olmo1b_candidate": "8x256 tokens, kernel backend, full forward",
+        ("olmo1b_candidate" if olmo else "seamless_candidate"):
+            "8x256 tokens, kernel backend, full forward",
         "syncs": sum(sites.values()), "sync_sites": dict(sites),
         "sleep_ms": SLEEP_CYCLES / 1.98e6, "host_ms": host, "wall_ms": walls,
         "busy_ms": sum(a.self_device_time_total for a in kern) / 1e3,
-        "kernel_launches": sum(a.count for a in kern)}), flush=True)
+        "kernel_launches": sum(a.count for a in kern),
+        "top_kernels": {a.key[:80]: [a.self_device_time_total / 1e3, a.count]
+                        for a in sorted(kern, key=lambda a: -a.self_device_time_total)[:8]}}),
+        flush=True)
 
+    if not olmo:
+        return 0
     # the 1-row probe with and without an evaluator's garbage
     probe = np.random.default_rng(5).integers(0, 4, size=(8, cfg.n_layers))
     ev4 = evaluator(faulty_bits=4)

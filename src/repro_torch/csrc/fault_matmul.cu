@@ -97,13 +97,44 @@
 // encoder input meets the bf16 weights in every encoder projection and in
 // the decoder's cross-attention K/V) computes the reference's CPU function
 // for that pair: w = bf16(fp32(q') * scale), out = x @ float(w) in fp32,
-// float32 out.  The scale cannot move to the epilogue (w is rounded after
-// it), so the tensor-core body does not serve it.  It runs the SIMT body
-// with the dequantized weight rounded to bf16 in its shared-memory tile
-// (simt::kernel<..., true>, entry afp_fault_matmul_bf16w), for every
-// storage type.  A simple kernel: at the encoder's M = B Se = 256 its grid
-// is 2 row blocks by N / 128, each block hashes its weight tiles again, and
-// its fp32 FMAs run far below the tensor cores' rate (PERF.md §6).
+// float32 out.  w is exactly the bf16 route's W', and x splits exactly
+// into three bf16 parts (as above; each part times a bf16 w is exact in
+// fp32), so three bf16 wgmma products into one fp32 accumulator give x @
+// float(w) with only the order of the sums changed.  The route runs two
+// kernels a row group, as the bf16 route does: the hash pass
+// (bfp::hash_kernel, unchanged) writes every row's W', then the product
+// fwp::product_kernel.  At the encoder's M = B Se = 256 the hash pass is
+// the bound (K N planes draws, 0.0075 ms at 1024^2), not the product's 3
+// x 2 M K N tensor-core operations (0.0016 ms) or its bytes.  The
+// product splits x in registers (no pre-pass writing x as three bf16
+// planes: one launch fewer a call on a host-bound path, x read once, each
+// W' stage read once for all three products):
+//   * a producer warp fills a four-stage mbarrier ring, each stage 64 of
+//     K: x's [128, 64] float32 box as two TMA copies of [128, 32] (a
+//     3-D tensor map over [R, M, K], 128B swizzle, zeros past M and K),
+//     and the stage's W' tiles of one 128-column panel, contiguous in the
+//     workspace, as one bulk copy (only the tiles before the slice's end,
+//     so no copy reads past the workspace).  x that TMA cannot take (K %
+//     4 != 0, or not 16-byte aligned) is written into the same image by
+//     plain loads of the producer warp;
+//   * two consumer warpgroups of 64 rows load their A fragments from the
+//     swizzled stage (two wavefronts a warp, the fewest for 256 bytes),
+//     split them with split3 and issue three wgmma m64n128k16 per k-step
+//     (A from registers, B the W' tile), k in order, skipping k-steps
+//     past the slice; they wait for the stage's products before they
+//     release it and load the next stage's fragments into the same
+//     registers (a second register set, to keep a stage in flight, makes
+//     ptxas serialize the wgmmas: PERF.md §6);
+//   * the epilogue adds + 0.0f (a sum of zeros may be -0) and writes
+//     float32, or the slice's partial sums, which sum_splits adds in
+//     slice order.
+// Its time at the encoder's shapes is mostly fixed cost a call and, at
+// 1024^2, the split-K sum (PERF.md §6, §7).
+// The split is exact for finite x below bf16's overflow threshold (2 -
+// 2^-8) 2^127 that is a multiple of 2^-133, bf16's smallest subnormal
+// (every x of magnitude >= 2^-110); a part times w is exact unless it
+// falls below fp32's normal range (PERF.md §6 says what the card does
+// with subnormal parts).  Inf and NaN x are not split.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -119,8 +150,7 @@ namespace simt {
 constexpr int BM = 128, BN = 128, BK = 8, TM = 8, TN = 8, THREADS = 256;
 constexpr int APAD = BM + 4;  // row stride of the transposed x tile
 
-// BF16W: round each dequantized weight to bf16 (a bf16 weight dtype)
-template <typename T, int MODEL, bool BF16W = false>
+template <typename T, int MODEL>
 __global__ void __launch_bounds__(THREADS)
 kernel(const float* __restrict__ x, const T* __restrict__ qw,
        float* __restrict__ out, const float* __restrict__ scale_p,
@@ -162,7 +192,6 @@ kernel(const float* __restrict__ x, const T* __restrict__ qw,
         const T q = afp::apply_fault<MODEL>(qw[flat], static_cast<uint32_t>(flat),
                                             seed, thresh, faulty_bits, mbu_width);
         w = __fmul_rn(static_cast<float>(q), scale);
-        if (BF16W) w = __bfloat162float(__float2bfloat16_rn(w));
       }
       Bs[kk][nn] = w;
     }
@@ -321,6 +350,37 @@ template <> struct Mma<64> {
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
           "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <> struct Mma<128> {
+  static constexpr int R = 64;
+  static __device__ __forceinline__ void run(float (&d)[R],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
   }
 };
@@ -939,12 +999,13 @@ EncodeTiled encoder() {
 
 cudaError_t encode_map(CUtensorMap* map, const void* p, cuuint32_t rank,
                        const cuuint64_t* dims, const cuuint64_t* strides,
-                       const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+                       const cuuint32_t* box, CUtensorMapSwizzle swizzle,
+                       CUtensorMapDataType type) {
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(p), dims,
+      map, type, rank, const_cast<void*>(p), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
@@ -952,7 +1013,8 @@ cudaError_t encode_map(CUtensorMap* map, const void* p, cuuint32_t rank,
 
 // The last map encoded for an operand, reused while its pointer and shape
 // repeat (the W' workspace call after call): encoding is host work on
-// every call otherwise.  The shape fixes the strides and the box.
+// every call otherwise.  The shape fixes the strides and the box (each
+// cache serves one operand of one kernel, so one type and swizzle).
 struct MapCache {
   const void* p = nullptr;
   cuuint64_t dims[5] = {};
@@ -961,13 +1023,14 @@ struct MapCache {
 
 cudaError_t cached_map(MapCache& c, const void* p, cuuint32_t rank,
                        const cuuint64_t* dims, const cuuint64_t* strides,
-                       const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+                       const cuuint32_t* box, CUtensorMapSwizzle swizzle,
+                       CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   bool same = c.p == p;
   for (cuuint32_t i = 0; i < rank; ++i) same = same && c.dims[i] == dims[i];
   if (same) return cudaSuccess;
   c.p = nullptr;
   const cudaError_t err = encode_map(&c.map, p, rank, dims, strides, box,
-                                     swizzle);
+                                     swizzle, type);
   if (err != cudaSuccess) return err;
   c.p = p;
   for (cuuint32_t i = 0; i < rank; ++i) c.dims[i] = dims[i];
@@ -1023,9 +1086,238 @@ cudaError_t launch_product(const __nv_bfloat16* x, const __nv_bfloat16* tiles,
 
 }  // namespace bfp
 
+// ---------------------------------------------------------------------
+// float32 x on W': the product of the float32-x, bf16-weight route (the
+// design is in the note at the top)
+namespace fwp {
+
+using bfp::mbar_arrive;
+using bfp::mbar_expect_tx;
+using bfp::mbar_init;
+using bfp::mbar_wait;
+using bfp::TILE;
+using bfp::TILE_BYTES;
+using tc::BK;
+using tc::fence_acc;
+using tc::Mma;
+using tc::smem_addr;
+using tc::split3;
+using tc::wgmma_commit;
+using tc::wgmma_fence;
+
+constexpr int BM = 128;                     // two consumer warpgroups of 64
+constexpr int BN = bfp::TILE_N;             // one W' panel
+constexpr int KS = bfp::KS;                 // k-steps a stage: 64 of K
+constexpr int THREADS = 384;
+constexpr int X_HALF = BM * 32 * 4;         // one [128, 32] float32 box, 16 KB
+constexpr int X_BYTES = 2 * X_HALF;
+constexpr int W_BYTES = KS * TILE_BYTES;    // 16 KB
+constexpr int STAGE = X_BYTES + W_BYTES;    // 48 KB
+constexpr int STAGES = 4;
+// 1024 bytes of slack to align the ring for the 128B swizzle, the stages,
+// a full and an empty barrier each
+constexpr int SMEM = 1024 + STAGES * STAGE + 16 * STAGES;
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+               "::bytes [%0], [%1], %2, [%3];\n"
+               :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+                  "r"(bar) : "memory");
+}
+
+// Byte offset of x element (m, k) in a stage: k / 32 picks the [128, 32]
+// box, whose 128-byte rows hold their 16-byte chunks at (k / 4 % 8) ^ (m
+// % 8), TMA's 128B swizzle
+__device__ __forceinline__ int x_offset(int m, int k) {
+  return (k >> 5) * X_HALF + m * 128 + ((((k >> 2) & 7) ^ (m & 7)) << 4) +
+         (k & 3) * 4;
+}
+
+// grid: (M / BM, N / BN, rows * splits), m fastest, so the blocks of a
+// wave share W' panels; THREADS threads; SMEM bytes of dynamic shared
+// memory.  dst is [rows, M, N] float32 where splits is 1, else the partial
+// sums [splits, rows, M, N].  A K-slice is k_tiles W' tiles, a multiple of
+// KS.
+__global__ void __launch_bounds__(THREADS, 1)
+product_kernel(const __grid_constant__ CUtensorMap x_map,
+               const float* __restrict__ x,
+               const __nv_bfloat16* __restrict__ tiles,
+               float* __restrict__ dst, int rows, int M, int K, int N, int nK,
+               int64_t row_elems, int k_tiles, bool x_tma) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t bars = base + STAGES * STAGE;
+  auto full = [&](int i) { return bars + 8 * i; };
+  auto empty = [&](int i) { return bars + 8 * (STAGES + i); };
+
+  const int row = blockIdx.z % rows, split = blockIdx.z / rows;
+  const int m0 = blockIdx.x * BM, nt = blockIdx.y;
+  const int ks0 = split * k_tiles, ks_end = min(nK, ks0 + k_tiles);
+  const int nst = ks_end > ks0 ? (ks_end - ks0 + KS - 1) / KS : 0;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(full(i), 1);
+      mbar_init(empty(i), 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // the producer, one warp: stage s fills slot s % STAGES once its
+    // previous use is released (the first round passes at once)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    if (lane == 0 && x_tma) bfp::tma_prefetch(&x_map);
+    const float* xr = x + static_cast<int64_t>(row) * M * K;
+    const __nv_bfloat16* wp =
+        tiles + row * row_elems + static_cast<int64_t>(nt) * nK * TILE;
+    for (int s = 0; s < nst; ++s) {
+      const int slot = s % STAGES, ks = ks0 + s * KS;
+      const int n_tiles = min(KS, ks_end - ks);
+      mbar_wait(empty(slot), ((s / STAGES) & 1) ^ 1);
+      const uint32_t xs = base + slot * STAGE;
+      if (lane == 0) {
+        mbar_expect_tx(full(slot),
+                       (x_tma ? X_BYTES : 0) + n_tiles * TILE_BYTES);
+        bulk_load(xs + X_BYTES, wp + static_cast<int64_t>(ks) * TILE,
+                  n_tiles * TILE_BYTES, full(slot));
+        if (x_tma) {
+          bfp::tma_load_3d(xs, &x_map, ks * BK, m0, row, full(slot));
+          bfp::tma_load_3d(xs + X_HALF, &x_map, ks * BK + 32, m0, row,
+                           full(slot));
+        }
+      }
+      if (!x_tma) {
+        // the same image by plain loads, four floats a chunk; zeros past
+        // M and K
+        unsigned char* xd = smem + slot * STAGE;
+        for (int c = lane; c < BM * 16; c += 32) {
+          const int mm = c / 16, kk = (c % 16) * 4;
+          const int m = m0 + mm, k = ks * BK + kk;
+          float v[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            v[e] = m < M && k + e < K ? xr[static_cast<int64_t>(m) * K + k + e]
+                                      : 0.0f;
+          *reinterpret_cast<float4*>(xd + x_offset(mm, kk)) =
+              make_float4(v[0], v[1], v[2], v[3]);
+        }
+        __syncwarp();
+      }
+      if (lane == 0) mbar_arrive(full(slot));
+    }
+    return;
+  }
+
+  // the consumers: warpgroup c = wg - 1 owns rows 64 c .. 64 c + 63
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int c = wg - 1, t = threadIdx.x % 128;
+  const int warp = t / 32, lane = t % 32, g = lane / 4, tq = lane % 4;
+  constexpr int R = Mma<BN>::R;
+  float acc[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = 0.0f;
+  // A fragment word h of a k-step: the two neighbouring k of (row, col) =
+  // (r, 2tq) (r+8, 2tq) (r, 2tq+8) (r+8, 2tq+8) for h = 0..3
+  const int r0 = c * 64 + warp * 16 + g;
+  for (int s = 0; s < nst; ++s) {
+    const int slot = s % STAGES, nkk = min(KS, ks_end - (ks0 + s * KS));
+    mbar_wait(full(slot), (s / STAGES) & 1);
+    const unsigned char* xs = smem + slot * STAGE;
+    const uint32_t ws = base + slot * STAGE + X_BYTES;
+    uint32_t a[KS][3][4];
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      if (kk >= nkk) break;                   // uniform: past the slice
+#pragma unroll
+      for (int h = 0; h < 4; ++h)
+        split3(*reinterpret_cast<const float2*>(
+                   xs + x_offset(r0 + (h & 1) * 8, kk * BK + 2 * tq +
+                                                       (h >> 1) * 8)),
+               a[kk][0][h], a[kk][1][h], a[kk][2][h]);
+      wgmma_fence();
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+        Mma<BN>::run(acc, a[kk][p], bfp::b_desc_at(ws + kk * TILE_BYTES));
+    }
+    wgmma_commit();
+    bfp::wgmma_wait<0>();   // the stage's products are done: its A
+    fence_acc(acc);         // registers and its slot are free
+    if (t == 0) mbar_arrive(empty(slot));
+  }
+
+  // epilogue: d[4j + e] of an m64n128 tile is (row 16 warp + g + 8 (e /
+  // 2), col 8j + 2tq + e % 2), so d[2i], d[2i + 1] are neighbours in a row
+  // and go out as one store where N is even; + 0.0f turns a -0 sum of
+  // zeros into +0
+  const int64_t obase = (static_cast<int64_t>(split) * rows + row) * M * N;
+  const int n0 = nt * BN;
+#pragma unroll
+  for (int i = 0; i < R; i += 2) {
+    const int m = m0 + r0 + 8 * ((i / 2) % 2);
+    const int n = n0 + 8 * (i / 4) + 2 * tq;
+    if (m >= M) continue;
+    float* d = dst + obase + static_cast<int64_t>(m) * N + n;
+    const float v0 = __fadd_rn(acc[i], 0.0f), v1 = __fadd_rn(acc[i + 1], 0.0f);
+    if (N % 2 == 0 && n + 1 < N) {
+      *reinterpret_cast<float2*>(d) = make_float2(v0, v1);
+    } else {
+      if (n < N) d[0] = v0;
+      if (n + 1 < N) d[1] = v1;
+    }
+  }
+}
+
+cudaError_t launch_product(const float* x, const __nv_bfloat16* tiles,
+                           float* dst, int rows, int M, int K, int N, int nK,
+                           int64_t row_elems, int k_tiles, int splits,
+                           cudaStream_t s) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        product_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  // x as [rows, M, K] float32 in [BM, 32] boxes, 128B swizzle, where its
+  // rows are 16-byte multiples and it is 16-byte aligned; else the
+  // producer loads it
+  thread_local bfp::MapCache x_cache;
+  const bool x_tma = K > 0 && K % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  if (x_tma) {
+    const cuuint64_t x_dims[3] = {static_cast<cuuint64_t>(K),
+                                  static_cast<cuuint64_t>(M),
+                                  static_cast<cuuint64_t>(rows)};
+    const cuuint64_t x_strides[2] = {static_cast<cuuint64_t>(K) * 4,
+                                     static_cast<cuuint64_t>(M) * K * 4};
+    const cuuint32_t x_box[3] = {32, BM, 1};
+    const cudaError_t err = bfp::cached_map(
+        x_cache, x, 3, x_dims, x_strides, x_box, CU_TENSOR_MAP_SWIZZLE_128B,
+        CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, rows * splits);
+  // without TMA the kernel never reads the x map
+  product_kernel<<<grid, THREADS, SMEM, s>>>(x_cache.map, x, tiles, dst, rows,
+                                             M, K, N, nK, row_elems, k_tiles,
+                                             x_tma);
+  return cudaGetLastError();
+}
+
+}  // namespace fwp
+
 // out[i] = sum over s of partial[s][i], in slice order, written as float32
-// or rounded once to bf16; four elements a thread per step where n % 4 == 0
-// (the buffers are 16-byte aligned).
+// or rounded once to bf16; four elements a thread per step where vec (n %
+// 4 == 0 and out aligned for it: a row group's out starts inside the
+// call's; partial is the wrapper's own).
 __device__ __forceinline__ void store4(float* out, int64_t i, float4 v) {
   reinterpret_cast<float4*>(out)[i] = v;
 }
@@ -1046,10 +1338,10 @@ __device__ __forceinline__ void store1(__nv_bfloat16* out, int64_t i,
 template <typename OT>
 __global__ void sum_splits_kernel(const float* __restrict__ partial,
                                   OT* __restrict__ out, int64_t n,
-                                  int splits) {
+                                  int splits, bool vec) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (n % 4 == 0) {
+  if (vec) {
     const float4* p = reinterpret_cast<const float4*>(partial);
     for (int64_t i = tid; i < n / 4; i += stride) {
       float4 acc = p[i];
@@ -1073,7 +1365,9 @@ cudaError_t sum_splits(const float* partial, OT* out, int64_t total,
                        int splits, cudaStream_t s) {
   const int64_t blocks = (total + 255) / 256;
   const unsigned grid = static_cast<unsigned>(blocks < 132 * 8 ? blocks : 132 * 8);
-  sum_splits_kernel<OT><<<grid, 256, 0, s>>>(partial, out, total, splits);
+  const bool vec = total % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % (4 * sizeof(OT)) == 0;
+  sum_splits_kernel<OT><<<grid, 256, 0, s>>>(partial, out, total, splits, vec);
   return cudaGetLastError();
 }
 
@@ -1149,43 +1443,6 @@ extern "C" int afp_fault_matmul(const void* x, const void* qw, void* out,
       partial, static_cast<float*>(out), rows * M * N, splits, s));
 }
 
-// float32 x on a bf16 weight dtype: as afp_fault_matmul, but every storage
-// type runs the SIMT body with each dequantized weight rounded to bf16,
-// out = x @ float(bf16(fp32(q') scale)), float32; K is cut into `splits`
-// slices of whole 8-deep k-steps.
-extern "C" int afp_fault_matmul_bf16w(const void* x, const void* qw,
-                                      void* out, float* partial,
-                                      const float* scale, const float* rate,
-                                      int64_t rows, int64_t M, int64_t K,
-                                      int64_t N, int splits, int qbytes,
-                                      int model, uint32_t seed,
-                                      int faulty_bits, int mbu_width,
-                                      void* stream) {
-  if (rows <= 0 || M <= 0 || N <= 0) return static_cast<int>(cudaSuccess);
-  if (bad_sizes(rows, M, K, N, splits) ||
-      (M + simt::BM - 1) / simt::BM > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t k_steps = (K + simt::BK - 1) / simt::BK;
-  const int k_chunk =
-      static_cast<int>((k_steps + splits - 1) / splits * simt::BK);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(x);
-  float* dst = splits > 1 ? partial : static_cast<float*>(out);
-  const int r = static_cast<int>(rows), m = static_cast<int>(M),
-            k = static_cast<int>(K), n = static_cast<int>(N);
-  const dim3 grid(static_cast<unsigned>((N + simt::BN - 1) / simt::BN),
-                  static_cast<unsigned>((M + simt::BM - 1) / simt::BM),
-                  static_cast<unsigned>(rows * splits));
-  AFP_DISPATCH_INT(qbytes, AFP_DISPATCH_MODEL(model,
-      simt::kernel<QT, MODEL, true><<<grid, simt::THREADS, 0, s>>>(
-          xf, static_cast<const QT*>(qw), dst, scale, rate, r, m, k, n,
-          k_chunk, seed, faulty_bits, mbu_width)));
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  return static_cast<int>(sum_splits<float>(
-      partial, static_cast<float*>(out), rows * M * N, splits, s));
-}
-
 // bf16 x, the hash pass: qw is K x N integers of `qbytes` bytes; tiles is
 // rows x row_elems bf16, row r the W' of rate[r]: ceil(K / 16) x ceil(N /
 // 128) tiles of 16 x 128, tile (ks, nt) at (nt ceil(K / 16) + ks) 2048
@@ -1216,10 +1473,6 @@ extern "C" int afp_fault_weight_tiles(const void* qw, void* tiles,
 // bf16 x, the product: x is rows x M x K bf16, tiles rows x row_elems (the
 // hash pass's layout), out rows x M x N bf16.  With splits > 1, partial
 // is a splits x rows x M x N float32 workspace and K is cut into slices
-// of whole W' tiles.
-// bf16 x, the product: x is rows x M x K bf16, tiles rows x row_elems (the
-// hash pass's layout), out rows x M x N bf16.  With splits > 1, partial
-// is a splits x rows x M x N float32 workspace and K is cut into slices
 // of whole stages (KS W' tiles).
 extern "C" int afp_matmul_tiles(const void* x, const void* tiles, void* out,
                                 float* partial, int64_t rows, int64_t M,
@@ -1242,4 +1495,31 @@ extern "C" int afp_matmul_tiles(const void* x, const void* tiles, void* out,
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   return static_cast<int>(sum_splits<__nv_bfloat16>(
       partial, static_cast<__nv_bfloat16*>(out), rows * M * N, splits, s));
+}
+
+// float32 x on W', the product of the float32-x, bf16-weight route: x is
+// rows x M x K float32, tiles rows x row_elems (the hash pass's layout),
+// out rows x M x N float32.  With splits > 1, partial is a splits x rows
+// x M x N float32 workspace and K is cut into slices of whole stages (KS
+// W' tiles).
+extern "C" int afp_matmul_tiles_f32(const void* x, const void* tiles,
+                                    void* out, float* partial, int64_t rows,
+                                    int64_t M, int64_t K, int64_t N,
+                                    int splits, void* stream) {
+  if (rows <= 0 || M <= 0 || N <= 0) return static_cast<int>(cudaSuccess);
+  if (bad_sizes(rows, M, K, N, splits) || (N + fwp::BN - 1) / fwp::BN > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nK = static_cast<int>((K + tc::BK - 1) / tc::BK);
+  const int nN = static_cast<int>((N + bfp::TILE_N - 1) / bfp::TILE_N);
+  const int64_t row_elems = static_cast<int64_t>(nK) * nN * bfp::TILE;
+  const int k_tiles = ((nK + splits - 1) / splits + fwp::KS - 1) / fwp::KS * fwp::KS;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* dst = splits > 1 ? partial : static_cast<float*>(out);
+  const cudaError_t err = fwp::launch_product(
+      static_cast<const float*>(x), static_cast<const __nv_bfloat16*>(tiles),
+      dst, static_cast<int>(rows), static_cast<int>(M), static_cast<int>(K),
+      static_cast<int>(N), nK, row_elems, k_tiles, splits, s);
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  return static_cast<int>(sum_splits<float>(
+      partial, static_cast<float*>(out), rows * M * N, splits, s));
 }

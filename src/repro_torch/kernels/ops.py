@@ -15,7 +15,8 @@ of its C entry point: the kernel, and where K is split, the sum of the
 slices).  ``fault_matmul`` on bf16 x launches the kernels of
 ``fault_weight_tiles`` and ``matmul_tiles``, once each a row group, and
 they count there; on float32 x with a bf16 weight dtype (the
-encoder-decoder's encoder) it counts under ``"fault_matmul_bf16w"``.
+encoder-decoder's encoder) those of ``fault_weight_tiles`` and
+``matmul_tiles_f32`` the same way.
 """
 from __future__ import annotations
 
@@ -30,8 +31,8 @@ from repro_torch.kernels.faultmodel import FAULT_MODELS, seed_u32
 from repro_torch.quant.fixedpoint import QuantSpec
 
 __all__ = ["bitflip", "quant_bitflip", "fault_matmul", "fault_weight_tiles",
-           "matmul_tiles", "row_groups", "launches", "reset_launches",
-           "MODEL_IDS", "WORKSPACE_BYTES"]
+           "matmul_tiles", "matmul_tiles_f32", "row_groups", "launches",
+           "reset_launches", "MODEL_IDS", "WORKSPACE_BYTES"]
 
 MODEL_IDS = {m: i for i, m in enumerate(FAULT_MODELS)}   # csrc/faultmodel.cuh
 _INT_BYTES = {torch.int8: 1, torch.int16: 2, torch.int32: 4}
@@ -47,23 +48,22 @@ _SIGNATURES = {
     "afp_fault_matmul": ("fault_matmul", [_P, _P, _P, _P, _P, _P, _I64, _I64,
                                           _I64, _I64, _I32, _I32, _I32, _U32,
                                           _I32, _I32, _P]),
-    "afp_fault_matmul_bf16w": ("fault_matmul", [_P, _P, _P, _P, _P, _P,
-                                                _I64, _I64, _I64, _I64, _I32,
-                                                _I32, _I32, _U32, _I32, _I32,
-                                                _P]),
     "afp_fault_weight_tiles": ("fault_matmul", [_P, _P, _P, _P, _I64, _I64,
                                                 _I64, _I32, _I32, _U32, _I32,
                                                 _I32, _P]),
     "afp_matmul_tiles": ("fault_matmul", [_P, _P, _P, _P, _I64, _I64, _I64,
                                           _I64, _I32, _P]),
+    "afp_matmul_tiles_f32": ("fault_matmul", [_P, _P, _P, _P, _I64, _I64,
+                                              _I64, _I64, _I32, _P]),
 }
 
 launches = {"bitflip": 0, "quant_bitflip": 0, "fault_matmul": 0,
-            "fault_matmul_bf16w": 0, "fault_weight_tiles": 0,
-            "matmul_tiles": 0}
+            "fault_weight_tiles": 0, "matmul_tiles": 0,
+            "matmul_tiles_f32": 0}
 _MAX_GRID_Z = 65535          # fault_matmul's grid.z is rows x K slices
-# The bf16 route's W' workspace (``fault_matmul``): a call hashes its rows
-# in groups whose W' fits this many bytes
+# The W' workspace of ``fault_matmul``'s two-kernel routes (bf16 x, and
+# float32 x on bf16 weights): a call hashes its rows in groups whose W'
+# fits this many bytes
 WORKSPACE_BYTES = 256 << 20
 
 
@@ -136,15 +136,19 @@ def _k_splits(M: int, K: int, N: int, body: str,
     192 KB of shared memory), slices of >= 64 of K (one stage; the kernel
     rounds a slice up to whole stages); every olmo-1b projection (M =
     2048) is one slice, starcoder2-3b's kv projection (2048 x 3072 x 256,
-    16 blocks) eight.  ``"simt"`` (float32 x with int16/int32 weights, and
-    float32 x with a bf16 weight dtype): 128x128 tiles, two blocks a SM,
-    slices of >= 128 of K."""
+    16 blocks) eight.  ``"f32w"`` (float32 x on bf16 weights, the product
+    of W'): blocks of 128 x 128, one a SM (192 KB of ring), slices of >= 64
+    of K (one stage); seamless-m4t-medium's encoder (M = 256) runs 16
+    blocks a row at N = 1024, so eight slices at 1024 x 1024 and 4096 x
+    1024, and 64 at N = 4096, so two.  ``"simt"`` (float32 x with
+    int16/int32 weights): 128x128 tiles, two blocks a SM, slices of >= 128
+    of K."""
     sms = _sm_count(device.index or 0)
     if body == "tc":
         tiles = -(-M // 512) * -(-N // (16 if N <= 16 else 64))
         want, steps = sms // tiles, -(-K // 16)
-    elif body == "bf16":
-        tiles = -(-M // 128) * -(-N // 256)
+    elif body in ("bf16", "f32w"):
+        tiles = -(-M // 128) * -(-N // (256 if body == "bf16" else 128))
         want, steps = sms // tiles, -(-K // 64)
     else:
         tiles = -(-M // 128) * -(-N // 128)
@@ -153,8 +157,8 @@ def _k_splits(M: int, K: int, N: int, body: str,
 
 
 def row_groups(R: int, K: int, N: int, splits: int = 1) -> list[tuple[int, int]]:
-    """``(first row, rows)`` of each group the bf16 route of
-    ``fault_matmul`` walks ``R`` rows in: each group is one hash launch and
+    """``(first row, rows)`` of each group the two-kernel routes of
+    ``fault_matmul`` walk ``R`` rows in: each group is one hash launch and
     one product launch, its W' (``ref.tile_elems(K, N)`` bf16 a row) within
     ``WORKSPACE_BYTES`` and its grid within ``_MAX_GRID_Z`` (rows x K
     slices); at least one row a group, the groups in row order."""
@@ -248,6 +252,14 @@ def _product_launch(x_ptr, tiles, out_ptr, rows, M, K, N, splits,
     launches["matmul_tiles"] += 1
 
 
+def _product_f32_launch(x_ptr, tiles, out_ptr, rows, M, K, N, splits,
+                        partial_ptr):
+    """``_product_launch`` for float32 x (float32 out)."""
+    _launch("afp_matmul_tiles_f32", x_ptr, tiles.data_ptr(), out_ptr,
+            partial_ptr, rows, M, K, N, splits, _stream(tiles.device))
+    launches["matmul_tiles_f32"] += 1
+
+
 def fault_weight_tiles(qw: torch.Tensor, scale, seed, rate,
                        faulty_bits: int, *, fault_model: str = "flip",
                        mbu_width: int = 2,
@@ -281,6 +293,33 @@ def fault_weight_tiles(qw: torch.Tensor, scale, seed, rate,
     return out[:R]
 
 
+def _tiles_product(x: torch.Tensor, tiles: torch.Tensor, K: int,
+                   N: int) -> torch.Tensor:
+    """``matmul_tiles`` (bf16 x) or ``matmul_tiles_f32`` (float32 x) on
+    the card: one launch for all R rows."""
+    R, dtype = tiles.shape[0], x.dtype
+    bf16 = dtype == torch.bfloat16
+    name = "matmul_tiles" if bf16 else "matmul_tiles_f32"
+    _check(x.is_contiguous() and x.ndim >= 2 and x.shape[0] == R
+           and x.shape[-1] == K,
+           f"{name} takes contiguous {dtype} x [{R}, ..., {K}], got "
+           f"{tuple(x.shape)}")
+    _check(tiles.dtype == torch.bfloat16 and tiles.is_contiguous()
+           and tiles.shape[1] == _ref.tile_elems(K, N)
+           and tiles.device == x.device and tiles.data_ptr() % 16 == 0,
+           "tiles must be ref.tile_elems wide and 16-byte aligned")
+    M = x[0].numel() // K
+    out = torch.empty((*x.shape[:-1], N), dtype=dtype, device=x.device)
+    splits = _k_splits(M, K, N, "bf16" if bf16 else "f32w", x.device)
+    _check(R * splits <= _MAX_GRID_Z, "too many rows for one launch")
+    partial = torch.empty((splits, R, M, N), dtype=torch.float32,
+                          device=x.device) if splits > 1 else None
+    (_product_launch if bf16 else _product_f32_launch)(
+        x.data_ptr(), tiles, out.data_ptr(), R, M, K, N, splits,
+        0 if partial is None else partial.data_ptr())
+    return out
+
+
 def matmul_tiles(x: torch.Tensor, tiles: torch.Tensor, K: int,
                  N: int) -> torch.Tensor:
     """The bf16 route's product: ``x [R, ..., K]`` bf16 times row r's W'
@@ -288,24 +327,23 @@ def matmul_tiles(x: torch.Tensor, tiles: torch.Tensor, K: int,
     fp32 and rounded once: ``[R, ..., N]`` bf16."""
     if not _is_cuda(x):
         return _ref.matmul_tiles_ref(x, tiles, K, N)
-    R = tiles.shape[0]
-    _check(x.dtype == torch.bfloat16 and x.is_contiguous() and x.ndim >= 2
-           and x.shape[0] == R and x.shape[-1] == K,
-           f"matmul_tiles takes contiguous bf16 x [{R}, ..., {K}], got "
-           f"{x.dtype} {tuple(x.shape)}")
-    _check(tiles.dtype == torch.bfloat16 and tiles.is_contiguous()
-           and tiles.shape[1] == _ref.tile_elems(K, N)
-           and tiles.device == x.device, "tiles must be ref.tile_elems wide")
-    M = x[0].numel() // K
-    out = torch.empty((*x.shape[:-1], N), dtype=torch.bfloat16,
-                      device=x.device)
-    splits = _k_splits(M, K, N, "bf16", x.device)
-    _check(R * splits <= _MAX_GRID_Z, "too many rows for one launch")
-    partial = torch.empty((splits, R, M, N), dtype=torch.float32,
-                          device=x.device) if splits > 1 else None
-    _product_launch(x.data_ptr(), tiles, out.data_ptr(), R, M, K, N, splits,
-                    0 if partial is None else partial.data_ptr())
-    return out
+    _check(x.dtype == torch.bfloat16,
+           f"matmul_tiles takes bf16 x, got {x.dtype}")
+    return _tiles_product(x, tiles, K, N)
+
+
+def matmul_tiles_f32(x: torch.Tensor, tiles: torch.Tensor, K: int,
+                     N: int) -> torch.Tensor:
+    """The product of the float32-x, bf16-weight route: ``x [R, ..., K]``
+    float32 times row r's W' (``tiles``, the hash pass's output) in fp32,
+    ``[R, ..., N]`` float32.  On the card x is split exactly into three
+    bf16 parts, each multiplied exactly by W' on the tensor cores into one
+    fp32 sum (``csrc/fault_matmul.cu``, ``fwp``)."""
+    if not _is_cuda(x):
+        return _ref.matmul_tiles_f32_ref(x, tiles, K, N)
+    _check(x.dtype == torch.float32,
+           f"matmul_tiles_f32 takes float32 x, got {x.dtype}")
+    return _tiles_product(x, tiles, K, N)
 
 
 def fault_matmul(x: torch.Tensor, qw: torch.Tensor, scale, seed, rate,
@@ -322,12 +360,13 @@ def fault_matmul(x: torch.Tensor, qw: torch.Tensor, scale, seed, rate,
     rounded once from the fp32 sum); or float32 x with bfloat16 weights
     (x times the weights' bf16 values, float32 out).
 
-    On the card, bfloat16 x runs two kernels for each group of
-    ``row_groups``: the hash pass (``fault_weight_tiles``'s kernel) into a
-    W' workspace of at most ``WORKSPACE_BYTES``, then the product
-    (``matmul_tiles``'s), each counted under its own name; float32 x runs
-    one kernel a launch, counted under ``"fault_matmul"``, or with bf16
-    weights under ``"fault_matmul_bf16w"``."""
+    On the card, bfloat16 x, and float32 x on bfloat16 weights, run two
+    kernels for each group of ``row_groups``: the hash pass
+    (``fault_weight_tiles``'s kernel) into a W' workspace of at most
+    ``WORKSPACE_BYTES``, then the product (``matmul_tiles``'s, or
+    ``matmul_tiles_f32``'s on float32 x), each counted under its own name;
+    float32 x on float32 weights runs one kernel a launch, counted under
+    ``"fault_matmul"``."""
     if not _is_cuda(x):
         return _ref.fault_matmul_ref(x, qw, scale, seed, rate, faulty_bits,
                                      fault_model=fault_model,
@@ -356,8 +395,11 @@ def fault_matmul(x: torch.Tensor, qw: torch.Tensor, scale, seed, rate,
     K, N = qw.shape
     M = x.shape[:-1].numel() // R
     out = torch.empty((*x.shape[:-1], N), dtype=x.dtype, device=x.device)
-    if x.dtype == torch.bfloat16:
-        splits = _k_splits(M, K, N, "bf16", x.device)
+    if out_dtype == torch.bfloat16:
+        # the weights are W' = bf16(fp32(q') scale), the hash pass's tiles
+        bf16 = x.dtype == torch.bfloat16
+        esize = x.element_size()
+        splits = _k_splits(M, K, N, "bf16" if bf16 else "f32w", x.device)
         groups = row_groups(R, K, N, splits)
         G = groups[0][1]
         ws = torch.empty((G, _ref.tile_elems(K, N)), dtype=torch.bfloat16,
@@ -365,28 +407,26 @@ def fault_matmul(x: torch.Tensor, qw: torch.Tensor, scale, seed, rate,
         partial = torch.empty((splits, G, M, N), dtype=torch.float32,
                               device=x.device) if splits > 1 else None
         p_ptr = 0 if partial is None else partial.data_ptr()
+        product = _product_launch if bf16 else _product_f32_launch
         for r0, rows in groups:
             _hash_launch(qw, ws, scale_t, rates, seed, faulty_bits, model_id,
                          mbu_width, r0, rows)
-            _product_launch(x.data_ptr() + 2 * r0 * M * K, ws,
-                            out.data_ptr() + 2 * r0 * M * N, rows, M, K, N,
-                            splits, p_ptr)
+            product(x.data_ptr() + esize * r0 * M * K, ws,
+                    out.data_ptr() + esize * r0 * M * N, rows, M, K, N,
+                    splits, p_ptr)
         return out
-    bf16w = out_dtype == torch.bfloat16
-    body = "tc" if qw.dtype == torch.int8 and not bf16w else "simt"
-    entry = "afp_fault_matmul_bf16w" if bf16w else "afp_fault_matmul"
-    name = "fault_matmul_bf16w" if bf16w else "fault_matmul"
+    body = "tc" if qw.dtype == torch.int8 else "simt"
     splits = _k_splits(M, K, N, body, x.device)
     step = _MAX_GRID_Z // splits       # rows a launch, within the grid
     partial = torch.empty((splits, min(R, step), M, N) if splits > 1
                           else (0,), dtype=torch.float32, device=x.device)
     for r0 in range(0, R, step):
         rows = min(step, R - r0)
-        _launch(entry, x.data_ptr() + r0 * M * K * 4,
+        _launch("afp_fault_matmul", x.data_ptr() + r0 * M * K * 4,
                 qw.data_ptr(), out.data_ptr() + r0 * M * N * 4,
                 partial.data_ptr(), scale_t.data_ptr(),
                 rates.data_ptr() + r0 * 4, rows, M, K, N, splits,
                 _INT_BYTES[qw.dtype], model_id, seed_u32(seed), faulty_bits,
                 mbu_width, _stream(x.device))
-        launches[name] += 1
+        launches["fault_matmul"] += 1
     return out

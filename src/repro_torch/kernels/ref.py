@@ -20,10 +20,13 @@ shares the seed, exactly as under ``vmap``.
 ``matmul`` is the dense product as the reference computes it on the CPU;
 the model code uses it for every bf16 product the reference leaves to XLA.
 
-The bf16 route of ``fault_matmul`` runs as two kernels on the card, a hash
-pass that writes each row's corrupted weights as W' tiles and a product of
-those tiles; ``fault_weight_tiles_ref`` and ``matmul_tiles_ref`` are their
-plain versions, and ``pack_tiles``/``unpack_tiles`` convert between
+The bf16 route of ``fault_matmul``, and its float32-x route on bf16
+weights, run as two kernels on the card, a hash pass that writes each
+row's corrupted weights as W' tiles and a product of those tiles;
+``fault_weight_tiles_ref``, ``matmul_tiles_ref`` (bf16 x) and
+``matmul_tiles_f32_ref`` (float32 x) are their plain versions, ``split3``
+the exact three-way split of float32 x the float32 product runs on, and
+``pack_tiles``/``unpack_tiles`` convert between
 ``[R, K, N]`` and the tile layout (``csrc/fault_matmul.cu``): 16 x 128
 tiles, the tiles of one 128-column panel in k order, each tile in wgmma's
 no-swizzle K-major B image (element (k, n) at (n & 7) 8 + (n >> 3) 128 +
@@ -38,7 +41,8 @@ from repro_torch.quant.fixedpoint import TINY, QuantSpec
 
 __all__ = ["row_rates", "matmul", "bitflip_ref", "quant_bitflip_ref",
            "fault_matmul_ref", "XLA_K_BLOCK", "TILE_K", "TILE_N", "tile_elems", "pack_tiles",
-           "unpack_tiles", "fault_weight_tiles_ref", "matmul_tiles_ref"]
+           "unpack_tiles", "fault_weight_tiles_ref", "matmul_tiles_ref",
+           "matmul_tiles_f32_ref", "split3"]
 
 TILE_K, TILE_N = 16, 128
 
@@ -195,3 +199,31 @@ def matmul_tiles_ref(x: torch.Tensor, tiles: torch.Tensor, K: int,
     a row: ``[R, ..., N]`` bf16."""
     w = unpack_tiles(tiles, K, N)
     return torch.stack([matmul(x[r], w[r]) for r in range(w.shape[0])])
+
+
+def matmul_tiles_f32_ref(x: torch.Tensor, tiles: torch.Tensor, K: int,
+                         N: int) -> torch.Tensor:
+    """``x [R, ..., K]`` float32 times row r's W' ``[R, ...]`` in fp32, one
+    ``matmul`` a row as ``fault_matmul_ref`` runs it: ``[R, ..., N]``
+    float32."""
+    w = unpack_tiles(tiles, K, N).float().contiguous()
+    R = w.shape[0]
+    xr = x.reshape(R, -1, K)
+    out = torch.stack([matmul(xr[r], w[r]) for r in range(R)])
+    return out.reshape(*x.shape[:-1], N)
+
+
+def split3(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """float32 ``x`` as three bf16 tensors ``hi, mid, lo``, each the
+    round-to-nearest of what the ones before leave (the card's
+    ``tc::split3``).  ``hi + mid + lo == x`` exactly for finite x below
+    bf16's overflow threshold (2 - 2^-8) 2^127 that is a multiple of
+    2^-133, bf16's smallest subnormal (every x of magnitude >= 2^-110);
+    each part has 8 significant bits, so its product by a bf16 value is
+    exact in fp32 unless it falls below fp32's normal range or
+    overflows."""
+    hi = x.to(torch.bfloat16)
+    r1 = x - hi.float()
+    mid = r1.to(torch.bfloat16)
+    lo = (r1 - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo

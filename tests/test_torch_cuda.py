@@ -307,8 +307,8 @@ def test_fault_matmul_bf16_rows_across_groups(dev, monkeypatch, dtype):
     ops.reset_launches()
     many = ops.fault_matmul(x, qw, scale, 9, rates, 6)
     assert ops.launches == {"bitflip": 0, "quant_bitflip": 0,
-                            "fault_matmul": 0, "fault_matmul_bf16w": 0,
-                            "fault_weight_tiles": 3, "matmul_tiles": 3}
+                            "fault_matmul": 0, "fault_weight_tiles": 3,
+                            "matmul_tiles": 3, "matmul_tiles_f32": 0}
     for r in range(5):
         one = ops.fault_matmul(x[r:r + 1].contiguous(), qw, scale, 9,
                                rates[r:r + 1], 6)
@@ -389,9 +389,9 @@ def test_matmul_tiles_rows_match_one_row_calls(dev, shape):
 def test_fault_matmul_f32_x_bf16_weights(dev, model, shape, dtype):
     """float32 x on a bf16 weight dtype (the encoder-decoder's encoder):
     float(bf16(q' scale)) bitwise at x = I_K, within the fp32 accumulation
-    bound of the plain version at random x, float32 out, counted under
-    ``fault_matmul_bf16w``; each row of an R-row call bitwise its one-row
-    call."""
+    bound of the plain version at random x, float32 out, the hash pass and
+    the float32 product launched once each (one row group), nothing else;
+    each row of an R-row call bitwise its one-row call."""
     M, K, N = shape
     hi = 127 if dtype == torch.int8 else 2 ** 14
     qw = torch.randint(-hi, hi, (K, N), dtype=dtype, device=dev)
@@ -405,8 +405,9 @@ def test_fault_matmul_f32_x_bf16_weights(dev, model, shape, dtype):
     got = ops.fault_matmul(eye, qw, scale, 7, rates, 6, fault_model=model,
                            out_dtype=bf)
     assert got.dtype == torch.float32 and _same_bits(got, w)
-    assert ops.launches["fault_matmul_bf16w"] == 1
-    assert ops.launches["fault_matmul"] == 0
+    assert ops.launches == {"bitflip": 0, "quant_bitflip": 0,
+                            "fault_matmul": 0, "fault_weight_tiles": 1,
+                            "matmul_tiles": 0, "matmul_tiles_f32": 1}
     x = torch.randn(3, M, K, device=dev)
     got = ops.fault_matmul(x, qw, scale, 7, rates, 6, fault_model=model,
                            out_dtype=bf)
@@ -419,6 +420,135 @@ def test_fault_matmul_f32_x_bf16_weights(dev, model, shape, dtype):
                                rates[r:r + 1], 6, fault_model=model,
                                out_dtype=bf)
         assert _same_bits(got[r:r + 1], one)
+
+
+@pytest.mark.parametrize("shape", [(256, 1024, 1024), (135, 300, 77),
+                                   (135, 302, 77), (45, 64, 5),
+                                   (256, 4096, 1024)])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16, torch.int32])
+def test_matmul_tiles_f32_product(dev, shape, dtype):
+    """The float32 product alone, three rows, one launch a call: bitwise
+    ``unpack_tiles(W')`` at x = I_K, within 2K2^-24(|x|@|w|) of
+    ``ref.matmul_tiles_f32_ref`` at random x, each row bitwise its one-row
+    call; for every storage type's W', at seamless-m4t-medium's encoder
+    shapes (K in slices), a ragged edge with K % 4 == 0 (x by TMA) and
+    with K % 4 != 0 (the producer's plain loads), and a narrow N."""
+    from repro_torch._device import fp32_exact
+
+    M, K, N = shape
+    hi = {torch.int8: 127, torch.int16: 2 ** 14, torch.int32: 2 ** 20}[dtype]
+    qw = torch.randint(-hi, hi, (K, N), dtype=dtype, device=dev)
+    rates = torch.tensor([0.0, 1e-3, 0.2], device=dev)
+    scale = torch.tensor(0.0123 if dtype == torch.int8 else 1e-4, device=dev)
+    tiles = ops.fault_weight_tiles(qw, scale, 7, rates, 6)
+    w = ref.unpack_tiles(tiles, K, N).float()
+    eye = torch.eye(K, device=dev).expand(3, K, K).contiguous()
+    ops.reset_launches()
+    assert _same_bits(ops.matmul_tiles_f32(eye, tiles, K, N), w)
+    assert ops.launches["matmul_tiles_f32"] == 1
+    x = torch.randn(3, M, K, device=dev)
+    got = ops.matmul_tiles_f32(x, tiles, K, N)
+    with torch.no_grad(), fp32_exact():
+        want = ref.matmul_tiles_f32_ref(x, tiles, K, N)
+    tol = 2 * K * 2.0 ** -24 * torch.matmul(x.abs(), w.abs())
+    assert got.dtype == torch.float32
+    assert bool(((got - want).abs() <= tol).all())
+    for r in range(3):
+        one = ops.matmul_tiles_f32(x[r:r + 1].contiguous(), tiles[r:r + 1],
+                                   K, N)
+        assert _same_bits(got[r:r + 1], one)
+
+
+@pytest.mark.parametrize("K", [300, 302])
+def test_matmul_tiles_f32_row_offsets(dev, K):
+    """x and W' that start inside a larger call's buffers, as a row group
+    after the first does: rows 1.. of x and of W' give the same bits as
+    the whole call's rows 1..; at K = 302 (M K = 13590) x's start is not
+    16-byte aligned and the producer loads it by plain loads."""
+    M, N = 45, 77
+    qw = torch.randint(-127, 127, (K, N), dtype=torch.int8, device=dev)
+    rates = torch.tensor([0.1, 0.0, 0.2], device=dev)
+    tiles = ops.fault_weight_tiles(qw, torch.tensor(0.0123, device=dev), 3,
+                                   rates, 6)
+    x = torch.randn(3, M, K, device=dev)
+    whole = ops.matmul_tiles_f32(x, tiles, K, N)
+    tail = ops.matmul_tiles_f32(x[1:], tiles[1:], K, N)
+    assert (x[1:].data_ptr() % 16 == 0) == (K % 4 == 0 and (M * K) % 4 == 0)
+    assert _same_bits(whole[1:], tail)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
+def test_fault_matmul_f32_x_bf16_weights_rows_across_groups(dev, monkeypatch,
+                                                           dtype):
+    """float32 x on bf16 weights, R = 5 rows in groups of 2: R one-row
+    calls bitwise, one hash pass and one float32 product a group (3
+    each); at K = 302 (K % 4 != 0) the producer loads x by plain loads."""
+    for M, K, N in ((256, 512, 384), (45, 302, 77)):
+        qw = torch.randint(-100, 100, (K, N), dtype=dtype, device=dev)
+        scale = torch.tensor(0.0123, device=dev)
+        _shrink_workspace(monkeypatch, K, N, 2)
+        rates = torch.tensor([0.2, 0.0, 1e-3, 0.3, 0.05], device=dev)
+        x = torch.randn(5, M, K, device=dev)
+        ops.reset_launches()
+        many = ops.fault_matmul(x, qw, scale, 9, rates, 6,
+                                out_dtype=torch.bfloat16)
+        assert ops.launches == {"bitflip": 0, "quant_bitflip": 0,
+                                "fault_matmul": 0, "fault_weight_tiles": 3,
+                                "matmul_tiles": 0, "matmul_tiles_f32": 3}
+        for r in range(5):
+            one = ops.fault_matmul(x[r:r + 1].contiguous(), qw, scale, 9,
+                                   rates[r:r + 1], 6,
+                                   out_dtype=torch.bfloat16)
+            assert _same_bits(many[r:r + 1], one)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+def test_split_sums_of_misaligned_row_groups(dev, monkeypatch, x_dtype):
+    """Row groups whose out starts off a 16-byte boundary, with K in
+    slices: M N = 3465 (odd), groups of 5 rows, so the second group (4
+    rows, 4 M N elements: a multiple of 4) starts 5 M N elements in; its
+    split-K sum stores element by element there.  R = 9 rows, each
+    bitwise its one-row call, on bf16 x and on float32 x with bf16
+    weights."""
+    M, K, N = 45, 302, 77
+    qw = torch.randint(-100, 100, (K, N), dtype=torch.int8, device=dev)
+    scale = torch.tensor(0.0123, device=dev)
+    _shrink_workspace(monkeypatch, K, N, 5)
+    rates = torch.linspace(0.0, 0.3, 9, device=dev)
+    x = torch.randn(9, M, K, device=dev).to(x_dtype)
+    body = "bf16" if x_dtype == torch.bfloat16 else "f32w"
+    assert ops._k_splits(M, K, N, body, dev) > 1
+    many = ops.fault_matmul(x, qw, scale, 4, rates, 6,
+                            out_dtype=torch.bfloat16)
+    for r in range(9):
+        one = ops.fault_matmul(x[r:r + 1].contiguous(), qw, scale, 4,
+                               rates[r:r + 1], 6, out_dtype=torch.bfloat16)
+        assert _same_bits(many[r:r + 1], one)
+
+
+def test_matmul_tiles_f32_tiny_and_subnormal_x(dev):
+    """x scaled into bf16's and fp32's subnormal range.  At x = 2^-130 I_K
+    each output is float(W') 2^-130, an exact product that is a float32
+    subnormal, from hi parts that are bf16 subnormals: bitwise where the
+    tensor cores keep subnormal inputs and sums.  At random x of magnitude
+    ~2^-115 the lo parts are bf16 subnormals; the result is within
+    2K2^-24(|x|@|w|) of the plain version."""
+    from repro_torch._device import fp32_exact
+
+    M, K, N = 256, 1024, 1024
+    qw = torch.randint(-127, 127, (K, N), dtype=torch.int8, device=dev)
+    tiles = ops.fault_weight_tiles(qw, torch.tensor(0.0123, device=dev), 5,
+                                   torch.tensor([0.2], device=dev), 6)
+    w = ref.unpack_tiles(tiles, K, N).float()
+    eye = (torch.eye(K, device=dev) * 2.0 ** -130)[None].contiguous()
+    got = ops.matmul_tiles_f32(eye, tiles, K, N)
+    assert _same_bits(got, w * 2.0 ** -130)
+    x = torch.randn(1, M, K, device=dev) * 2.0 ** -115
+    got = ops.matmul_tiles_f32(x, tiles, K, N)
+    with torch.no_grad(), fp32_exact():
+        want = ref.matmul_tiles_f32_ref(x, tiles, K, N)
+    tol = 2 * K * 2.0 ** -24 * torch.matmul(x.abs(), w.abs())
+    assert bool(((got - want).abs() <= tol).all())
 
 
 def test_flash_attention_waits_on_nothing(dev):
@@ -482,7 +612,7 @@ def test_encdec_staged_matches_full_on_card(dev, dtype):
             eval_batch_size=ebs, device=dev)
         ops.reset_launches()
         res[strategy] = ev.delta_acc(P)
-        assert ops.launches["fault_matmul_bf16w" if dtype == "bfloat16"
+        assert ops.launches["matmul_tiles_f32" if dtype == "bfloat16"
                             else "fault_matmul"] > 0
     np.testing.assert_array_equal(res["staged"], res["full"])
     store = ev._prefix_engine.store._store

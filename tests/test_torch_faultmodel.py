@@ -174,11 +174,12 @@ def test_cpu_dispatch_counts_no_launch():
                      1.0, 0, 0.5, 4)
     t = ops.fault_weight_tiles(q.reshape(8, 1), 1.0, 0, 0.5, 4)
     ops.matmul_tiles(torch.ones(1, 2, 8, dtype=torch.bfloat16), t, 8, 1)
+    ops.matmul_tiles_f32(torch.ones(1, 2, 8), t, 8, 1)
     ops.fault_matmul(torch.ones(2, 8), q.reshape(8, 1), 1.0, 0, 0.5, 4,
                      out_dtype=torch.bfloat16)
     assert ops.launches == {"bitflip": 0, "quant_bitflip": 0,
-                            "fault_matmul": 0, "fault_matmul_bf16w": 0,
-                            "fault_weight_tiles": 0, "matmul_tiles": 0}
+                            "fault_matmul": 0, "fault_weight_tiles": 0,
+                            "matmul_tiles": 0, "matmul_tiles_f32": 0}
 
 
 def test_fault_core_matches_reference():
