@@ -157,6 +157,32 @@ Phases (any failure raises, and the process exits nonzero):
      ``ReoptJob`` drained a generation at a time equal, bitwise, to the
      synchronous step from the same state, with all three CNN kernels
      launched in it; each tick's wall time printed.
+ 13. Serving: olmo-1b at its published widths and full depth (16 layers,
+     bf16, 1.177 B params, ``init_lm``'s seeded weights) through
+     ``serve.Engine`` under the trace of ``benchmarks/serve.py``: 48
+     engine steps and a drain, Poisson arrivals at 0.5 a step (numpy
+     seeds), prompts of 4-12 tokens and 8-16 new tokens, 8 slots of 64, a
+     canary every 4 decode steps, 4 re-optimization generations a job,
+     ``lm_partitioner`` (population 16, 8 generations) over ``POD_TIERS``
+     at ``FaultSpec(0.2, 0.2, bits=8)``, tier 1 64x worse at step 12 and
+     512x at step 32 behind a ``FaultMonitor`` fed Poisson error counts.
+     The canary observes with the sensitivity surrogate (the random-weight
+     probe is the identity).  Every decode step is faulted: each float
+     leaf of each layer and its input corrupted by ``quant_bitflip`` at 16
+     bits with 4 faulty, one whole tensor each.  First, ``quant_bitflip``
+     bitwise against its plain version at those shapes ([2048,2048],
+     [2048,8192], [8192,2048] and the input [8,1,2048], bf16, one row, all
+     four fault models), each timed beside its bound.  The phase fails on
+     a dropped request, no re-opt swap, a swap that does not strictly
+     lower the observed ΔAcc, a swap stall above max(mean decode step,
+     5 ms), monitor time at or above 5% of decode time, a host wait other
+     than each decode step's argmax and each admission's first token (sync
+     debug mode), ``quant_bitflip`` launches other than 128 a decode step,
+     or a first token that is not the argmax of ``transformer.forward`` on
+     the request's right-aligned prompt.  It prints TTFT and TPOT means,
+     tokens a second, the swap events, and one faulted and one clean
+     decode step of the full batch: wall, busy time by kernel group, idle
+     share and the host's time by op.
 The lines before the last are the ``{"kernels": [...]}`` record, one
 entry a kernel wrapper, each counting its own launches (``ops.launches``):
 ``launches`` are those of the kernel's main path, the CNN staged search of
@@ -172,8 +198,9 @@ each a row group; ``full_launches`` phase 4's; ``lm_launches`` /
 on bf16 weights, and of that route's entry ``fault_matmul_bf16w``, whose
 launches are its calls' row groups: one hash pass, counted under
 ``fault_weight_tiles``, and one ``matmul_tiles_f32`` each),
-``reconfig_launches`` phase 12's drained re-optimization;
-``lm_shapes`` the LM shapes of phase 3.  Then come the card's
+``reconfig_launches`` phase 12's drained re-optimization,
+``serve_launches`` phase 13's trace; ``lm_shapes`` the LM shapes of
+phase 3 and ``decode_shapes`` phase 13's.  Then come the card's
 ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -206,6 +233,7 @@ Rates are the H100 SXM's published peaks at 700 W.
 """
 from __future__ import annotations
 
+import collections
 import gc
 import json
 import os
@@ -484,7 +512,8 @@ RECORD_KEYS = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
                "rg_full_launches", "rg_candidate_ms", "rg_candidate_launches",
                "mixtral_launches", "mamba2_launches", "seamless_launches",
                "seamless_full_launches", "seamless_candidate_ms",
-               "seamless_candidate_launches", "reconfig_launches")
+               "seamless_candidate_launches", "reconfig_launches",
+               "decode_shapes", "serve_launches")
 
 
 # fault_matmul on bf16 x at olmo-1b's projections, M = B S = 2048:
@@ -1555,29 +1584,29 @@ def _host_waits(ev, row) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-def _profile_candidate(tag, dev, cfg, f_ev, row, B, S):
-    """One candidate's wall (5 readings of 3 back-to-back dispatches: the
-    host's share moves with what else the machine runs) and its device
-    time by kernel group (torch.profiler), with the scans' ranges.
-    Returns the groups."""
+def _profiled_split(fn, on_card, iters):
+    """``fn``'s wall (5 readings, each the mean of ``iters`` back-to-back
+    calls: the host's share moves with what else the machine runs) and,
+    from one more call under torch.profiler, its device time by kernel
+    group.  Returns the sorted walls, their median, the profile, the busy
+    ms, ``{group: [ms, kernels]}`` and the wrappers' launches in the
+    profiled call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    on_card = dev.type == "cuda"
+    from repro_torch.kernels import ops
+
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-    walls = sorted(time_ms(lambda: f_ev._dispatch(row), iters=3, warmup=1)
+    walls = sorted(time_ms(fn, iters=iters, warmup=1)
                    for _ in range(5)) if on_card else [0.0]
-    t_row = walls[len(walls) // 2]
-    log(f"{tag} one {cfg.name} candidate wall, 5 readings: "
-        f"{[round(w, 3) for w in walls]} ms (median {t_row:.3f}); the "
-        f"forward waits on the card {_host_waits(f_ev, row)} times")
+    before = dict(ops.launches)
     with profile(activities=[ProfilerActivity.CPU]
                  + ([ProfilerActivity.CUDA] if on_card else [])) as prof:
-        f_ev._dispatch(row)
+        fn()
         sync()
+    launched = {k: v - before.get(k, 0) for k, v in ops.launches.items()}
     # a range opened by record_function shows on the device timeline as
-    # an annotation (a span, not a kernel): kept out of the kernels, and
-    # the kernels that run inside its spans summed as its own time
+    # an annotation (a span, not a kernel): kept out of the kernels
     kern = [a for a in prof.key_averages()
             if a.device_type == DeviceType.CUDA and a.key not in SCAN_RANGES]
     if on_card and not kern:
@@ -1588,6 +1617,27 @@ def _profile_candidate(tag, dev, cfg, f_ev, row, B, S):
         g = groups.setdefault(kernel_group(a.key, "cuBLAS matmul"), [0.0, 0])
         g[0] += a.self_device_time_total / 1e3
         g[1] += a.count
+    return walls, walls[len(walls) // 2], prof, busy, groups, launched
+
+
+def _groups_text(groups) -> str:
+    return ", ".join(f"{k} {v[0]:.3f} ms in {v[1]}" for k, v in
+                     sorted(groups.items(), key=lambda kv: -kv[1][0]))
+
+
+def _profile_candidate(tag, dev, cfg, f_ev, row, B, S):
+    """One candidate's wall (5 readings of 3 back-to-back dispatches) and
+    its device time by kernel group, with the scans' ranges (the kernels
+    that run inside a range's spans summed as its own time).  Returns the
+    groups."""
+    from torch.autograd import DeviceType
+
+    on_card = dev.type == "cuda"
+    walls, t_row, prof, busy, groups, _ = _profiled_split(
+        lambda: f_ev._dispatch(row), on_card, iters=3)
+    log(f"{tag} one {cfg.name} candidate wall, 5 readings: "
+        f"{[round(w, 3) for w in walls]} ms (median {t_row:.3f}); the "
+        f"forward waits on the card {_host_waits(f_ev, row)} times")
     dev_ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     k_ev = [e.time_range for e in dev_ev if e.name not in SCAN_RANGES]
     scans = {}
@@ -1602,8 +1652,7 @@ def _profile_candidate(tag, dev, cfg, f_ev, row, B, S):
     log(f"{tag} one {cfg.name} candidate (kernel backend, {B}x{S} tokens): "
         f"{t_row:.3f} ms median wall; profiler: kernels busy {busy:.3f} ms "
         f"({100 * (1 - busy / max(t_row, 1e-9)):.1f}% idle); "
-        + ", ".join(f"{k} {v[0]:.3f} ms in {v[1]}" for k, v in
-                    sorted(groups.items(), key=lambda kv: -kv[1][0]))
+        + _groups_text(groups)
         + "".join(f"; of the glue, {k} {v[0]:.3f} ms in {v[1]} kernels "
                   f"within {v[2]} ranges spanning {v[3]:.3f} ms"
                   for k, v in scans.items()))
@@ -2080,6 +2129,330 @@ def reconfig_phase(dev, records, ev, plan, layers, nsga, ticks=8):
         r["reconfig_launches"] = launches[name]
 
 
+# phase 13's trace, benchmarks/serve.py::run_trace at these settings: engine
+# steps, Poisson arrivals a step, slots, KV capacity, decode steps between
+# canaries, re-opt generations a job
+SERVE_STEPS, SERVE_ARRIVALS = 48, 0.5
+SERVE_BATCH, SERVE_MAX_LEN, SERVE_CANARY, SERVE_REOPT_GENS = 8, 64, 4, 4
+
+
+def _named_leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], path + (k,))
+    else:
+        yield "/".join(path), tree
+
+
+def check_decode_kernels(dev, cfg, params, records, batch=SERVE_BATCH):
+    """Phase 13's kernel check: ``quant_bitflip`` at the shapes a faulted
+    decode step corrupts (each float leaf of a layer, one row, and the
+    block input ``[batch, 1, d_model]``), at the ``layers`` module's
+    16 bits with 4 faulty, bitwise against its plain version for all four
+    fault models, each shape timed beside its bound.  Returns the
+    launches one faulted decode step makes, as the param tree gives them
+    (a leaf's calls are the layers it serves); the trace's measured total
+    is held against it."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.faultmodel import FAULT_MODELS
+    from repro_torch.models import layers as L
+    from repro_torch.quant import QuantSpec
+
+    spec, fb = QuantSpec(L.FAULT_BITS), L.FAULT_LSBS
+    P = len(cfg.block_pattern)
+    shapes = {}                   # shape -> [labels, calls a step, a leaf]
+    for s in range(P):
+        for name, t in _named_leaves(params["groups"][f"b{s}"]):
+            if t.is_floating_point():
+                e = shapes.setdefault(tuple(t.shape[1:]), [[], 0, t[0]])
+                e[0].append(name)
+                e[1] += len(range(s, cfg.n_layers, P))
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x_in = torch.randn(batch, 1, cfg.d_model, device=dev, generator=gen) \
+        .to(cfg.torch_dtype)
+    shapes[(batch, 1, cfg.d_model)] = [["block input"], cfg.n_layers, x_in]
+    rate = torch.tensor([0.0, 0.2], device=dev)[1]       # a 0-d rate
+    on_card = dev.type == "cuda"
+    rows, per_call, per_step = [], [], 0
+    for shape, (names, calls, x) in shapes.items():
+        x = x.contiguous()
+        err = 0.0
+        for model in FAULT_MODELS:
+            k = ops.quant_bitflip(x, 7919 * 3 + 977, rate, fb, spec,
+                                  fault_model=model)
+            p = ref.quant_bitflip_ref(x, 7919 * 3 + 977, rate, fb, spec,
+                                      fault_model=model)
+            err = max(err, max_abs_err(k, p))
+            if not bits_equal(k, p):
+                raise AssertionError(f"quant_bitflip {list(shape)} {model} "
+                                     "differs from its plain version")
+        n, eb = x.numel(), x.element_size()
+        b_ms, b_by = bound(2 * eb * n, int_ops=n * fb * HASH_OPS_PER_DRAW)
+        times = dict(
+            ms=device_ms(lambda: ops.quant_bitflip(x, 1, rate, fb, spec)),
+            wrapper_ms=time_ms(lambda: ops.quant_bitflip(x, 1, rate, fb,
+                                                         spec)),
+            plain_ms=time_ms(lambda: ref.quant_bitflip_ref(
+                x, 1, rate, fb, spec), iters=5)) if on_card else {}
+        rows.append(dict(
+            label=f"{cfg.name} decode {', '.join(names)}",
+            shape=f"{list(shape)} {str(x.dtype)[6:]}, one row",
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, max_abs_err=err,
+            **times))
+        per_call.append(calls)
+        per_step += calls
+    log(f"phase13 quant_bitflip at {[list(s) for s in shapes]}: bitwise equal "
+        f"to plain for {FAULT_MODELS} at {spec.bits} bits with {fb} faulty, "
+        f"a 0-d rate (one row); {per_step} launches a faulted decode step by "
+        f"the param tree ({' + '.join(map(str, per_call))})")
+    for r in rows if on_card else []:
+        log(f"phase13 time quant_bitflip {r['label']} at {r['shape']}: device "
+            f"{r['ms']:.4f} ms, wrapper {r['wrapper_ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}; the kernel reaches "
+            f"{100 * r['bound_ms'] / r['ms']:.0f}% of it)")
+    records["quant_bitflip"]["decode_shapes"] = rows
+    return per_step
+
+
+def _decode_split(tag, fn):
+    """One decode step's wall (median of 5 readings, each the mean of 5
+    steps, the argmax read back each step) and its device time by kernel
+    group from one profiled step, beside the wrappers' launches in it
+    (``quant_bitflip`` runs two kernels a call, an amax pass and the
+    flip, and a memset that counts as a copy)."""
+    from torch.autograd import DeviceType
+
+    walls, wall, prof, busy, groups, launched = _profiled_split(
+        fn, True, iters=5)
+    n = sum(g[1] for g in groups.values())
+    host = sorted((a for a in prof.key_averages()
+                   if a.device_type == DeviceType.CPU),
+                  key=lambda a: -a.self_cpu_time_total)[:8]
+    log(f"phase13 {tag} decode step, host time by op (self): "
+        + ", ".join(f"{a.key} {a.self_cpu_time_total / 1e3:.3f} ms in "
+                    f"{a.count}" for a in host))
+    log(f"phase13 {tag} decode step: wall {wall:.3f} ms (5 readings "
+        f"{[round(w, 3) for w in walls]}), kernels busy {busy:.3f} ms "
+        f"({100 * (1 - busy / wall):.1f}% idle), {n} kernels: "
+        + _groups_text(groups) + f"; wrapper launches in the profiled step "
+        f"{ {k: v for k, v in launched.items() if v} }")
+
+
+def serve_phase(dev, records, cfg=None, steps=SERVE_STEPS, nsga=None):
+    """Phase 13: olmo-1b served through ``serve.Engine`` (see the
+    docstring).  The canary observes with the sensitivity surrogate,
+    ``benchmarks/serve.py``'s default: the random-weight olmo-1b probe is
+    the identity (ROADMAP.md Queue C, fact 3), so a canary on the true
+    evaluator waits for a trained model (Queue A item 13).  The arguments
+    other than ``dev`` and ``records`` let a rehearsal on the CPU run it at
+    a small size."""
+    from repro_torch._device import fp32_exact
+    from repro_torch.configs import get_config
+    from repro_torch.core import (POD_TIERS, CostModel, FaultEnvironment,
+                                  FaultSpec, NSGA2Config,
+                                  OnlineReconfigurator,
+                                  SurrogateAccuracyEvaluator, lm_partitioner)
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models.graph import lm_layer_infos
+    from repro_torch.models.transformer import decode_step, forward, init_lm
+    from repro_torch.serve import (Engine, FaultMonitor, MonitorConfig,
+                                   Request, ServeConfig)
+    from repro_torch.serve.engine import _bucket
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = cfg or get_config("olmo-1b")
+    if (L.FAULT_BITS, L.FAULT_LSBS) != (16, 4):
+        raise AssertionError("decode corrupts at the layers module's width, "
+                             "expected 16 bits with 4 faulty")
+    gc.collect()                    # the earlier phases' garbage
+    t0 = time.perf_counter()
+    params = init_lm(cfg, seed=0, device=dev)
+    sync()
+    log(f"phase13 {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}, "
+        f"{cfg.param_count() / 1e9:.3f} B params, init "
+        f"{time.perf_counter() - t0:.2f} s")
+    per_step = check_decode_kernels(dev, cfg, params, records)
+
+    # the system: benchmarks/serve.py::build_system's surrogate path
+    base_scale = np.array([d.fault_scale for d in POD_TIERS])
+    spec = FaultSpec(weight_fault_rate=0.2, act_fault_rate=0.2, bits=8)
+    cm = CostModel(lm_layer_infos(cfg, seq=64), POD_TIERS)
+    part = lm_partitioner(cfg, SurrogateAccuracyEvaluator(cm),
+                          devices=POD_TIERS, seq=64, fault_spec=spec,
+                          nsga2_config=nsga or NSGA2Config(
+                              population=16, generations=8, seed=0))
+
+    def observe(partition, scales):
+        old = cm.fault_scale.copy()
+        cm.fault_scale = np.asarray(scales, float)
+        v = float(cm.sensitivity_surrogate(np.asarray(partition)[None, :])[0])
+        cm.fault_scale = old
+        return v
+
+    def partition_to_rates(partition, scales):
+        sc = np.asarray(scales if scales is not None else base_scale)
+        r = sc[np.asarray(partition)]
+        return ((spec.weight_fault_rate * r).astype(np.float32),
+                (spec.act_fault_rate * r).astype(np.float32))
+
+    plan = part.optimize()
+    # tier 1, the reliable one the plan leans on, degrades x64 at t1 and
+    # fails outright (another x8) at t2
+    t1, t2 = steps // 4, (2 * steps) // 3
+    env = FaultEnvironment(
+        base_scale=base_scale,
+        schedule={t1: base_scale * np.array([1.0, 64.0]),
+                  t2: base_scale * np.array([1.0, 512.0])})
+    theta = observe(plan.partition, base_scale) * 5.0 + 1e-9
+    rec = OnlineReconfigurator(part, plan, theta=theta, observe_fn=observe,
+                               reopt_generations=SERVE_REOPT_GENS)
+    mcfg = MonitorConfig(base_error_rate=50.0, ewma_alpha=0.25,
+                         scale_quantum=0.05, degraded_factor=4.0,
+                         critical_factor=100.0, recovery_ticks=8,
+                         watchdog_timeout_ticks=1000)
+    mon = FaultMonitor(base_scale, mcfg)
+    err_rng = np.random.default_rng(1)
+
+    def error_source(tick):
+        return err_rng.poisson(mcfg.base_error_rate * env.scales_at(tick))
+
+    scfg = ServeConfig(max_batch=SERVE_BATCH, max_len=SERVE_MAX_LEN,
+                       canary_every=SERVE_CANARY)
+    trace_rng = np.random.default_rng(2)
+    arrivals = []
+    for t in range(steps):
+        for _ in range(trace_rng.poisson(SERVE_ARRIVALS)):
+            prompt = trace_rng.integers(
+                0, cfg.vocab, int(trace_rng.integers(4, 13))).astype(np.int32)
+            arrivals.append((t, Request(
+                uid=len(arrivals), prompt=prompt,
+                max_new_tokens=int(trace_rng.integers(8, 17)))))
+    # warm-up: one request through a clean engine (the library handles)
+    Engine(cfg, params, scfg).generate([Request(
+        uid=-1, prompt=np.arange(4, dtype=np.int32), max_new_tokens=3)])
+    eng = Engine(cfg, params, scfg, reconfigurator=rec,
+                 partition_to_rates=partition_to_rates, monitor=mon,
+                 error_source=error_source)
+    log(f"phase13 plan P={''.join(map(str, plan.partition))} on POD_TIERS "
+        f"scales {base_scale.tolist()}; theta {theta:.4g}; {len(arrivals)} "
+        f"requests over {steps} steps; tier 1 x64 at step {t1}, x512 at "
+        f"{t2}")
+
+    sync()
+    ops.reset_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if on_card:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            wall0 = time.perf_counter()
+            ai = 0
+            for t in range(steps):
+                while ai < len(arrivals) and arrivals[ai][0] <= t:
+                    eng.submit(arrivals[ai][1])
+                    ai += 1
+                eng.step()
+            eng.run()                 # drain the tail under the final scales
+            wall = time.perf_counter() - wall0
+        finally:
+            if on_card:
+                torch.cuda.set_sync_debug_mode("default")
+    sync()
+    launches = launch_counts()
+    # sync debug mode warns at each call that makes the host wait, from
+    # the Python line that made it
+    sites = collections.Counter(f"{os.path.relpath(w.filename, HERE)}:"
+                                f"{w.lineno}" for w in caught
+                                if "called a synchronizing" in str(w.message))
+    waits = sum(sites.values())
+    st = eng.stats()
+    done = sorted(eng.completed, key=lambda r: r.uid)
+    tokens = sum(len(r.out) for r in done)
+    log(f"phase13 served {len(done)} requests, {tokens} tokens in "
+        f"{st['decode_steps']} decode steps, {wall:.3f} s wall "
+        f"({tokens / wall:.1f} tokens/s); TTFT mean "
+        f"{1e3 * st['ttft_s_mean']:.3f} ms, TPOT mean "
+        f"{1e3 * st['tpot_s_mean']:.3f} ms; decode {st['decode_s']:.3f} s "
+        f"({1e3 * st['decode_s'] / max(st['decode_steps'], 1):.3f} ms a "
+        f"step), monitor {1e3 * st['monitor_s']:.3f} ms, canary "
+        f"{1e3 * st['canary_s']:.3f} ms, {st['reopt_generations']} re-opt "
+        f"generations; host waits {waits} at {dict(sites)}; launches "
+        f"{launches}")
+    log(f"phase13 stats {json.dumps(st)}")
+    for e in eng.swap_events:
+        log(f"phase13 swap at step {e['step']}: {e['kind']} "
+            f"P={''.join(map(str, e['new_partition']))} pre {e['pre_delta']} "
+            f"post {e['post_delta']} stall {e['stall_s']:.2e} s, "
+            f"{e['migrated_layers']} layers moved")
+    log(f"phase13 monitor {json.dumps(mon.stats())}")
+
+    # one faulted and one clean decode step of a full batch, profiled
+    if on_card:
+        cache = eng._cache
+        toks = torch.zeros(SERVE_BATCH, dtype=torch.int32, device=dev)
+        pos = torch.full((SERVE_BATCH,), 40, dtype=torch.int32, device=dev)
+        fault = eng._fault_triple()
+        for tag, f in (("faulted", fault), ("clean", None)):
+            _decode_split(tag, lambda f=f: torch.argmax(decode_step(
+                params, cfg, cache, toks, pos, fault=f)[0], -1).cpu())
+
+    # the guards of benchmarks/serve.py --smoke, and the port's own
+    problems = []
+    if st["dropped"] != 0:
+        problems.append(f"{st['dropped']} in-flight requests dropped")
+    reopts = [e for e in eng.swap_events if e["kind"] == "reopt"]
+    if not reopts:
+        problems.append("the fault schedule ran without a re-opt swap")
+    for e in reopts:
+        if not (e["post_delta"] is not None and e["pre_delta"] is not None
+                and e["post_delta"] < e["pre_delta"]):
+            problems.append(f"swap at step {e['step']} did not strictly "
+                            f"improve dAcc ({e['pre_delta']} -> "
+                            f"{e['post_delta']})")
+    step_s = st["decode_s"] / max(st["decode_steps"], 1)
+    if st["swap_stall_s_max"] > max(step_s, 5e-3):
+        problems.append(f"swap stall {st['swap_stall_s_max']:.2e} s above "
+                        f"max(one decode step, 5 ms)")
+    if st["monitor_s"] >= 0.05 * st["decode_s"]:
+        problems.append(f"monitor {st['monitor_s']:.3f} s is >= 5% of decode "
+                        f"{st['decode_s']:.3f} s")
+    if on_card and waits != st["decode_steps"] + st["admitted"]:
+        problems.append(f"{waits} host waits, against one a decode step and "
+                        f"one an admission ({st['decode_steps']} + "
+                        f"{st['admitted']})")
+    if on_card and launches["quant_bitflip"] != per_step * st["decode_steps"]:
+        problems.append(f"quant_bitflip launched {launches['quant_bitflip']} "
+                        f"times, against {per_step} in each of "
+                        f"{st['decode_steps']} faulted decode steps")
+    for r in done:
+        S = _bucket(len(r.prompt))
+        toks = np.zeros((1, S), np.int32)
+        toks[0, S - len(r.prompt):] = r.prompt
+        with fp32_exact(), torch.no_grad():
+            logits = forward(params, cfg, {"tokens": torch.from_numpy(toks)
+                                           .to(dev)})
+        if int(torch.argmax(logits[0, -1])) != r.out[0]:
+            problems.append(f"request {r.uid}: first token {r.out[0]} is not "
+                            "the argmax of forward on its prompt")
+    if problems:
+        raise AssertionError("phase13: " + "; ".join(problems))
+    log(f"phase13 guards hold: no drop, {len(reopts)} re-opt swaps each "
+        f"strictly improving dAcc, stall {st['swap_stall_s_max']:.2e} s, "
+        f"monitor {100 * st['monitor_s'] / st['decode_s']:.2f}% of decode, "
+        f"{waits} host waits (one a decode step and an admission), "
+        f"quant_bitflip {launches['quant_bitflip']} = {per_step} x "
+        f"{st['decode_steps']}, {len(done)} first tokens = forward's argmax")
+    for name, r in records.items():
+        r["serve_launches"] = launches[name]
+
+    del eng, params
+    gc.collect()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2262,6 +2635,10 @@ def main() -> int:
 
     # phase 11: the encoder-decoder
     encdec_phase(dev, records)
+    torch.cuda.empty_cache()
+
+    # phase 13: serving olmo-1b
+    serve_phase(dev, records)
 
     kernels = [dict(name=name, **{k: r[k] for k in RECORD_KEYS if k in r})
                for name, r in records.items()]

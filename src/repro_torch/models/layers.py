@@ -3,8 +3,9 @@
 blocks (initialisers, the three norms, RoPE, chunked flash attention,
 causal or to an encoder's memory, the gated and plain MLPs), MoE with the
 sort-based capacity dispatch, the RG-LRU block (causal conv, associative
-scan) and the Mamba2 SSD block (chunked scan).  Decode attention is not
-ported yet (ROADMAP.md Queue A item 11c).
+scan) and the Mamba2 SSD block (chunked scan), and decode attention: the
+prefill that also returns K/V, one token against the cache, and the
+combine of its partials.
 
 Row convention: a rate is ``None`` (the float path: no quantization at
 all), or a float32 tensor ``[R]`` of per-row rates, one row per candidate
@@ -47,7 +48,8 @@ __all__ = ["QTensor", "FaultedQ", "quantize_leaf", "quantize_params",
            "dequantize_params", "maybe_corrupt", "corrupt_params",
            "fault_dense", "set_fault_bits", "set_fault_model", "dense_init",
            "init_norm", "norm_fwd", "rope", "init_attention",
-           "flash_attention", "attention_fwd", "init_mlp", "mlp_fwd",
+           "flash_attention", "attention_fwd", "attention_prefill",
+           "decode_attention", "lse_combine", "init_mlp", "mlp_fwd",
            "init_moe", "moe_fwd", "causal_conv1d", "init_rglru",
            "rglru_core", "rglru_fwd", "init_ssd", "ssd_fwd"]
 
@@ -383,6 +385,26 @@ def attention_fwd(p: dict, x: torch.Tensor, positions: torch.Tensor, *,
     its einsums see the same shapes whatever the row count (a batched
     einsum may pick another algorithm, and so another summation order, for
     another R)."""
+    return _attend(p, x, positions, n_heads=n_heads, n_kv=n_kv,
+                   head_dim=head_dim, rope_theta=rope_theta, window=window,
+                   softcap=softcap, kv_chunk=kv_chunk, memory=memory,
+                   memory_pos=memory_pos)[0]
+
+
+def attention_prefill(p: dict, x: torch.Tensor, positions: torch.Tensor, *,
+                      n_heads: int, n_kv: int, head_dim: int,
+                      rope_theta: float, window: int | None = None,
+                      softcap: float = 0.0, kv_chunk: int = 1024):
+    """Causal self-attention as :func:`attention_fwd`, also returning the
+    roped K and V, ``[R, B, S, Hkv, Dh]`` each, that the cache is built
+    from: ``(out, k, v)``."""
+    return _attend(p, x, positions, n_heads=n_heads, n_kv=n_kv,
+                   head_dim=head_dim, rope_theta=rope_theta, window=window,
+                   softcap=softcap, kv_chunk=kv_chunk)
+
+
+def _attend(p, x, positions, *, n_heads, n_kv, head_dim, rope_theta, window,
+            softcap, kv_chunk, memory=None, memory_pos=None):
     R, B, S, _ = x.shape
     src = x if memory is None else memory
     Sk = src.shape[2]
@@ -401,7 +423,48 @@ def attention_fwd(p: dict, x: torch.Tensor, positions: torch.Tensor, *,
                                      window=window, softcap=softcap,
                                      kv_chunk=kv_chunk, causal=causal)
                      for r in range(R)])
-    return fault_dense(o.reshape(R, B, S, n_heads * head_dim), p["wo"])
+    return fault_dense(o.reshape(R, B, S, n_heads * head_dim), p["wo"]), k, v
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_pos: torch.Tensor,
+                     pos: torch.Tensor, *, window: int | None = None,
+                     softcap: float = 0.0):
+    """One token against a cache, in float32.
+
+    q: ``[B, Hq, Dh]``; k_cache, v_cache: ``[B, Skv, Hkv, Dh]``;
+    cache_pos: ``[B, Skv]`` absolute positions (-1 an empty slot); pos:
+    ``[B]``.  Returns the partials ``(num [B, Hq, Dh], max [B, Hq], den
+    [B, Hq])`` that :func:`lse_combine` folds."""
+    B, Hq, Dh = q.shape
+    Hkv = k_cache.shape[2]
+    g = Hq // Hkv
+    qs = (q * torch.tensor(Dh ** -0.5, dtype=q.dtype)).to(torch.float32)
+    qs = qs.reshape(B, Hkv, g, Dh)
+    s = torch.einsum("bhgd,bshd->bhgs", qs, k_cache.to(torch.float32))
+    s = _softcap(s, softcap)
+    valid = (cache_pos >= 0) & (cache_pos <= pos[:, None])
+    if window is not None:
+        valid = valid & (pos[:, None] - cache_pos < window)
+    # a Python scalar: a tensor made on the card would make the host wait
+    s = torch.where(valid[:, None, None, :], s, -1e30)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    den = p.sum(dim=-1)
+    num = torch.einsum("bhgs,bshd->bhgd", p, v_cache.to(torch.float32))
+    return num.reshape(B, Hq, Dh), m.reshape(B, Hq), den.reshape(B, Hq)
+
+
+def lse_combine(num: torch.Tensor, m: torch.Tensor, den: torch.Tensor,
+                axis_name: str | None = None) -> torch.Tensor:
+    """Fold the partials of :func:`decode_attention`.  One card holds the
+    whole cache, so there is one shard and nothing to combine across: a
+    cache sharded over a mesh axis belongs to ROADMAP.md Queue A item 14."""
+    if axis_name is not None:
+        raise NotImplementedError(
+            f"lse_combine over mesh axis {axis_name!r}: a sequence-sharded "
+            "cache needs the launch/ package, ROADMAP.md Queue A item 14")
+    return num / torch.clamp_min(den[..., None], 1e-30)
 
 
 # --------------------------------------------------------------------------

@@ -33,21 +33,36 @@ The encoder-decoder keeps the reference's dtypes: its encoder input
 encoder's hidden state and its memory are float32 (every encoder
 projection and the decoder's cross-attention K/V are float32 x on bf16
 weights, ``layers.fault_dense``) while the decoder's hidden state is bf16.
-Prefill/decode and the caches are not ported yet (ROADMAP.md Queue A item
-11c).
+
+Serving: :func:`prefill` runs the prompt (one row) and returns its cache,
+:func:`decode_step` runs one token per sequence against it.  A cache is
+the reference's tree, every leaf stacked over the groups and the batch
+its second axis:
+
+  attn global      k/v [G, B, max_len, Hkv, Dh] + pos [G, B, max_len]
+  local / swa      the same, a ring of ``window`` slots (slot = pos % Sc)
+  rglru            conv [G, B, K-1, W] + h [G, B, W] (float32)
+  ssd              conv [G, B, K-1, C] + h [G, B, H, P, N] (float32)
+
+``pos`` is -1 in an empty slot.  A decode step writes into the cache in
+place and returns it.  Prefill and decode run their float32 sums in IEEE
+fp32 (``fp32_exact``), as the evaluators do.  The whole cache lies on one
+card: there is one sequence shard, so the flash-decode partials need no
+combine across a mesh (``layers.lse_combine``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch._device import resolve_device
+from repro_torch._device import fp32_exact, resolve_device
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ref as kref
 from repro_torch.models import layers as L
 
-__all__ = ["init_lm", "forward", "embed_tokens", "unembed", "LMStepModel"]
+__all__ = ["init_lm", "forward", "embed_tokens", "unembed", "LMStepModel",
+           "init_cache", "prefill", "decode_step", "encode"]
 
 _ATTN_KINDS = ("attn", "local", "global")
 
@@ -157,19 +172,27 @@ def _row_expand(p: dict, rate: torch.Tensor) -> dict:
 # ==========================================================================
 # Block forward
 # ==========================================================================
-def _per_row(fn, p: dict, x: torch.Tensor, per_row: bool) -> torch.Tensor:
+def _per_row(fn, p: dict, x: torch.Tensor, per_row: bool):
     """``fn(p_r, x[r])`` for each row ``r`` of ``x [R, B, S, D]``, with
     ``p_r`` row r of the ``[R, ...]`` leaves (``per_row``) or ``p`` as
     shared: a row's arithmetic then never depends on how many rows share
-    the step."""
+    the step.  ``fn`` returns a tensor or a tree of them (a block's output
+    and its state); the rows' outputs are stacked leaf by leaf."""
     out = None
     for r in range(x.shape[0]):
         pr = tree_map(lambda t, r=r: t[r], p) if per_row else p
         y = fn(pr, x[r])
         if out is None:
-            out = y.new_empty((x.shape[0], *y.shape))
-        out[r] = y
+            out = tree_map(lambda t: t.new_empty((x.shape[0], *t.shape)), y)
+        for o, t in zip(tree_leaves(out), tree_leaves(y)):
+            o[r] = t
     return out
+
+
+def _with_state(fn, build_cache: bool):
+    """``fn`` (returning ``(y, state)``) as it is when the state is kept,
+    else ``y`` alone: a row's state is stacked only to build a cache."""
+    return fn if build_cache else (lambda pr, hr: fn(pr, hr)[0])
 
 
 def _inject(p: dict, x: torch.Tensor, fault_rates, fault_bits,
@@ -191,50 +214,70 @@ def _inject(p: dict, x: torch.Tensor, fault_rates, fault_bits,
     return p, x
 
 
+def _window(cfg: ArchConfig, kind: str) -> int | None:
+    """The attention window of a block of ``kind`` (None: global)."""
+    if kind == "local" or (kind == "attn" and cfg.attn_kind == "swa"):
+        return cfg.window
+    return None
+
+
 def _block_fwd(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor,
                positions: torch.Tensor, *, fault_rates=None, fault_bits=None,
-               fault_model=None, kv_chunk: int = 1024,
-               ssd_chunk: int = 256) -> torch.Tensor:
+               fault_model=None, build_cache: bool = False,
+               kv_chunk: int = 1024, ssd_chunk: int = 256):
     """One block of ``kind`` on ``x [R, B, S, D]``.  ``fault_bits`` is an
     optional (bits, faulty_bits) override of the corruption width,
     ``fault_model`` an optional (model, mbu_width) override; None takes the
     ``layers`` module defaults.  The MoE, RG-LRU and SSD sub-blocks run a
     row at a time; whether their leaves carry the row axis (weight faults,
-    or a tables gather) is read from one leaf's rank."""
+    or a tables gather) is read from one leaf's rank.  With
+    ``build_cache`` returns ``(x, cache)``: the attention's roped K and V
+    (``{"k", "v"}``, ``[R, B, S, Hkv, Dh]`` each) or the RG-LRU's or SSD's
+    final state (``{"conv", "h"}``, with the row axis)."""
     p, x = _inject(p, x, fault_rates, fault_bits, fault_model)
+    cache = None
     if kind in _ATTN_KINDS:
-        window = None
-        if kind == "local" or (kind == "attn" and cfg.attn_kind == "swa"):
-            window = cfg.window
         h = L.norm_fwd(p["ln1"], x, cfg.norm_kind)
-        x = x + L.attention_fwd(p["attn"], h, positions, n_heads=cfg.n_heads,
-                                n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim_,
-                                rope_theta=cfg.rope_theta, window=window,
-                                softcap=cfg.logit_softcap or 0.0,
-                                kv_chunk=kv_chunk)
+        kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                  head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta,
+                  window=_window(cfg, kind), softcap=cfg.logit_softcap or 0.0,
+                  kv_chunk=kv_chunk)
+        if build_cache:
+            a, k, v = L.attention_prefill(p["attn"], h, positions, **kw)
+            cache = {"k": k, "v": v}
+        else:
+            a = L.attention_fwd(p["attn"], h, positions, **kw)
+        x = x + a
         h = L.norm_fwd(p["ln2"], x, cfg.norm_kind)
-        if not cfg.is_moe:
-            return x + L.mlp_fwd(p["mlp"], h, cfg.act_fn)
-        f = _per_row(lambda pr, hr: L.moe_fwd(
-            pr, hr, top_k=cfg.top_k, act=cfg.act_fn,
-            capacity_factor=cfg.moe_capacity_factor),
-            p["moe"], h, p["moe"]["router"].ndim == 3)
-        if cfg.moe_dense_residual:
-            f = f + L.mlp_fwd(p["dense_mlp"], h, cfg.act_fn)
-        return x + f
-    if kind == "rglru":
+        if cfg.is_moe:
+            f = _per_row(lambda pr, hr: L.moe_fwd(
+                pr, hr, top_k=cfg.top_k, act=cfg.act_fn,
+                capacity_factor=cfg.moe_capacity_factor),
+                p["moe"], h, p["moe"]["router"].ndim == 3)
+            if cfg.moe_dense_residual:
+                f = f + L.mlp_fwd(p["dense_mlp"], h, cfg.act_fn)
+        else:
+            f = L.mlp_fwd(p["mlp"], h, cfg.act_fn)
+        x = x + f
+    elif kind == "rglru":
         h = L.norm_fwd(p["ln1"], x, cfg.norm_kind)
-        x = x + _per_row(lambda pr, hr: L.rglru_fwd(pr, hr)[0], p["rec"], h,
-                         p["rec"]["lam"].ndim == 2)
+        r = _per_row(_with_state(L.rglru_fwd, build_cache), p["rec"], h,
+                     p["rec"]["lam"].ndim == 2)
+        r, cache = r if build_cache else (r, None)
+        x = x + r
         h = L.norm_fwd(p["ln2"], x, cfg.norm_kind)
-        return x + L.mlp_fwd(p["mlp"], h, cfg.act_fn)
-    if kind == "ssd":
+        x = x + L.mlp_fwd(p["mlp"], h, cfg.act_fn)
+    elif kind == "ssd":
         h = L.norm_fwd(p["ln1"], x, cfg.norm_kind)
-        return x + _per_row(lambda pr, hr: L.ssd_fwd(
+        s = _per_row(_with_state(lambda pr, hr: L.ssd_fwd(
             pr, hr, expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
-            state=cfg.ssm_state, chunk=ssd_chunk)[0],
+            state=cfg.ssm_state, chunk=ssd_chunk), build_cache),
             p["ssd"], h, p["ssd"]["A_log"].ndim == 2)
-    raise ValueError(kind)
+        s, cache = s if build_cache else (s, None)
+        x = x + s
+    else:
+        raise ValueError(kind)
+    return (x, cache) if build_cache else x
 
 
 def _enc_block_fwd(cfg: ArchConfig, p: dict, x: torch.Tensor,
@@ -256,23 +299,27 @@ def _enc_block_fwd(cfg: ArchConfig, p: dict, x: torch.Tensor,
 def _dec_block_fwd(cfg: ArchConfig, p: dict, x: torch.Tensor,
                    positions: torch.Tensor, memory: torch.Tensor,
                    mem_pos: torch.Tensor, *, fault_rates=None,
-                   fault_bits=None, fault_model=None,
-                   kv_chunk: int = 1024) -> torch.Tensor:
+                   fault_bits=None, fault_model=None, build_cache=False,
+                   kv_chunk: int = 1024):
     """One decoder block of the encoder-decoder on ``x [R, B, S, D]``:
     causal self-attention, cross-attention to ``memory [R, B, Se, D]``,
-    the MLP.  Only ``x`` is corrupted at the activation rate."""
+    the MLP.  Only ``x`` is corrupted at the activation rate.  With
+    ``build_cache`` returns ``(x, {"k", "v"})``, the self-attention's roped
+    K and V."""
     p, x = _inject(p, x, fault_rates, fault_bits, fault_model)
     h = L.norm_fwd(p["ln1"], x, cfg.norm_kind)
-    x = x + L.attention_fwd(p["attn"], h, positions, n_heads=cfg.n_heads,
-                            n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim_,
-                            rope_theta=cfg.rope_theta, kv_chunk=kv_chunk)
+    a, k, v = L.attention_prefill(p["attn"], h, positions, n_heads=cfg.n_heads,
+                                  n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim_,
+                                  rope_theta=cfg.rope_theta, kv_chunk=kv_chunk)
+    x = x + a
     h = L.norm_fwd(p["ln_x"], x, cfg.norm_kind)
     x = x + L.attention_fwd(p["xattn"], h, positions, n_heads=cfg.n_heads,
                             n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim_,
                             rope_theta=cfg.rope_theta, memory=memory,
                             memory_pos=mem_pos)
     h = L.norm_fwd(p["ln2"], x, cfg.norm_kind)
-    return x + L.mlp_fwd(p["mlp"], h, cfg.act_fn)
+    x = x + L.mlp_fwd(p["mlp"], h, cfg.act_fn)
+    return (x, {"k": k, "v": v}) if build_cache else x
 
 
 def _arange(n: int, like: torch.Tensor) -> torch.Tensor:
@@ -345,6 +392,28 @@ def _single_or_rows(rates):
     return (rates[None], True) if rates.ndim == 1 else (rates, False)
 
 
+def _fault_rows(fault):
+    """``(rates, single, R)`` of a ``(w_rates, a_rates, seed)`` triple (or
+    None): ``rates(i)`` is unit ``i``'s ``(wr [R], ar [R], seed)`` or None;
+    rates ``[L]`` are one row (``single``), ``[R, L]`` are R rows."""
+    if fault is None:
+        return (lambda i: None), True, 1
+    wr, single = _single_or_rows(fault[0])
+    ar, _ = _single_or_rows(fault[1])
+    return (lambda i: _unit_rates(wr, ar, fault[2], i)), single, wr.shape[0]
+
+
+def _encode(cfg: ArchConfig, params: dict, mem: torch.Tensor, rates
+            ) -> torch.Tensor:
+    """The encoder stack on ``mem [R, B, Se, D]`` (unit ``i`` at
+    ``rates(i)``) and its final norm: the memory."""
+    enc_pos = _arange(mem.shape[2], mem)
+    for i in range(cfg.n_enc_layers):
+        p = tree_map(lambda t: t[i], params["enc_groups"])
+        mem = _enc_block_fwd(cfg, p, mem, enc_pos, fault_rates=rates(i))
+    return L.norm_fwd(params["enc_norm"], mem, cfg.norm_kind)
+
+
 def forward(params: dict, cfg: ArchConfig, batch: dict, *, fault=None,
             kv_chunk: int = 1024) -> torch.Tensor:
     """Full-sequence logits, the groups as a loop.
@@ -355,28 +424,14 @@ def forward(params: dict, cfg: ArchConfig, batch: dict, *, fault=None,
     (encoder layers first); rates ``[L]`` give ``[B, S, V]``, rates
     ``[R, L]`` run R candidates and give ``[R, B, S, V]``.
     """
-    if fault is not None:
-        wr, single = _single_or_rows(fault[0])
-        ar, _ = _single_or_rows(fault[1])
-        fault = (wr, ar, fault[2])
-        R = wr.shape[0]
-    else:
-        single, R = True, 1
-
-    def rates(i):
-        return None if fault is None else _unit_rates(*fault, i)
-
+    rates, single, R = _fault_rows(fault)
     rows = _rows(batch, R)
     x = _embed_batch(cfg, params["embed"], rows)
     positions = _arange(x.shape[2], x)
     if cfg.is_encdec:
         ne = cfg.n_enc_layers
-        mem = rows["enc_embeds"]
+        mem = _encode(cfg, params, rows["enc_embeds"], rates)
         enc_pos = _arange(mem.shape[2], mem)
-        for i in range(ne):
-            p = tree_map(lambda t: t[i], params["enc_groups"])
-            mem = _enc_block_fwd(cfg, p, mem, enc_pos, fault_rates=rates(i))
-        mem = L.norm_fwd(params["enc_norm"], mem, cfg.norm_kind)
         for g in range(cfg.n_layers):
             p = tree_map(lambda t: t[g], params["groups"])
             x = _dec_block_fwd(cfg, p, x, positions, mem, enc_pos,
@@ -651,3 +706,267 @@ class LMStepModel:
         R = 1 if rates is None else rates.shape[0]
         out = self.segment(0, params, _rows(batch, R), wr, ar, seed)
         return out[0] if single else out
+
+
+# ==========================================================================
+# KV cache: allocation, prefill, decode
+# ==========================================================================
+def _cache_len(cfg: ArchConfig, kind: str, max_len: int) -> int:
+    """Slots of an attention cache: ``max_len``, or the window's ring."""
+    window = _window(cfg, kind)
+    return max_len if window is None else min(window, max_len)
+
+
+def cache_layout(cfg: ArchConfig, batch: int, max_len: int) -> dict:
+    """``{b{s}: {name: (shape, dtype, fill)}}`` of :func:`init_cache`'s
+    tree."""
+    dtype, G = cfg.torch_dtype, cfg.n_groups
+    out = {}
+    for s, kind in enumerate(cfg.block_pattern):
+        if kind in _ATTN_KINDS:
+            Sc = _cache_len(cfg, kind, max_len)
+            kv = (G, batch, Sc, cfg.n_kv_heads, cfg.head_dim_)
+            out[f"b{s}"] = {"k": (kv, dtype, 0), "v": (kv, dtype, 0),
+                            "pos": ((G, batch, Sc), torch.int32, -1)}
+        elif kind == "rglru":
+            W = cfg.lru_width or cfg.d_model
+            out[f"b{s}"] = {
+                "conv": ((G, batch, cfg.conv_kernel - 1, W), dtype, 0),
+                "h": ((G, batch, W), torch.float32, 0)}
+        elif kind == "ssd":
+            d_in = cfg.ssm_expand * cfg.d_model
+            nh = d_in // cfg.ssm_head_dim
+            out[f"b{s}"] = {
+                "conv": ((G, batch, cfg.conv_kernel - 1,
+                          d_in + 2 * cfg.ssm_state), dtype, 0),
+                "h": ((G, batch, nh, cfg.ssm_head_dim, cfg.ssm_state),
+                      torch.float32, 0)}
+    return out
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               device="cuda") -> dict:
+    """An empty cache on ``device``: zeros, and ``pos`` -1."""
+    dev = resolve_device(device)
+    return {slot: {name: torch.full(shape, fill, dtype=dt, device=dev)
+                   for name, (shape, dt, fill) in entry.items()}
+            for slot, entry in cache_layout(cfg, batch, max_len).items()}
+
+
+def _ring_pack(k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
+               cache_len: int) -> dict:
+    """Prefill's K/V (``[B, S, Hkv, Dh]``) into a cache of ``cache_len``
+    slots at slot = pos % cache_len: the trailing window of a local
+    layer, the identity layout where ``cache_len >= S``."""
+    B, S = k.shape[:2]
+    keep = min(S, cache_len)
+    src = positions[S - keep:]
+    slots = (src % cache_len).long()
+    kc = k.new_zeros((B, cache_len, *k.shape[2:]))
+    vc = v.new_zeros((B, cache_len, *v.shape[2:]))
+    kc[:, slots] = k[:, S - keep:]
+    vc[:, slots] = v[:, S - keep:]
+    pc = torch.full((cache_len,), -1, dtype=torch.int32, device=k.device)
+    pc[slots] = src
+    return {"k": kc, "v": vc, "pos": pc.expand(B, cache_len).contiguous()}
+
+
+def _stack_groups(entries: list[dict]) -> dict:
+    return tree_map(lambda *ls: torch.stack(ls), *entries)
+
+
+@fp32_exact()
+def prefill(params: dict, cfg: ArchConfig, batch: dict, max_len: int, *,
+            kv_chunk: int = 1024, ssd_chunk: int = 256, fault=None):
+    """Full-sequence prefill: ``(logits [B, S, V], cache)``.
+
+    ``max_len`` is the capacity of the global attention caches (the
+    prompt and the tokens to come); local and SWA layers keep their
+    window.  ``fault``: optional ``(w_rates [L], a_rates [L], seed)``; the
+    encoder-decoder corrupts only its encoder here, as the reference
+    does.  A slot past ``n_layers`` runs on the last layer's output at its
+    rates and its cache is kept, as in the reference; the hidden state
+    skips it."""
+    rates, single, _ = _fault_rows(fault)
+    if not single:
+        raise ValueError("prefill takes one row of rates, [L]")
+    rows = _rows(batch, 1)
+    x = _embed_batch(cfg, params["embed"], rows)
+    S = x.shape[2]
+    positions = _arange(S, x)
+
+    def first_row(tree):
+        return tree_map(lambda t: t[0], tree)
+
+    entries = []
+    if cfg.is_encdec:
+        mem = _encode(cfg, params, rows["enc_embeds"], rates)
+        mem_pos = _arange(mem.shape[2], mem)
+        for g in range(cfg.n_layers):
+            p = tree_map(lambda t: t[g], params["groups"])
+            x, kv = _dec_block_fwd(cfg, p, x, positions, mem, mem_pos,
+                                   build_cache=True, kv_chunk=kv_chunk)
+            kv = first_row(kv)
+            entries.append({"b0": _ring_pack(kv["k"], kv["v"], positions,
+                                             max_len)})
+    else:
+        P = len(cfg.block_pattern)
+        for g in range(cfg.n_groups):
+            entry = {}
+            for s, kind in enumerate(cfg.block_pattern):
+                lidx = g * P + s
+                p = tree_map(lambda t: t[g], params["groups"][f"b{s}"])
+                x_new, c = _block_fwd(
+                    cfg, kind, p, x, positions,
+                    fault_rates=rates(min(lidx, cfg.n_layers - 1)),
+                    build_cache=True, kv_chunk=kv_chunk, ssd_chunk=ssd_chunk)
+                c = first_row(c)
+                if kind in _ATTN_KINDS:
+                    c = _ring_pack(c["k"], c["v"], positions,
+                                   _cache_len(cfg, kind, max_len))
+                if lidx < cfg.n_layers:
+                    x = x_new
+                entry[f"b{s}"] = c
+            entries.append(entry)
+    return unembed(cfg, params, x[0]), _stack_groups(entries)
+
+
+@fp32_exact()
+def encode(cfg: ArchConfig, params: dict, enc_embeds: torch.Tensor,
+           fault=None) -> torch.Tensor:
+    """The encoder-decoder's memory ``[B, Se, D]`` of ``enc_embeds``
+    (float32, never cast); ``fault`` as :func:`prefill`'s."""
+    rates, single, _ = _fault_rows(fault)
+    if not single:
+        raise ValueError("encode takes one row of rates, [L]")
+    return _encode(cfg, params, enc_embeds[None], rates)[0]
+
+
+def _layer_fault(fault, lidx: int):
+    """Layer ``lidx``'s ``(wr, ar, seed)`` of a decode step's ``(w_rates
+    [L], a_rates [L], seed)``: 0-d views of the rates (no copy, no wait),
+    the seed a host int."""
+    if fault is None:
+        return None
+    w_rates, a_rates, seed = fault
+    return w_rates[lidx], a_rates[lidx], seed + 7919 * lidx
+
+
+@fp32_exact()
+def decode_step(params: dict, cfg: ArchConfig, cache: dict,
+                tokens: torch.Tensor, pos: torch.Tensor, *,
+                enc_memory: torch.Tensor | None = None, fault=None):
+    """One decode step: ``tokens [B]`` at absolute positions ``pos [B]``
+    (integer tensors on the params' device) -> ``(logits [B, V], cache)``,
+    the cache updated in place.  ``fault``: optional ``(w_rates [L],
+    a_rates [L], seed)``, the rates float32 tensors on the device and the
+    seed a host int.  Nothing in a step waits on the card.  The
+    encoder-decoder takes its memory as ``enc_memory [B, Se, D]`` and
+    injects no faults, as in the reference."""
+    x = embed_tokens(cfg, params, tokens[:, None])            # [B, 1, D]
+    if cfg.is_encdec:
+        return _decode_step_encdec(params, cfg, cache, x, pos, enc_memory)
+    P = len(cfg.block_pattern)
+    for g in range(cfg.n_groups):
+        for s, kind in enumerate(cfg.block_pattern):
+            lidx = g * P + s
+            if lidx >= cfg.n_layers:    # the reference's where keeps both
+                continue
+            p = tree_map(lambda t: t[g], params["groups"][f"b{s}"])
+            c = tree_map(lambda t: t[g], cache[f"b{s}"])
+            x = _decode_block(cfg, kind, p, c, x, pos,
+                              _layer_fault(fault, lidx))
+    return unembed(cfg, params, x)[:, 0], cache
+
+
+def _decode_attention(cfg: ArchConfig, p: dict, c: dict, h: torch.Tensor,
+                      pos: torch.Tensor, window: int | None = None,
+                      softcap: float = 0.0) -> torch.Tensor:
+    """Self-attention of the token ``h [B, 1, D]``: its q, k and v by plain
+    products (``ref.matmul``: XLA's order on the CPU), its K, V and
+    position written into slot ``pos % Sc`` of ``c`` in place, attention
+    against the cache, the output projection."""
+    B, Dh = h.shape[0], cfg.head_dim_
+    q = kref.matmul(h, p["wq"]).reshape(B, 1, cfg.n_heads, Dh)
+    k = kref.matmul(h, p["wk"]).reshape(B, 1, cfg.n_kv_heads, Dh)
+    v = kref.matmul(h, p["wv"]).reshape(B, 1, cfg.n_kv_heads, Dh)
+    q = L.rope(q, pos[:, None], cfg.rope_theta)[:, 0]       # [B, Hq, Dh]
+    k = L.rope(k, pos[:, None], cfg.rope_theta)[:, 0]
+    slot = (pos % c["k"].shape[1]).long()
+    bidx = torch.arange(B, device=pos.device)
+    c["k"][bidx, slot] = k.to(c["k"].dtype)
+    c["v"][bidx, slot] = v[:, 0].to(c["v"].dtype)
+    c["pos"][bidx, slot] = pos.to(c["pos"].dtype)
+    num, m, den = L.decode_attention(q, c["k"], c["v"], c["pos"], pos,
+                                     window=window, softcap=softcap)
+    o = L.lse_combine(num, m, den)                            # [B, Hq, Dh]
+    return kref.matmul(o.reshape(B, 1, -1).to(h.dtype), p["wo"])
+
+
+def _decode_block(cfg: ArchConfig, kind: str, p: dict, c: dict,
+                  x: torch.Tensor, pos: torch.Tensor, fault_rates=None
+                  ) -> torch.Tensor:
+    """One block of ``x [B, 1, D]`` against its cache entry ``c`` (views
+    into the cache, written in place).  Faults as the reference's decode:
+    every float leaf at the layer's 0-d weight rate (leaf ``j`` at ``seed
+    + 977 j``) and the input at its activation rate (``seed + 1``), each
+    corrupted as one whole tensor by ``quant_bitflip``.  There is no row
+    axis here, so not through ``_inject``."""
+    if fault_rates is not None:
+        wr, ar, seed = fault_rates
+        p = L.corrupt_params(p, wr, seed)
+        x = L.maybe_corrupt(x, ar, seed + 1)
+    if kind in _ATTN_KINDS:
+        h = L.norm_fwd(p["ln1"], x, cfg.norm_kind)
+        x = x + _decode_attention(cfg, p["attn"], c, h, pos,
+                                  window=_window(cfg, kind),
+                                  softcap=cfg.logit_softcap or 0.0)
+        h = L.norm_fwd(p["ln2"], x, cfg.norm_kind)
+        if not cfg.is_moe:
+            return x + L.mlp_fwd(p["mlp"], h, cfg.act_fn)
+        # decode batches are small: dropless routing (cf 0 -> C = T)
+        f = L.moe_fwd(p["moe"], h, top_k=cfg.top_k, act=cfg.act_fn,
+                      capacity_factor=0.0)
+        if cfg.moe_dense_residual:
+            f = f + L.mlp_fwd(p["dense_mlp"], h, cfg.act_fn)
+        return x + f
+    h = L.norm_fwd(p["ln1"], x, cfg.norm_kind)
+    if kind == "rglru":
+        r, st = L.rglru_fwd(p["rec"], h, state=c)
+        x = x + r
+        h = L.norm_fwd(p["ln2"], x, cfg.norm_kind)
+        x = x + L.mlp_fwd(p["mlp"], h, cfg.act_fn)
+    elif kind == "ssd":
+        s, st = L.ssd_fwd(p["ssd"], h, expand=cfg.ssm_expand,
+                          head_dim=cfg.ssm_head_dim, state=cfg.ssm_state,
+                          cache=c)
+        x = x + s
+    else:
+        raise ValueError(kind)
+    for name, t in st.items():
+        c[name].copy_(t)
+    return x
+
+
+def _decode_step_encdec(params: dict, cfg: ArchConfig, cache: dict,
+                        x: torch.Tensor, pos: torch.Tensor,
+                        enc_memory: torch.Tensor):
+    """The encoder-decoder's decode step: per decoder layer, the cached
+    self-attention, cross-attention to the memory (float32 on bf16
+    weights, promoted as JAX does) and the MLP.  No faults."""
+    mem = enc_memory[None]
+    mem_pos = _arange(mem.shape[2], mem)
+    q_pos = torch.zeros(1, dtype=torch.int32, device=x.device)
+    kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+              head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta)
+    for g in range(cfg.n_layers):
+        p = tree_map(lambda t: t[g], params["groups"])
+        c = tree_map(lambda t: t[g], cache["b0"])
+        h = L.norm_fwd(p["ln1"], x, cfg.norm_kind)
+        x = x + _decode_attention(cfg, p["attn"], c, h, pos)
+        h = L.norm_fwd(p["ln_x"], x, cfg.norm_kind)
+        x = x + L.attention_fwd(p["xattn"], h[None], q_pos, memory=mem,
+                                memory_pos=mem_pos, **kw)[0]
+        h = L.norm_fwd(p["ln2"], x, cfg.norm_kind)
+        x = x + L.mlp_fwd(p["mlp"], h, cfg.act_fn)
+    return unembed(cfg, params, x)[:, 0], cache

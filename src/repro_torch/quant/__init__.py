@@ -1,5 +1,6 @@
 from repro_torch.quant.fixedpoint import (QuantSpec, compute_scale,
-                                          dequantize, fake_quant, quantize)
+                                          dequantize, dequantize_tree,
+                                          fake_quant, quantize, quantize_tree)
 
 __all__ = ["QuantSpec", "compute_scale", "dequantize", "fake_quant",
-           "quantize"]
+           "quantize", "quantize_tree", "dequantize_tree"]

@@ -19,8 +19,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch._tree import tree_flatten, tree_map, tree_unflatten
+
 __all__ = ["QuantSpec", "compute_scale", "quantize", "dequantize",
-           "fake_quant"]
+           "fake_quant", "quantize_tree", "dequantize_tree"]
 
 TINY = torch.finfo(torch.float32).tiny
 
@@ -81,3 +83,28 @@ def fake_quant(x: torch.Tensor, spec: QuantSpec = QuantSpec()) -> torch.Tensor:
     """Quantize-dequantize round trip."""
     q, scale = quantize(x, spec)
     return dequantize(q, scale, dtype=x.dtype)
+
+
+def quantize_tree(tree, spec: QuantSpec = QuantSpec()):
+    """Quantize every float leaf of a tree: ``(q_tree, scale_tree)``; any
+    other leaf passes through with scale 1.0."""
+    leaves, spec_tree = tree_flatten(tree)
+    qs, scales = [], []
+    for leaf in leaves:
+        if leaf.is_floating_point():
+            q, s = quantize(leaf, spec)
+        else:
+            q, s = leaf, torch.tensor(1.0, dtype=torch.float32,
+                                      device=leaf.device)
+        qs.append(q)
+        scales.append(s)
+    return tree_unflatten(spec_tree, qs), tree_unflatten(spec_tree, scales)
+
+
+def dequantize_tree(q_tree, scale_tree, spec: QuantSpec = QuantSpec(),
+                    dtype: torch.dtype = torch.float32):
+    """Every integer leaf times its scale, in ``dtype`` (a leaf that was
+    an integer before :func:`quantize_tree` too); float leaves pass."""
+    del spec        # the value range is in the integers already
+    return tree_map(lambda q, s: q if q.is_floating_point()
+                    else dequantize(q, s, dtype), q_tree, scale_tree)

@@ -667,3 +667,77 @@ def test_online_loop_kernel_backend_on_card(dev):
     np.testing.assert_array_equal(a.new_partition, b.new_partition)
     assert a.new_predicted_delta_acc == b.new_predicted_delta_acc
     assert ev2._fault_env_rebuilds == 0
+
+
+# the leaves a faulted olmo-1b decode step corrupts, each one whole tensor
+# (one row): the attention projections and the MLP, and the block input
+DECODE_SHAPES = [(2048, 2048), (2048, 8192), (8192, 2048), (8, 1, 2048)]
+
+
+@pytest.mark.parametrize("model", FAULT_MODELS)
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+def test_quant_bitflip_decode_shapes_bitwise(dev, model, shape):
+    """``quant_bitflip`` at olmo-1b's decode shapes, bf16, a 0-d rate (the
+    whole tensor one unit), 16 bits with 4 faulty: bitwise its plain
+    version, and one launch a call."""
+    x = (torch.randn(shape, device=dev) * 0.02).to(torch.bfloat16)
+    rate = torch.tensor([0.0, 0.2, 0.05], device=dev)[1]
+    ops.reset_launches()
+    k = ops.quant_bitflip(x, 7919 * 3 + 977 * 2, rate, 4, QuantSpec(16),
+                          fault_model=model)
+    assert ops.launches["quant_bitflip"] == 1
+    p = ref.quant_bitflip_ref(x, 7919 * 3 + 977 * 2, rate, 4, QuantSpec(16),
+                              fault_model=model)
+    assert k.shape == x.shape and _same_bits(k, p)
+    assert not torch.equal(k, x)
+
+
+def _reduced_olmo_decode(device, params, cfg, fault):
+    """Prefill of two 8-token prompts, then one decode step at ``fault``."""
+    from repro_torch.models import transformer as T
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 8)).astype(np.int32)).to(device)
+    with torch.no_grad():
+        logits, cache = T.prefill(params, cfg, {"tokens": toks}, max_len=16)
+        last = logits[:, -1].argmax(-1).int()
+        pos = torch.full((2,), 8, dtype=torch.int32, device=device)
+        return T.decode_step(params, cfg, cache, last, pos, fault=fault)
+
+
+def test_faulted_decode_step_matches_cpu(dev):
+    """One faulted decode step of reduced olmo-1b (float32) on the card
+    against the same step on the CPU: logits within 1e-3 (the decode
+    tests' faulted-step tolerance, one 16-bit activation grid step), the
+    same greedy tokens, the cache ``pos`` equal, ``quant_bitflip``
+    launched 8 times a layer (7 weight leaves and the input), and no host
+    wait inside the step."""
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config("olmo-1b").reduced()
+    cpu_params = T.init_lm(cfg, seed=2, device="cpu")
+    params = tree_map(lambda t: t.to(dev), cpu_params)
+    rng = np.random.default_rng(1)
+    w = rng.uniform(0.05, 0.3, cfg.n_layers).astype(np.float32)
+    a = rng.uniform(0.05, 0.3, cfg.n_layers).astype(np.float32)
+    want, want_cache = _reduced_olmo_decode(
+        torch.device("cpu"), cpu_params, cfg,
+        (torch.from_numpy(w), torch.from_numpy(a), 5))
+    fault = (torch.from_numpy(w).to(dev), torch.from_numpy(a).to(dev), 5)
+    _reduced_olmo_decode(dev, params, cfg, fault)      # warm up
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        toks = torch.zeros(2, dtype=torch.int32, device=dev)
+        pos = torch.full((2,), 3, dtype=torch.int32, device=dev)
+        cache = T.init_cache(cfg, 2, 16, device=dev)
+        with torch.no_grad():
+            T.decode_step(params, cfg, cache, toks, pos, fault=fault)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ops.launches["quant_bitflip"] == 8 * cfg.n_layers
+    got, got_cache = _reduced_olmo_decode(dev, params, cfg, fault)
+    assert torch.allclose(got.cpu(), want, rtol=0, atol=1e-3)
+    assert torch.equal(got.argmax(-1).cpu(), want.argmax(-1))
+    assert torch.equal(got_cache["b0"]["pos"].cpu(), want_cache["b0"]["pos"])

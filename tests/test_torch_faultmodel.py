@@ -235,3 +235,50 @@ def test_fault_core_matches_reference():
             np.testing.assert_array_equal(g.qw.numpy(), np.asarray(w.qw))
             np.testing.assert_array_equal(g.dequant().numpy(),
                                           np.asarray(w.dequant()))
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+def test_quantize_tree_matches_reference(bits):
+    """``quantize_tree`` / ``dequantize_tree`` on a tree of float32, bf16
+    and integer leaves: integers, scales and the dequantized tree (to
+    float32 and to bf16) bitwise the reference's, dtypes included.  The
+    all-zero leaf's scale is the subnormal tiny/qmax, which the
+    reference's XLA flushes to 0 (ROADMAP.md Queue C, fact 5): compared
+    flushed."""
+    from repro.quant.fixedpoint import dequantize_tree as jdeq
+    from repro.quant.fixedpoint import quantize_tree as jquant
+    from repro_torch import convert
+    from repro_torch.quant import dequantize_tree, quantize_tree
+
+    rng = np.random.default_rng(bits)
+    tree = {"a": rng.standard_normal(7).astype(np.float32) * 3,
+            "b": {"c": rng.standard_normal((3, 5)).astype(np.float32),
+                  "h": jnp.asarray(rng.standard_normal(9), jnp.bfloat16),
+                  "ints": np.arange(-2, 4, dtype=np.int32),
+                  "zero": np.zeros(4, np.float32)}}
+    jtree = jax.tree.map(jnp.asarray, tree)
+    ttree = convert.params_from_jax(jax.tree.map(np.asarray, jtree),
+                                    device="cpu")
+    spec, jspec = QuantSpec(bits), JQuantSpec(bits)
+    jq, js = jquant(jtree, jspec)
+    tq, ts = quantize_tree(ttree, spec)
+
+    def same(got, want):
+        want = jax.tree.leaves(want)
+        got = tree_leaves(got)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            w = np.asarray(w)
+            assert str(g.dtype) == "torch." + w.dtype.name
+            if w.dtype.name == "bfloat16":
+                g, w = g.view(torch.int16).numpy(), w.view(np.int16)
+            np.testing.assert_array_equal(g.numpy() if torch.is_tensor(g)
+                                          else g, w)
+
+    same(tq, jq)
+    tiny = torch.finfo(torch.float32).tiny
+    same([torch.where(s.abs() < tiny, 0.0, s) for s in tree_leaves(ts)],
+         [np.asarray(s, np.float32) for s in jax.tree.leaves(js)])
+    for jd, td in ((jnp.float32, torch.float32),
+                   (jnp.bfloat16, torch.bfloat16)):
+        same(dequantize_tree(tq, ts, spec, td), jdeq(jq, js, jspec, jd))

@@ -42,7 +42,8 @@ def test_scan_sees_every_kernel_source_module():
     assert {"ops.py", "ref.py", "faultmodel.py", "_build.py", "cnn.py",
             "objectives.py", "chip_smoke.py", "host_cost.py",
             "transformer.py", "graph.py", "lm_setup.py", "registry.py",
-            "base.py", "olmo_1b.py", "runtime.py"} <= names
+            "base.py", "olmo_1b.py", "runtime.py", "engine.py",
+            "kvcache.py", "monitor.py"} <= names
 
 
 def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
@@ -55,7 +56,7 @@ def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
     from repro_torch.lm_setup import lm_calibration_setup
     from repro_torch.models.cnn import CNN_MODELS
     from repro_torch.models.graph import lm_eval_strategy
-    from repro_torch.models.transformer import init_lm
+    from repro_torch.models.transformer import init_cache, init_lm
 
     lm_cfg = get_config("olmo-1b").reduced()
     lm_params = init_lm(lm_cfg, device="cpu")
@@ -83,6 +84,7 @@ def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
         lambda: cnn_setup.get_trained("alexnet", steps=1),
         lambda: quickstart.main(["--steps", "1"]),
         lambda: init_lm(lm_cfg),
+        lambda: init_cache(lm_cfg, 1, 8),
         lambda: lm_calibration_setup(lm_cfg),
         lambda: lm_eval_strategy(lm_cfg),
         lambda: make_lm_accuracy_evaluator(
