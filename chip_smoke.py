@@ -42,7 +42,11 @@ Phases (any failure raises, and the process exits nonzero):
      ``quant_bitflip``'s times at the transformer's unit input, one row of
      [8, 256, 2048] bf16, after checking it bitwise against its plain
      version there for all four fault models on signed bf16 x, four rows
-     at rates 0.2 / 0 / 4e-3 / 0.1.  The bf16 checks, times and bounds
+     at rates 0.2 / 0 / 4e-3 / 0.1, and then in one grouped call beside
+     the CNN's unit input (four float32 rows, one all zero), seamless's
+     float32 encoder input at a 0-d rate, a bf16 leaf expanded over three
+     rows (stride 0) and a bf16 view whose rows start off a 16-byte
+     boundary, each tensor bitwise its plain version.  The bf16 checks, times and bounds
      use phase 9's 6 faulty bits; the others the CNN path's 4 (and
      ``bitflip`` is checked at 4, 6 and 8).  For phases 10 and 10b, at 6
      faulty bits: ``bitflip`` at mixtral-8x7b's expert tensor
@@ -169,17 +173,22 @@ Phases (any failure raises, and the process exits nonzero):
      The canary observes with the sensitivity surrogate (the random-weight
      probe is the identity).  Every decode step is faulted: each float
      leaf of each layer and its input corrupted by ``quant_bitflip`` at 16
-     bits with 4 faulty, one whole tensor each.  First, ``quant_bitflip``
-     bitwise against its plain version at those shapes ([2048,2048],
-     [2048,8192], [8192,2048] and the input [8,1,2048], bf16, one row, all
-     four fault models), each timed beside its bound.  The phase fails on
+     bits with 4 faulty, one whole tensor each, a layer's 8 tensors in one
+     grouped call (one launch pair).  First, ``quant_bitflip`` bitwise
+     against its plain version at those shapes ([2048,2048], [2048,8192],
+     [8192,2048] and the input [8,1,2048], bf16, one row, all four fault
+     models), each timed beside its bound; then one whole layer as one
+     group, bitwise tensor by tensor for all four models, timed beside the
+     sum of its tensors' bounds.  The phase fails on
      a dropped request, no re-opt swap, a swap that does not strictly
      lower the observed ΔAcc, a swap stall above max(mean decode step,
      5 ms), monitor time at or above 5% of decode time, a host wait other
      than each decode step's argmax and each admission's first token (sync
-     debug mode), ``quant_bitflip`` launches other than 128 a decode step,
-     or a first token that is not the argmax of ``transformer.forward`` on
-     the request's right-aligned prompt.  It prints TTFT and TPOT means,
+     debug mode), ``quant_bitflip`` launches other than 2 a layer in each
+     decode step (32 for 16 layers), a profiled faulted step with more fill
+     or memset kernels than the clean one (the amax workspace is never
+     cleared), or a first token that is not the argmax of
+     ``transformer.forward`` on the request's right-aligned prompt.  It prints TTFT and TPOT means,
      tokens a second, the swap events, and one faulted and one clean
      decode step of the full batch: wall, busy time by kernel group, idle
      share and the host's time by op.
@@ -200,16 +209,22 @@ launches are its calls' row groups: one hash pass, counted under
 ``fault_weight_tiles``, and one ``matmul_tiles_f32`` each),
 ``reconfig_launches`` phase 12's drained re-optimization,
 ``serve_launches`` phase 13's trace; ``lm_shapes`` the LM shapes of
-phase 3 and ``decode_shapes`` phase 13's.  Then come the card's
+phase 3 and ``decode_shapes`` phase 13's, its last row one decode layer
+as one group.  Then come the card's
 ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 
 Bounds: the least time for the same work is the larger of the bytes each
 input read once and each output written once over 3.35 TB/s, and the
-operations over their peak.  The fault hash costs about 20 32-bit integer
-operations per draw (``csrc/faultmodel.cuh``), counted at 16.7 Tops/s
-(64 INT32 lanes per SM x 132 SMs x 1.98 GHz, from the H100 white paper;
-the guide's table has no integer ALU rate).
+operations over their peak.  The fault hash takes 15 32-bit integer
+operations per draw as ``csrc/faultmodel.cuh``'s ``hash32`` computes it
+(the plane's offset, lowbias32 twice with the xorshift pair between them
+folded into one xor, four multiplies, the compare on the whole hash),
+counted at 16.7 Tops/s (64 INT32 lanes per SM x 132 SMs x 1.98 GHz, from
+the H100 white paper).
+``quant_bitflip`` computes that form; ``bitflip`` and ``fault_matmul``'s
+hash passes still compute the unfolded ``draw24`` (20 operations), which
+the bound does not credit: the same draws take 15.
   * ``bitflip``, ``quant_bitflip``: one draw per element and bit plane;
     the hash outweighs the bytes (1 + 1 B, 1 + 2 B dequantized to bf16,
     or 4 + 4 + 4 B, an element).
@@ -252,7 +267,7 @@ import torch  # noqa: E402
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
 INT32_OPS = 132 * 64 * 1.98e9
-HASH_OPS_PER_DRAW = 20
+HASH_OPS_PER_DRAW = 15          # faultmodel.cuh hash32 (see the docstring)
 FAULTY_BITS = 4                 # the CNN path's (SPEC_RATES)
 # phase 9's fault regime at bits=8: 6 faulty bits at weight and activation
 # rate 0.2.  The reference replay runs 4; with random weights 4 move no
@@ -339,6 +354,30 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
         view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
         a, b = a.view(view[a.dtype]), b.view(view[b.dtype])
     return bool(torch.equal(a, b))
+
+
+def check_quant_group(label, xs, seeds, rates, fb, spec) -> float:
+    """``quant_bitflip_group`` on ``xs`` (one launch pair) against its
+    plain version, tensor by tensor, bitwise, for all four fault models;
+    returns the largest |difference| (0 when bitwise)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.faultmodel import FAULT_MODELS
+
+    err = 0.0
+    for model in FAULT_MODELS:
+        got = ops.quant_bitflip_group(xs, seeds, rates, fb, spec,
+                                      fault_model=model)
+        want = ref.quant_bitflip_group_ref(xs, seeds, rates, fb, spec,
+                                           fault_model=model)
+        for i, (k, p) in enumerate(zip(got, want)):
+            err = max(err, max_abs_err(k, p))
+            if not bits_equal(k, p):
+                bad = (k.float() != p.float()).sum().item()
+                raise AssertionError(f"quant_bitflip group {label} {model}: "
+                                     f"tensor {i} {list(k.shape)} has {bad} "
+                                     "elements off the plain version")
+        del got, want
+    return err
 
 
 # fault_matmul at the main path's two shapes: (label, M, K, N)
@@ -654,7 +693,8 @@ def check_fault_matmul_bf16(dev, records):
     the docstring), then its times at each shape and storage type beside
     ``torch.matmul`` and the bound; and ``quant_bitflip`` at the
     transformer's unit input, [R, 8, 256, 2048] bf16, bitwise against its
-    plain version, then timed on one row."""
+    plain version, alone and in one group with the other unit inputs,
+    then timed on one row."""
     from repro_torch._device import fp32_exact
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.faultmodel import FAULT_MODELS
@@ -792,6 +832,28 @@ def check_fault_matmul_bf16(dev, records):
         log(f"phase3 quant_bitflip bf16: bitwise equal to plain for "
             f"{FAULT_MODELS} at {fb} faulty bits, [4,8,256,2048] signed x, "
             "rates 0.2,0,4e-3,0.1")
+        # the unit inputs as one group: the CNN's float32 [4,512,32,32,64]
+        # (an all-zero row), this bf16 one, seamless's float32 encoder
+        # input at a 0-d rate, a bf16 leaf expanded over 3 rows (stride 0)
+        # and a bf16 view whose rows start off a 16-byte boundary
+        cnn = torch.relu(torch.randn(4, 512, 32, 32, 64, device=dev,
+                                     generator=gen))
+        cnn[0] = 0
+        leaf = torch.randn(2048, 2048, device=dev, generator=gen).to(bf16)
+        odd = torch.randn(1 + 3 * 4000, device=dev, generator=gen).to(bf16)
+        xs = [cnn, x, torch.randn(1, 8, 32, 1024, device=dev, generator=gen),
+              leaf.expand(3, 2048, 2048), odd[1:].view(3, 4000)]
+        r3 = torch.tensor([0.2, 0.0, 0.05], device=dev)
+        qb_err = max(qb_err, check_quant_group(
+            "unit inputs", xs, [7923, 7924, 7925, 7926, 7927],
+            [torch.tensor([0.2, 0.0, 1e-3, 0.2], device=dev), r4, one[0],
+             r3, r3], fb, spec8))
+        del cnn, leaf, odd, xs
+        log(f"phase3 quant_bitflip group: bitwise equal to plain for "
+            f"{FAULT_MODELS} at {fb} faulty bits, one launch pair over "
+            "[4,512,32,32,64] float32 (a zero row), [4,8,256,2048] bf16, "
+            "[1,8,32,1024] float32 at a 0-d rate, [2048,2048] bf16 "
+            "expanded over 3 rows (stride 0), [3,4000] bf16 unaligned")
         x = x[:1].contiguous()
         n = x.numel()
         b_ms, b_by = bound(2 * n + 2 * n,
@@ -2149,10 +2211,13 @@ def check_decode_kernels(dev, cfg, params, records, batch=SERVE_BATCH):
     decode step corrupts (each float leaf of a layer, one row, and the
     block input ``[batch, 1, d_model]``), at the ``layers`` module's
     16 bits with 4 faulty, bitwise against its plain version for all four
-    fault models, each shape timed beside its bound.  Returns the
-    launches one faulted decode step makes, as the param tree gives them
-    (a leaf's calls are the layers it serves); the trace's measured total
-    is held against it."""
+    fault models, each shape timed beside its bound; then one whole layer
+    (its float leaves at the weight rate, seeds + 977 j, and the input at
+    the activation rate) as the one group ``_decode_block`` passes,
+    bitwise tensor by tensor for all four models, timed beside the sum of
+    its tensors' bounds.  Returns the launches one faulted decode step
+    makes: a launch pair a layer for each 32 of its float leaves and its
+    input; the trace's measured total is held against it."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.faultmodel import FAULT_MODELS
     from repro_torch.models import layers as L
@@ -2161,19 +2226,24 @@ def check_decode_kernels(dev, cfg, params, records, batch=SERVE_BATCH):
     spec, fb = QuantSpec(L.FAULT_BITS), L.FAULT_LSBS
     P = len(cfg.block_pattern)
     shapes = {}                   # shape -> [labels, calls a step, a leaf]
+    per_step = 0
     for s in range(P):
-        for name, t in _named_leaves(params["groups"][f"b{s}"]):
-            if t.is_floating_point():
-                e = shapes.setdefault(tuple(t.shape[1:]), [[], 0, t[0]])
-                e[0].append(name)
-                e[1] += len(range(s, cfg.n_layers, P))
+        leaves = [(name, t) for name, t in
+                  _named_leaves(params["groups"][f"b{s}"])
+                  if t.is_floating_point()]
+        layers = len(range(s, cfg.n_layers, P))
+        per_step += 2 * -(-(len(leaves) + 1) // ops._QB_MAX_ENTRIES) * layers
+        for name, t in leaves:
+            e = shapes.setdefault(tuple(t.shape[1:]), [[], 0, t[0]])
+            e[0].append(name)
+            e[1] += layers
     gen = torch.Generator(device=dev).manual_seed(13)
     x_in = torch.randn(batch, 1, cfg.d_model, device=dev, generator=gen) \
         .to(cfg.torch_dtype)
     shapes[(batch, 1, cfg.d_model)] = [["block input"], cfg.n_layers, x_in]
     rate = torch.tensor([0.0, 0.2], device=dev)[1]       # a 0-d rate
     on_card = dev.type == "cuda"
-    rows, per_call, per_step = [], [], 0
+    rows, per_call = [], []
     for shape, (names, calls, x) in shapes.items():
         x = x.contiguous()
         err = 0.0
@@ -2200,11 +2270,45 @@ def check_decode_kernels(dev, cfg, params, records, batch=SERVE_BATCH):
             bound_ms=b_ms, bound_by=b_by, library_ms=None, max_abs_err=err,
             **times))
         per_call.append(calls)
-        per_step += calls
     log(f"phase13 quant_bitflip at {[list(s) for s in shapes]}: bitwise equal "
         f"to plain for {FAULT_MODELS} at {spec.bits} bits with {fb} faulty, "
-        f"a 0-d rate (one row); {per_step} launches a faulted decode step by "
-        f"the param tree ({' + '.join(map(str, per_call))})")
+        f"a 0-d rate (one row); the shapes' tensors a step: "
+        f"{' + '.join(map(str, per_call))}")
+
+    # layer 0 of slot 0 as _decode_block groups it
+    leaves = [t[0] for _, t in _named_leaves(params["groups"]["b0"])
+              if t.is_floating_point()]
+    xs, seeds = leaves + [x_in], [977 * j for j in range(len(leaves))] + [1]
+    arate = torch.tensor([0.0, 0.05], device=dev)[1]
+    rates = [rate] * len(leaves) + [arate]
+    err = check_quant_group(f"{cfg.name} decode layer", xs, seeds, rates, fb,
+                            spec)
+    n_all = sum(x.numel() for x in xs)
+    bounds = [bound(2 * x.element_size() * x.numel(),
+                    int_ops=x.numel() * fb * HASH_OPS_PER_DRAW) for x in xs]
+    b_ms = sum(b[0] for b in bounds)
+    b_by = "operations" if all(b[1] == "operations" for b in bounds) \
+        else "bytes and operations"
+
+    def group():
+        return ops.quant_bitflip_group(xs, seeds, rates, fb, spec)
+
+    times = dict(
+        ms=device_ms(group), wrapper_ms=time_ms(group),
+        plain_ms=time_ms(lambda: ref.quant_bitflip_group_ref(
+            xs, seeds, rates, fb, spec), iters=3, warmup=1)) \
+        if on_card else {}
+    rows.append(dict(
+        label=f"{cfg.name} decode layer, one group: {len(leaves)} weight "
+              "leaves and the block input",
+        shape=" + ".join(f"{list(x.shape)}" for x in xs)
+              + f" {str(x_in.dtype)[6:]}, {n_all} elements",
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, max_abs_err=err,
+        **times))
+    log(f"phase13 quant_bitflip decode layer as one group ({len(xs)} "
+        f"tensors, {n_all} elements): bitwise equal to plain for "
+        f"{FAULT_MODELS}; {per_step} launches a faulted decode step by the "
+        "param tree, one launch pair a layer")
     for r in rows if on_card else []:
         log(f"phase13 time quant_bitflip {r['label']} at {r['shape']}: device "
             f"{r['ms']:.4f} ms, wrapper {r['wrapper_ms']:.4f} ms, plain "
@@ -2215,17 +2319,20 @@ def check_decode_kernels(dev, cfg, params, records, batch=SERVE_BATCH):
     return per_step
 
 
-def _decode_split(tag, fn):
+def _decode_split(tag, fn) -> int:
     """One decode step's wall (median of 5 readings, each the mean of 5
     steps, the argmax read back each step) and its device time by kernel
     group from one profiled step, beside the wrappers' launches in it
-    (``quant_bitflip`` runs two kernels a call, an amax pass and the
-    flip, and a memset that counts as a copy)."""
+    (``quant_bitflip`` counts its kernels: an amax pass and the flip a
+    layer).  Returns the fill and memset kernels the profile recorded."""
     from torch.autograd import DeviceType
 
     walls, wall, prof, busy, groups, launched = _profiled_split(
         fn, True, iters=5)
     n = sum(g[1] for g in groups.values())
+    fills = sum(a.count for a in prof.key_averages()
+                if a.device_type == DeviceType.CUDA
+                and ("fill" in a.key.lower() or "memset" in a.key.lower()))
     host = sorted((a for a in prof.key_averages()
                    if a.device_type == DeviceType.CPU),
                   key=lambda a: -a.self_cpu_time_total)[:8]
@@ -2236,7 +2343,9 @@ def _decode_split(tag, fn):
         f"{[round(w, 3) for w in walls]}), kernels busy {busy:.3f} ms "
         f"({100 * (1 - busy / wall):.1f}% idle), {n} kernels: "
         + _groups_text(groups) + f"; wrapper launches in the profiled step "
-        f"{ {k: v for k, v in launched.items() if v} }")
+        f"{ {k: v for k, v in launched.items() if v} }; {fills} fill or "
+        "memset kernels")
+    return fills
 
 
 def serve_phase(dev, records, cfg=None, steps=SERVE_STEPS, nsga=None):
@@ -2396,9 +2505,9 @@ def serve_phase(dev, records, cfg=None, steps=SERVE_STEPS, nsga=None):
         toks = torch.zeros(SERVE_BATCH, dtype=torch.int32, device=dev)
         pos = torch.full((SERVE_BATCH,), 40, dtype=torch.int32, device=dev)
         fault = eng._fault_triple()
-        for tag, f in (("faulted", fault), ("clean", None)):
-            _decode_split(tag, lambda f=f: torch.argmax(decode_step(
-                params, cfg, cache, toks, pos, fault=f)[0], -1).cpu())
+        fills = {tag: _decode_split(tag, lambda f=f: torch.argmax(decode_step(
+            params, cfg, cache, toks, pos, fault=f)[0], -1).cpu())
+            for tag, f in (("faulted", fault), ("clean", None))}
 
     # the guards of benchmarks/serve.py --smoke, and the port's own
     problems = []
@@ -2426,8 +2535,13 @@ def serve_phase(dev, records, cfg=None, steps=SERVE_STEPS, nsga=None):
                         f"{st['admitted']})")
     if on_card and launches["quant_bitflip"] != per_step * st["decode_steps"]:
         problems.append(f"quant_bitflip launched {launches['quant_bitflip']} "
-                        f"times, against {per_step} in each of "
-                        f"{st['decode_steps']} faulted decode steps")
+                        f"kernels, against {per_step} (a launch pair a "
+                        f"layer) in each of {st['decode_steps']} faulted "
+                        "decode steps")
+    if on_card and fills["faulted"] > fills["clean"]:
+        problems.append(f"the faulted decode step ran {fills['faulted']} fill "
+                        f"or memset kernels, the clean one {fills['clean']}: "
+                        "quant_bitflip's workspace was cleared")
     for r in done:
         S = _bucket(len(r.prompt))
         toks = np.zeros((1, S), np.int32)
@@ -2445,7 +2559,10 @@ def serve_phase(dev, records, cfg=None, steps=SERVE_STEPS, nsga=None):
         f"monitor {100 * st['monitor_s'] / st['decode_s']:.2f}% of decode, "
         f"{waits} host waits (one a decode step and an admission), "
         f"quant_bitflip {launches['quant_bitflip']} = {per_step} x "
-        f"{st['decode_steps']}, {len(done)} first tokens = forward's argmax")
+        f"{st['decode_steps']}, "
+        + (f"fill or memset kernels faulted {fills['faulted']} <= clean "
+           f"{fills['clean']}, " if on_card else "")
+        + f"{len(done)} first tokens = forward's argmax")
     for name, r in records.items():
         r["serve_launches"] = launches[name]
 

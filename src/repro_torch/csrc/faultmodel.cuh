@@ -52,6 +52,41 @@ __device__ __forceinline__ uint32_t rate_threshold(float rate) {
   return t >= 16777216.0f ? 16777216u : static_cast<uint32_t>(t);
 }
 
+// A draw in fewer integer operations, the same bits (quant_bitflip):
+//   * hash32(idx, plane, fold_seed(seed)) is the hash draw24 shifts,
+//     lowbias32(lowbias32(idx + plane * kGolden) ^ seed).  The inner
+//     hash's last xorshift and the outer one's first cancel but for the
+//     seed's: with h = v ^ (v >> 16), (h ^ seed) ^ ((h ^ seed) >> 16) =
+//     v ^ seed ^ (seed >> 16), as (h >> 16) = (v >> 16).  Three
+//     operations fewer a draw;
+//   * the compare is on the whole hash: for 1 <= T <= 2^24, (h >> 8) < T
+//     exactly when h <= (T << 8) - 1 (draw_limit), and at T = 2^24 the
+//     shift wraps so the limit is 2^32 - 1 (every draw fires).  T = 0 has
+//     no limit: a kernel skips the draws of such a row.
+__device__ __forceinline__ uint32_t fold_seed(uint32_t seed) {
+  return seed ^ (seed >> 16);
+}
+__device__ __forceinline__ uint32_t hash32(uint32_t idx, uint32_t plane,
+                                           uint32_t folded_seed) {
+  uint32_t x = idx + plane * kGolden;
+  x ^= x >> 16;
+  x *= kM1;
+  x ^= x >> 15;
+  x *= kM2;
+  x ^= folded_seed;
+  x *= kM1;
+  x ^= x >> 15;
+  x *= kM2;
+  return x ^ (x >> 16);
+}
+__device__ __forceinline__ uint32_t draw_limit(uint32_t thresh) {
+  return (thresh << 8) - 1u;
+}
+__device__ __forceinline__ bool fires(uint32_t idx, uint32_t folded_seed,
+                                      uint32_t plane, uint32_t limit) {
+  return hash32(idx, plane, folded_seed) <= limit;
+}
+
 // int32 mask of the bits a fault touches at flat index idx, for a row
 // whose threshold is thresh = rate_threshold(rate).
 template <int MODEL>

@@ -10,18 +10,23 @@ Rates follow ``ref.py``'s row convention: a scalar corrupts the tensor as
 one unit, a 1-D float32 ``[R]`` tensor gives each row its own rate (the
 port's population axis).  The seed is one per call, shared by all rows.
 
-``launches`` counts, per wrapper, the launches of its kernel (one call
-of its C entry point: the kernel, and where K is split, the sum of the
-slices).  ``fault_matmul`` on bf16 x launches the kernels of
-``fault_weight_tiles`` and ``matmul_tiles``, once each a row group, and
-they count there; on float32 x with a bf16 weight dtype (the
-encoder-decoder's encoder) those of ``fault_weight_tiles`` and
+``launches`` counts, per wrapper, the kernels it launches: one a call of
+a C entry point for ``bitflip``, ``fault_matmul`` (float32 x; where K is
+split, the kernel and the sum of the slices count as one),
+``fault_weight_tiles``, ``matmul_tiles`` and ``matmul_tiles_f32``; two a
+launch pair for ``quant_bitflip``, whose C entry runs an amax pass and
+the flip over a whole group of tensors (``quant_bitflip_group``; a
+one-tensor call is a group of one).  ``fault_matmul`` on bf16 x launches
+the kernels of ``fault_weight_tiles`` and ``matmul_tiles``, once each a
+row group, and they count there; on float32 x with a bf16 weight dtype
+(the encoder-decoder's encoder) those of ``fault_weight_tiles`` and
 ``matmul_tiles_f32`` the same way.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import struct
 
 import torch
 
@@ -30,9 +35,10 @@ from repro_torch.kernels._build import library
 from repro_torch.kernels.faultmodel import FAULT_MODELS, seed_u32
 from repro_torch.quant.fixedpoint import QuantSpec
 
-__all__ = ["bitflip", "quant_bitflip", "fault_matmul", "fault_weight_tiles",
-           "matmul_tiles", "matmul_tiles_f32", "row_groups", "launches",
-           "reset_launches", "MODEL_IDS", "WORKSPACE_BYTES"]
+__all__ = ["bitflip", "quant_bitflip", "quant_bitflip_group", "fault_matmul",
+           "fault_weight_tiles", "matmul_tiles", "matmul_tiles_f32",
+           "row_groups", "launches", "reset_launches", "MODEL_IDS",
+           "WORKSPACE_BYTES"]
 
 MODEL_IDS = {m: i for i, m in enumerate(FAULT_MODELS)}   # csrc/faultmodel.cuh
 _INT_BYTES = {torch.int8: 1, torch.int16: 2, torch.int32: 4}
@@ -42,9 +48,9 @@ _P, _I64, _I32, _U32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
 _SIGNATURES = {
     "afp_bitflip": ("bitflip", [_P, _P, _P, _P, _I64, _I64, _I32, _I32, _U32,
                                 _I32, _I32, _I32, _P]),
-    "afp_quant_bitflip": ("quant_bitflip", [_P, _P, _P, _P, _I64, _I64, _I32,
-                                            _I32, _I32, _I32, _U32, _I32,
-                                            _I32, _P]),
+    "afp_quant_bitflip_group": ("quant_bitflip", [ctypes.c_char_p, _I32, _P,
+                                                  _I64, _I32, _I32, _I32, _I32,
+                                                  _I32, _P]),
     "afp_fault_matmul": ("fault_matmul", [_P, _P, _P, _P, _P, _P, _I64, _I64,
                                           _I64, _I64, _I32, _I32, _I32, _U32,
                                           _I32, _I32, _P]),
@@ -100,7 +106,8 @@ def _model_id(fault_model: str, faulty_bits: int) -> int:
     if fault_model not in MODEL_IDS:
         raise ValueError(f"unknown fault_model {fault_model!r}; "
                          f"expected one of {FAULT_MODELS}")
-    _check(0 <= faulty_bits <= 31, f"faulty_bits must be in [0, 31], got {faulty_bits}")
+    if not 0 <= faulty_bits <= 31:
+        raise ValueError(f"faulty_bits must be in [0, 31], got {faulty_bits}")
     return MODEL_IDS[fault_model]
 
 
@@ -207,26 +214,106 @@ def quant_bitflip(x: torch.Tensor, seed, rate, faulty_bits: int,
                   spec: QuantSpec = QuantSpec(), *, fault_model: str = "flip",
                   mbu_width: int = 2) -> torch.Tensor:
     """Fused quantize -> corrupt -> dequantize; with a ``[R]`` rate, ``x``
-    is ``[R, ...]`` and each row gets its own scale."""
-    if not _is_cuda(x):
-        return _ref.quant_bitflip_ref(x, seed, rate, faulty_bits, spec,
-                                      fault_model=fault_model,
-                                      mbu_width=mbu_width)
-    _check(x.dtype in (torch.float32, torch.bfloat16),
-           f"quant_bitflip takes float32/bfloat16, got {x.dtype}")
-    _check(x.is_contiguous(), "quant_bitflip needs a contiguous x")
-    rates, per_row = _ref.row_rates(rate, x.device)
-    R = rates.numel()
-    _check(not per_row or (x.ndim > 0 and x.shape[0] == R),
-           f"x {tuple(x.shape)} has no leading row axis of {R}")
-    out = torch.empty_like(x)
-    amax = torch.zeros(R, dtype=torch.float32, device=x.device)
-    _launch("afp_quant_bitflip", x.data_ptr(), out.data_ptr(), amax.data_ptr(),
-            rates.data_ptr(), x.numel() // R, R, int(x.dtype == torch.bfloat16),
-            _model_id(fault_model, faulty_bits), spec.qmin, spec.qmax, seed_u32(seed),
-            faulty_bits, mbu_width, _stream(x.device))
-    launches["quant_bitflip"] += 1
-    return out
+    is ``[R, ...]`` and each row gets its own scale.  The one-tensor case
+    of ``quant_bitflip_group``."""
+    return quant_bitflip_group([x], [seed], [rate], faulty_bits, spec,
+                               fault_model=fault_model,
+                               mbu_width=mbu_width)[0]
+
+
+# csrc/quant_bitflip.cu: qbf::Entry (x, out, rate, n, row stride, first
+# block, rows, chunk, chunks, seed, is_bf16, vec_ok) and kMaxEntries
+_QB_ENTRY = struct.Struct("<QQQqqqiiiIii")
+_QB_MAX_ENTRIES = 32
+
+
+@functools.lru_cache(maxsize=None)
+def _qb_chunk(n: int) -> int:
+    """Elements a block of ``quant_bitflip``'s two passes takes from a row
+    of ``n``: about 256 blocks a row, 2048 to 8192 elements each, and
+    never more than 2048 blocks a row (``kMaxChunks``, the partials a
+    block of the second pass reduces); a multiple of 256."""
+    c = max(min(max(-(-n // 256), 2048), 8192), -(-n // 2048))
+    return -(-c // 256) * 256
+
+
+def _qb_rows(x: torch.Tensor, R: int) -> tuple[torch.Tensor, int]:
+    """``x`` as ``R`` rows of ``x.numel() // R`` elements, and the rows'
+    stride in elements: a view where each row is contiguous (stride 0 for
+    a leaf expanded over the rows), else a contiguous copy."""
+    if R == 1:
+        return x.contiguous(), 0
+    if not x[0].is_contiguous():
+        x = x.contiguous()
+    return x, x.stride(0)
+
+
+def quant_bitflip_group(xs, seeds, rates, faulty_bits: int,
+                        spec: QuantSpec = QuantSpec(), *,
+                        fault_model: str = "flip",
+                        mbu_width: int = 2) -> list[torch.Tensor]:
+    """``quant_bitflip`` of each ``xs[i]`` at ``seeds[i]`` and ``rates[i]``
+    (a scalar, or ``[R]`` with ``xs[i]`` ``[R, ...]``), sharing
+    ``faulty_bits``, ``spec`` and the fault model; each output is
+    contiguous, of its input's shape and dtype.  On the card one launch
+    pair (an amax pass and the flip) corrupts up to 32 tensors, whose rows
+    may be strided (a leaf ``expand``-ed over the rows is read in place);
+    on the CPU, ``ref.quant_bitflip_group_ref``."""
+    if not xs:
+        return []
+    if not _is_cuda(xs[0]):
+        return _ref.quant_bitflip_group_ref(xs, seeds, rates, faulty_bits,
+                                            spec, fault_model=fault_model,
+                                            mbu_width=mbu_width)
+    _check(len(seeds) == len(xs) == len(rates),
+           "quant_bitflip_group takes a seed and a rate per tensor")
+    model_id = _model_id(fault_model, faulty_bits)
+    outs = []
+    for g in range(0, len(xs), _QB_MAX_ENTRIES):
+        outs += _qb_launch(xs[g:g + _QB_MAX_ENTRIES],
+                           seeds[g:g + _QB_MAX_ENTRIES],
+                           rates[g:g + _QB_MAX_ENTRIES], faulty_bits, spec,
+                           model_id, mbu_width)
+    return outs
+
+
+def _qb_launch(xs, seeds, rates, faulty_bits, spec, model_id, mbu_width):
+    """One launch pair over at most ``_QB_MAX_ENTRIES`` tensors."""
+    dev = xs[0].device
+    table, keep, outs, blocks, row_rates = [], [], [], 0, {}
+    # the checks format their messages only on failure: this loop is the
+    # host's cost of a decode layer's corruption
+    for x, seed, rate in zip(xs, seeds, rates):
+        if x.device != dev or x.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"quant_bitflip takes float32/bfloat16 on {dev}, "
+                             f"got {x.dtype} on {x.device}")
+        if id(rate) not in row_rates:     # a layer's leaves share one rate
+            row_rates[id(rate)] = _ref.row_rates(rate, dev)
+        r, per_row = row_rates[id(rate)]
+        R = r.numel()
+        if per_row and (x.ndim == 0 or x.shape[0] != R):
+            raise ValueError(f"x {tuple(x.shape)} has no leading row axis "
+                             f"of {R}")
+        out = torch.empty_like(x, memory_format=torch.contiguous_format)
+        outs.append(out)
+        n = x.numel() // R if R else 0
+        if n == 0:
+            continue
+        x, stride = _qb_rows(x, R)
+        chunk = _qb_chunk(n)
+        chunks = -(-n // chunk)
+        table.append(_QB_ENTRY.pack(
+            x.data_ptr(), out.data_ptr(), r.data_ptr(), n, stride, blocks, R,
+            chunk, chunks, seed_u32(seed), int(x.dtype == torch.bfloat16), 0))
+        keep.append((x, r))       # a copy and the rates live to the launch
+        blocks += R * chunks
+    if table:
+        partials = torch.empty(blocks, dtype=torch.float32, device=dev)
+        _launch("afp_quant_bitflip_group", b"".join(table), len(table),
+                partials.data_ptr(), blocks, model_id, spec.qmin, spec.qmax,
+                faulty_bits, mbu_width, _stream(dev))
+        launches["quant_bitflip"] += 2
+    return outs
 
 
 def _hash_launch(qw, out, scale_t, rates, seed, faulty_bits, model_id,

@@ -13,7 +13,9 @@ shares the seed, exactly as under ``vmap``.
     returns ``[R, *q.shape]``, dequantized by ``scale`` if given (in
     float32, then cast to ``dtype``).
   * ``quant_bitflip_ref(x, ...)``: with a ``[R]`` rate ``x`` is
-    ``[R, ...]`` and each row gets its own amax and scale.
+    ``[R, ...]`` and each row gets its own amax and scale;
+    ``quant_bitflip_group_ref`` runs it tensor by tensor, the plain
+    version of the kernel's grouped launch.
   * ``fault_matmul_ref(x, qw, ...)``: with a ``[R]`` rate ``x`` is
     ``[R, ..., K]``; ``qw`` ``(K, N)`` is shared and corrupted per row.
 
@@ -40,6 +42,7 @@ from repro_torch.kernels.faultmodel import apply_fault
 from repro_torch.quant.fixedpoint import TINY, QuantSpec
 
 __all__ = ["row_rates", "matmul", "bitflip_ref", "quant_bitflip_ref",
+           "quant_bitflip_group_ref",
            "fault_matmul_ref", "XLA_K_BLOCK", "TILE_K", "TILE_N", "tile_elems", "pack_tiles",
            "unpack_tiles", "fault_weight_tiles_ref", "matmul_tiles_ref",
            "matmul_tiles_f32_ref", "split3"]
@@ -123,6 +126,16 @@ def quant_bitflip_ref(x: torch.Tensor, seed, rate, faulty_bits: int,
     q = apply_fault(q, idx, seed, rates[:, None], faulty_bits,
                     fault_model=fault_model, mbu_width=mbu_width)
     return (q.to(torch.float32) * scale).to(x.dtype).reshape(x.shape)
+
+
+def quant_bitflip_group_ref(xs, seeds, rates, faulty_bits: int,
+                            spec: QuantSpec = QuantSpec(),
+                            fault_model: str = "flip",
+                            mbu_width: int = 2) -> list[torch.Tensor]:
+    """``quant_bitflip_ref`` of each tensor at its own seed and rate."""
+    return [quant_bitflip_ref(x, s, r, faulty_bits, spec,
+                              fault_model=fault_model, mbu_width=mbu_width)
+            for x, s, r in zip(xs, seeds, rates)]
 
 
 def fault_matmul_ref(x: torch.Tensor, qw: torch.Tensor, scale, seed, rate,

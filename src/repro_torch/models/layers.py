@@ -45,7 +45,8 @@ from repro_torch.kernels.faultmodel import FAULT_MODELS
 from repro_torch.quant.fixedpoint import QuantSpec, quantize
 
 __all__ = ["QTensor", "FaultedQ", "quantize_leaf", "quantize_params",
-           "dequantize_params", "maybe_corrupt", "corrupt_params",
+           "dequantize_params", "maybe_corrupt", "corrupt_leaves",
+           "corrupt_params",
            "fault_dense", "set_fault_bits", "set_fault_model", "dense_init",
            "init_norm", "norm_fwd", "rope", "init_attention",
            "flash_attention", "attention_fwd", "attention_prefill",
@@ -179,9 +180,35 @@ def maybe_corrupt(x, rate, seed, bits: int | None = None,
     if rate is None:
         return x
     bits = FAULT_BITS if bits is None else bits
-    return kops.quant_bitflip(x.contiguous(), seed, rate, faulty_bits,
-                              QuantSpec(bits), fault_model=fault_model,
-                              mbu_width=mbu_width)
+    return kops.quant_bitflip(x, seed, rate, faulty_bits, QuantSpec(bits),
+                              fault_model=fault_model, mbu_width=mbu_width)
+
+
+def corrupt_leaves(leaves, rates, seeds, bits: int | None = None,
+                   faulty_bits: int | None = None,
+                   fault_model: str | None = None,
+                   mbu_width: int | None = None) -> list:
+    """``maybe_corrupt`` of each float or :class:`QTensor` leaf at its own
+    rate (not None) and seed; other leaves stay.  The float leaves go
+    through ONE grouped ``quant_bitflip`` call (a launch pair on the card
+    for up to 32 of them), read in place: a leaf ``expand``-ed over the
+    rows of a ``[R]`` rate is not copied."""
+    out = [maybe_corrupt(leaf, r, s, bits=bits, faulty_bits=faulty_bits,
+                         fault_model=fault_model, mbu_width=mbu_width)
+           if isinstance(leaf, QTensor) else leaf
+           for leaf, r, s in zip(leaves, rates, seeds)]
+    floats = [i for i, leaf in enumerate(leaves)
+              if not isinstance(leaf, QTensor) and leaf.is_floating_point()]
+    ys = kops.quant_bitflip_group(
+        [leaves[i] for i in floats], [seeds[i] for i in floats],
+        [rates[i] for i in floats],
+        FAULT_LSBS if faulty_bits is None else faulty_bits,
+        QuantSpec(FAULT_BITS if bits is None else bits),
+        fault_model=FAULT_MODEL if fault_model is None else fault_model,
+        mbu_width=MBU_WIDTH if mbu_width is None else mbu_width)
+    for i, y in zip(floats, ys):
+        out[i] = y
+    return out
 
 
 def corrupt_params(params, rate, seed, bits: int | None = None,
@@ -189,16 +216,16 @@ def corrupt_params(params, rate, seed, bits: int | None = None,
                    fault_model: str | None = None,
                    mbu_width: int | None = None):
     """Corrupt every float or :class:`QTensor` leaf (leaf ``j`` at seed
-    ``seed + 977 * j``); ``rate`` None dequantizes."""
+    ``seed + 977 * j``, the float leaves in one grouped call); ``rate``
+    None dequantizes."""
     if rate is None:
         return dequantize_params(params)
     leaves, treedef = tree_flatten(params)
-    out = [maybe_corrupt(leaf, rate, seed + 977 * i, bits=bits,
-                         faulty_bits=faulty_bits, fault_model=fault_model,
-                         mbu_width=mbu_width)
-           if isinstance(leaf, QTensor) or leaf.is_floating_point() else leaf
-           for i, leaf in enumerate(leaves)]
-    return tree_unflatten(treedef, out)
+    return tree_unflatten(treedef, corrupt_leaves(
+        leaves, [rate] * len(leaves),
+        [seed + 977 * i for i in range(len(leaves))], bits=bits,
+        faulty_bits=faulty_bits, fault_model=fault_model,
+        mbu_width=mbu_width))
 
 
 def fault_dense(x: torch.Tensor, w) -> torch.Tensor:

@@ -56,7 +56,8 @@ import numpy as np
 import torch
 
 from repro_torch._device import fp32_exact, resolve_device
-from repro_torch._tree import tree_leaves, tree_map
+from repro_torch._tree import (tree_flatten, tree_leaves, tree_map,
+                               tree_unflatten)
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ref as kref
 from repro_torch.models import layers as L
@@ -910,12 +911,17 @@ def _decode_block(cfg: ArchConfig, kind: str, p: dict, c: dict,
     into the cache, written in place).  Faults as the reference's decode:
     every float leaf at the layer's 0-d weight rate (leaf ``j`` at ``seed
     + 977 j``) and the input at its activation rate (``seed + 1``), each
-    corrupted as one whole tensor by ``quant_bitflip``.  There is no row
-    axis here, so not through ``_inject``."""
+    corrupted as one whole tensor, all of them in one grouped
+    ``quant_bitflip`` call.  There is no row axis here, so not through
+    ``_inject``."""
     if fault_rates is not None:
         wr, ar, seed = fault_rates
-        p = L.corrupt_params(p, wr, seed)
-        x = L.maybe_corrupt(x, ar, seed + 1)
+        leaves, treedef = tree_flatten(p)
+        n = len(leaves)
+        out = L.corrupt_leaves(leaves + [x], [wr] * n + [ar],
+                               [seed + 977 * j for j in range(n)]
+                               + [seed + 1])
+        p, x = tree_unflatten(treedef, out[:n]), out[n]
     if kind in _ATTN_KINDS:
         h = L.norm_fwd(p["ln1"], x, cfg.norm_kind)
         x = x + _decode_attention(cfg, p["attn"], c, h, pos,

@@ -679,17 +679,102 @@ DECODE_SHAPES = [(2048, 2048), (2048, 8192), (8192, 2048), (8, 1, 2048)]
 def test_quant_bitflip_decode_shapes_bitwise(dev, model, shape):
     """``quant_bitflip`` at olmo-1b's decode shapes, bf16, a 0-d rate (the
     whole tensor one unit), 16 bits with 4 faulty: bitwise its plain
-    version, and one launch a call."""
+    version, and one launch pair a call (an amax pass and the flip)."""
     x = (torch.randn(shape, device=dev) * 0.02).to(torch.bfloat16)
     rate = torch.tensor([0.0, 0.2, 0.05], device=dev)[1]
     ops.reset_launches()
     k = ops.quant_bitflip(x, 7919 * 3 + 977 * 2, rate, 4, QuantSpec(16),
                           fault_model=model)
-    assert ops.launches["quant_bitflip"] == 1
+    assert ops.launches["quant_bitflip"] == 2
     p = ref.quant_bitflip_ref(x, 7919 * 3 + 977 * 2, rate, 4, QuantSpec(16),
                               fault_model=model)
     assert k.shape == x.shape and _same_bits(k, p)
     assert not torch.equal(k, x)
+
+
+def _group_bitwise(xs, seeds, rates, fb, spec, model):
+    """One grouped call, each output bitwise its plain version; two
+    launches."""
+    ops.reset_launches()
+    got = ops.quant_bitflip_group(xs, seeds, rates, fb, spec,
+                                  fault_model=model)
+    assert ops.launches["quant_bitflip"] == 2
+    for k, x, s, r in zip(got, xs, seeds, rates):
+        p = ref.quant_bitflip_ref(x, s, r, fb, spec, fault_model=model)
+        assert k.shape == x.shape and k.is_contiguous() and _same_bits(k, p)
+    return got
+
+
+@pytest.mark.parametrize("model", FAULT_MODELS)
+def test_quant_bitflip_group_decode_layer_bitwise(dev, model):
+    """One olmo-1b decode layer as one group, as ``_decode_block`` passes
+    it: the 7 weight leaves at the weight rate (seeds + 977 j) and the
+    block input at the activation rate, bf16, 0-d rates, 16 bits with 4
+    faulty: each tensor bitwise its plain version, two launches."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    xs = [(torch.randn(s, device=dev, generator=gen) * 0.02)
+          .to(torch.bfloat16) for s in [DECODE_SHAPES[0]] * 4
+          + [DECODE_SHAPES[1]] * 2 + DECODE_SHAPES[2:]]
+    w, a = torch.tensor([0.2, 0.05], device=dev)
+    seeds = [7919 + 977 * j for j in range(7)] + [7920]
+    got = _group_bitwise(xs, seeds, [w] * 7 + [a], 4, QuantSpec(16), model)
+    assert not any(torch.equal(k, x) for k, x in zip(got, xs))
+
+
+@pytest.mark.parametrize("model", FAULT_MODELS)
+def test_quant_bitflip_group_unit_inputs_bitwise(dev, model):
+    """A group of the unit inputs (ResNet18's float32 [2,512,32,32,64] at
+    rows 0.2 / 0 with one all-zero row, olmo-1b's bf16 [1,8,256,2048],
+    seamless's float32 encoder input [1,8,32,1024]) beside unaligned views
+    (bf16 and float32 rows starting off a 16-byte boundary, a row length
+    of 333), a leaf expanded over 3 rows with stride 0, a one-element
+    tensor and a row of 13: 8 bits with 6 faulty, bitwise."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cnn = torch.relu(torch.randn(2, 512, 32, 32, 64, device=dev,
+                                 generator=gen))
+    cnn[1, :7] = 0
+    base16 = torch.randn(1 + 4 * 1000, device=dev, generator=gen)         .to(torch.bfloat16)
+    base32 = torch.randn(3 + 5 * 333, device=dev, generator=gen)
+    w = torch.randn(64, 96, device=dev, generator=gen)
+    xs = [cnn,
+          torch.randn(1, 8, 256, 2048, device=dev, generator=gen)
+          .to(torch.bfloat16),
+          torch.randn(1, 8, 32, 1024, device=dev, generator=gen),
+          base16[1:].view(4, 1000), base32[3:].view(5, 333),
+          w.expand(3, 64, 96), torch.randn(1, device=dev, generator=gen),
+          torch.randn(2, 13, device=dev, generator=gen)]
+    rates = [torch.tensor([0.2, 0.0], device=dev),
+             torch.tensor([0.2], device=dev), torch.tensor(0.2, device=dev),
+             torch.tensor([0.3, 0.0, 0.1, 1.0], device=dev),
+             torch.tensor([0.2] * 5, device=dev),
+             torch.tensor([0.1, 0.0, 0.3], device=dev), 0.5,
+             torch.tensor([0.25, 0.5], device=dev)]
+    _group_bitwise(xs, list(range(11, 19)), rates, 6, QuantSpec(8), model)
+    _group_bitwise(xs[3:], list(range(3, 8)), rates[3:], 5, QuantSpec(16),
+                   model)                    # the generic faulty-bit path
+
+
+def test_quant_bitflip_group_makes_no_fill(dev):
+    """The profiler sees the group's two kernels, an amax pass and the
+    flip, and no fill or memset: the amax workspace is never cleared."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    xs = [torch.randn(2048, 2048, device=dev).to(torch.bfloat16),
+          torch.randn(8, 1, 2048, device=dev)]
+    rates = [torch.tensor(0.2, device=dev)] * 2
+    out = ops.quant_bitflip_group(xs, [1, 2], rates, 4, QuantSpec(16))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = ops.quant_bitflip_group(xs, [1, 2], rates, 4, QuantSpec(16))
+        torch.cuda.synchronize()
+    keys = [a.key for a in prof.key_averages()
+            if a.device_type == DeviceType.CUDA]
+    assert sum("amax_kernel" in k for k in keys) == 1, keys
+    assert sum("quant_bitflip_kernel" in k for k in keys) == 1, keys
+    assert not [k for k in keys if "fill" in k.lower()
+                or "memset" in k.lower()], keys
+    assert len(out) == 2
 
 
 def _reduced_olmo_decode(device, params, cfg, fault):
@@ -709,8 +794,8 @@ def test_faulted_decode_step_matches_cpu(dev):
     against the same step on the CPU: logits within 1e-3 (the decode
     tests' faulted-step tolerance, one 16-bit activation grid step), the
     same greedy tokens, the cache ``pos`` equal, ``quant_bitflip``
-    launched 8 times a layer (7 weight leaves and the input), and no host
-    wait inside the step."""
+    launched twice a layer (one launch pair corrupts the 7 weight leaves
+    and the input), and no host wait inside the step."""
     from repro_torch._tree import tree_map
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
@@ -736,7 +821,7 @@ def test_faulted_decode_step_matches_cpu(dev):
             T.decode_step(params, cfg, cache, toks, pos, fault=fault)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert ops.launches["quant_bitflip"] == 8 * cfg.n_layers
+    assert ops.launches["quant_bitflip"] == 2 * cfg.n_layers
     got, got_cache = _reduced_olmo_decode(dev, params, cfg, fault)
     assert torch.allclose(got.cpu(), want, rtol=0, atol=1e-3)
     assert torch.equal(got.argmax(-1).cpu(), want.argmax(-1))
