@@ -192,6 +192,36 @@ Phases (any failure raises, and the process exits nonzero):
      tokens a second, the swap events, and one faulted and one clean
      decode step of the full batch: wall, busy time by kernel group, idle
      share and the host's time by op.
+ 14. Training (``repro_torch.train``), run last.  a: olmo-1b at its
+     published widths and depth (bf16, 1.177 B params, ``init_lm``'s
+     seeded weights) trained by ``Trainer`` for ``TRAIN_STEPS`` steps on
+     ``TokenStream(vocab=4096, seq_len=256, batch=8, seed=0)`` (ids below
+     4096 are valid olmo ids), two microbatches, AdamW with warmup and a
+     cosine; it prints the loss (means of the first and last 5 steps), the
+     grad norm, the step's dt median and range, tokens a second, the
+     allocator's peak and the host waits by Python line (sync debug mode),
+     and one profiled step's busy time by kernel group, the optimizer's
+     kernels (inside its ``adamw_update`` range) apart, and its idle share
+     against the median step.  It fails on a non-finite loss, a last-5
+     mean not below the first-5 mean, or more than one host wait a step.
+     c: the trained model's self-labels on the held-out
+     ``TokenStream(seed=1)`` batch of 8 x 256, their spread and the share
+     equal to their own input token beside the untrained model's on the
+     same batch (it fails unless the trained share is lower); ΔAcc probe
+     populations at 4, 6 and 8 faulty bits (kernel backend,
+     ``FaultSpec(bits=8)`` at 0.2/0.2 over ``POD_TIERS_4``), whether the
+     paper's 4 LSBs move tokens, then ``lm_partitioner`` (pop 24, 3
+     generations) staged, then full, bitwise, at the first regime whose
+     ΔAcc neither vanishes nor saturates; ``quant_bitflip``,
+     ``fault_weight_tiles`` and ``matmul_tiles`` must each launch in the
+     staged search.  b: the example's config (``train_lm.build_100m``,
+     float32; its 16384-token stream built once and rewound): the same
+     step twice bitwise, the ops PyTorch flags as nondeterministic in it
+     (``use_deterministic_algorithms(True, warn_only=True)``, put back
+     after), then 2k steps straight against k steps, a checkpoint (its
+     save and restore timed), a fresh ``Trainer`` that restores it and k
+     more: params and optimizer state bitwise equal.  Checkpoints go to a
+     temporary directory removed afterwards.
 The lines before the last are the ``{"kernels": [...]}`` record, one
 entry a kernel wrapper, each counting its own launches (``ops.launches``):
 ``launches`` are those of the kernel's main path, the CNN staged search of
@@ -208,7 +238,8 @@ on bf16 weights, and of that route's entry ``fault_matmul_bf16w``, whose
 launches are its calls' row groups: one hash pass, counted under
 ``fault_weight_tiles``, and one ``matmul_tiles_f32`` each),
 ``reconfig_launches`` phase 12's drained re-optimization,
-``serve_launches`` phase 13's trace; ``lm_shapes`` the LM shapes of
+``serve_launches`` phase 13's trace, ``train_probe_launches`` phase
+14c's staged search; ``lm_shapes`` the LM shapes of
 phase 3 and ``decode_shapes`` phase 13's, its last row one decode layer
 as one group.  Then come the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -552,7 +583,7 @@ RECORD_KEYS = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
                "mixtral_launches", "mamba2_launches", "seamless_launches",
                "seamless_full_launches", "seamless_candidate_ms",
                "seamless_candidate_launches", "reconfig_launches",
-               "decode_shapes", "serve_launches")
+               "decode_shapes", "serve_launches", "train_probe_launches")
 
 
 # fault_matmul on bf16 x at olmo-1b's projections, M = B S = 2048:
@@ -2570,6 +2601,318 @@ def serve_phase(dev, records, cfg=None, steps=SERVE_STEPS, nsga=None):
     gc.collect()
 
 
+# phase 14's olmo-1b training run: the example's microbatches, a warmup and
+# a cosine to 0.1 lr; the token ids below TRAIN_VOCAB are valid olmo ids (a
+# stream over the full 50304 vocab would build a 20 GB table on the host)
+TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP = 60, 1e-3, 10
+TRAIN_VOCAB, TRAIN_B, TRAIN_S, TRAIN_MICRO = 4096, 8, 256, 2
+RESTART_K = 3                   # 14b: 2k steps against k, restart, k
+
+
+def _label_spread(cfg, params, batch):
+    """``(labels, distinct, most common count, share equal to the input
+    token)`` of the clean model's own argmax on ``batch``."""
+    from repro_torch.lm_setup import self_labels
+    labels = self_labels(cfg, params, batch)
+    counts = torch.bincount(labels.reshape(-1), minlength=cfg.vocab)
+    own = (labels == batch["tokens"]).float().mean().item()
+    return labels, int((counts > 0).sum()), int(counts.max()), own
+
+
+def _train_profile(trainer, on_card):
+    """One more step under torch.profiler: device time by kernel group, the
+    optimizer's kernels (those inside the ``adamw_update`` range's spans)
+    apart from the rest, the kernels launched.  Returns (busy ms, groups,
+    kernels, dt)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]
+                 + ([ProfilerActivity.CUDA] if on_card else [])) as prof:
+        trainer.run(max_steps=1)
+    dt = trainer.history[-1]["dt"]
+    if not on_card:
+        return 0.0, {}, 0, dt
+    dev_ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = [e.time_range for e in dev_ev if e.name == "adamw_update"]
+    groups = {}
+    n = 0
+    for e in dev_ev:
+        if e.name == "adamw_update":
+            continue
+        r = e.time_range
+        g = kernel_group(e.name, "cuBLAS matmul")
+        if any(s.start <= r.start and r.end <= s.end for s in spans):
+            g = "optimizer " + g
+        acc = groups.setdefault(g, [0.0, 0])
+        acc[0] += r.elapsed_us() / 1e3
+        acc[1] += 1
+        n += 1
+    if not n:
+        raise AssertionError("the profiler recorded no device kernel")
+    busy = sum(v[0] for v in groups.values())
+    return busy, groups, n, dt
+
+
+def train_phase(dev, records, cfg=None, steps=TRAIN_STEPS, vocab=TRAIN_VOCAB,
+                B=TRAIN_B, S=TRAIN_S, small_cfg=None, small_seq=128,
+                small_batch=16, k=RESTART_K, nsga=None):
+    """Phase 14: training (see the docstring).  The arguments other than
+    ``dev`` and ``records`` let a rehearsal on the CPU run it at a small
+    size."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import NSGA2Config
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.train import AdamWConfig, Trainer, TrainerConfig
+    from repro_torch.train_lm import build_100m
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = cfg or get_config("olmo-1b")
+    small_cfg = small_cfg or build_100m()
+    nsga = nsga or NSGA2Config(population=24, generations=3, seed=0)
+    gc.collect()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        # ---- 14a: olmo-1b at its published widths and depth ------------
+        t0 = time.perf_counter()
+        data = TokenStream(vocab=vocab, seq_len=S, batch=B, seed=0)
+        opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                          total_steps=steps)
+        trainer = Trainer(cfg, opt, TrainerConfig(
+            total_steps=steps + 1, ckpt_every=10 ** 9, ckpt_dir=tmp,
+            microbatches=TRAIN_MICRO), data, device=dev)
+        # the probe's held-out batch: another seed's first batch
+        held = {"tokens": torch.from_numpy(next(TokenStream(
+            vocab=vocab, seq_len=S, batch=B, seed=1))["tokens"]).to(dev)}
+        _, d0, top0, own0 = _label_spread(cfg, trainer.params, held)
+        sync()
+        log(f"phase14 {cfg.name}: {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}, "
+            f"{cfg.param_count() / 1e9:.3f} B params; TokenStream(vocab="
+            f"{vocab}, seq_len={S}, batch={B}), {TRAIN_MICRO} microbatches, "
+            f"AdamW lr {TRAIN_LR} warmup {TRAIN_WARMUP} over {steps} steps; "
+            f"set-up {time.perf_counter() - t0:.2f} s; untrained self-labels "
+            f"on the held-out batch: {d0} distinct, the most common {top0} "
+            f"times, {own0:.4f} their own input token")
+        trainer.run(max_steps=1)                  # warm-up: cuBLAS handles
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if on_card:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                wall0 = time.perf_counter()
+                trainer.run(max_steps=steps - 1)
+                wall = time.perf_counter() - wall0
+            finally:
+                if on_card:
+                    torch.cuda.set_sync_debug_mode("default")
+        peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+        sites = collections.Counter(
+            f"{os.path.relpath(w.filename, HERE)}:{w.lineno}" for w in caught
+            if "called a synchronizing" in str(w.message))
+        waits = sum(sites.values())
+        hist = trainer.history
+        loss = np.array([h["loss"] for h in hist])
+        dts = np.array([h["dt"] for h in hist[1:]])
+        first, last = loss[:5].mean(), loss[-5:].mean()
+        log(f"phase14 trained {len(hist)} steps in {wall:.3f} s wall after "
+            f"the first: loss {first:.4f} -> {last:.4f} (means of the first "
+            f"and last 5), grad_norm {hist[0]['grad_norm']:.4f} -> "
+            f"{hist[-1]['grad_norm']:.4f}, lr peak "
+            f"{max(h['lr'] for h in hist):.3e}; step dt median "
+            f"{1e3 * np.median(dts):.3f} ms (range {1e3 * dts.min():.3f}-"
+            f"{1e3 * dts.max():.3f}), first step {1e3 * hist[0]['dt']:.3f} "
+            f"ms; {B * S / np.median(dts):.0f} tokens/s; "
+            f"max_memory_allocated {peak}; host waits {waits} in "
+            f"{steps - 1} steps at {dict(sites)}")
+        busy, groups, n_k, pdt = _train_profile(trainer, on_card)
+        med = float(np.median(dts))
+        opt_ms = sum(v[0] for g, v in groups.items()
+                     if g.startswith("optimizer"))
+        if on_card:
+            log(f"phase14 one profiled step: dt {1e3 * pdt:.3f} ms; kernels "
+                f"busy {busy:.3f} ms in {n_k} kernels ({100 * (1 - busy / (1e3 * med)):.1f}% "
+                f"idle against the median step), the optimizer "
+                f"{opt_ms:.3f} ms ({100 * opt_ms / busy:.1f}%); "
+                + _groups_text(groups))
+        problems = []
+        if not np.isfinite(loss).all():
+            problems.append("a non-finite loss")
+        if not last < first:
+            problems.append(f"the last 5 steps' mean loss {last:.4f} is not "
+                            f"below the first 5's {first:.4f}")
+        if on_card and waits > steps - 1:
+            problems.append(f"{waits} host waits in {steps - 1} steps")
+        if problems:
+            raise AssertionError("phase14a: " + "; ".join(problems))
+
+        # ---- 14c's labels, while the trained params are at hand --------
+        params = trainer.params
+        del trainer, data
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        labels, d1, top1, own1 = _label_spread(cfg, params, held)
+        log(f"phase14 trained self-labels on the held-out TokenStream(seed=1)"
+            f" batch {B}x{S}: {d1} distinct, the most common {top1} times, "
+            f"{own1:.4f} their own input token (untrained {own0:.4f})")
+        if not own1 < own0:
+            raise AssertionError("phase14c: the trained probe is no less the "
+                                 "identity than the untrained one")
+        probe_stage(dev, cfg, params, held, labels, nsga, records)
+        del params, labels, held
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # ---- 14b: restart on the card is bit-identical -----------------
+        restart_phase(dev, small_cfg, small_seq, small_batch, k, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def probe_stage(dev, cfg, params, batch, labels, nsga, records):
+    """Phase 14c: ΔAcc probe populations of the trained model at 4, 6 and 8
+    faulty bits, then ``lm_partitioner`` at the first that spreads."""
+    tokens = labels.numel()
+    L = cfg.n_layers
+    probe = np.random.default_rng(5).integers(0, 4, size=(8, L))
+    fixture = (params, batch, labels)
+    chosen = None
+    for fb in (4, 6, 8):
+        ev, _ = _lm_evaluator(dev, cfg, *fixture, faulty_bits=fb,
+                              eval_strategy="full", eval_batch_size=1)
+        d = ev.delta_acc(probe)
+        why = _spread_problem(d, tokens)
+        log(f"phase14 trained probe at {fb} faulty bits, rates "
+            f"{LM_RATE}/{LM_RATE}: clean accuracy {ev.clean_accuracy():.4f}, "
+            f"dAcc {np.round(d, 4).tolist()}"
+            + (f" ({why})" if why else " (spreads)"))
+        if fb == 4:
+            log(f"phase14 the paper's 4 LSBs "
+                f"{'move' if d.max() > 0 else 'move no'} tokens of the "
+                f"trained olmo-1b ({int(round(d.max() * tokens))} of {tokens} "
+                "at most)")
+        del ev
+        if chosen is None and why is None:
+            chosen = fb
+    if chosen is None:
+        raise AssertionError("phase14c: dAcc neither spreads at 4, 6 nor 8 "
+                             "faulty bits")
+    res = _lm_search("phase14", dev, cfg, fixture, nsga, tokens, chosen)
+    launches = res["s_launches"]
+    if dev.type == "cuda" and min(launches[k] for k in LM_KERNELS) <= 0:
+        raise AssertionError(f"phase14c: a kernel never launched in the "
+                             f"trained probe's search: {launches}")
+    for name, r in records.items():
+        r["train_probe_launches"] = launches[name]
+    log(f"phase14 trained probe's search at {chosen} faulty bits: launches "
+        f"{launches}")
+
+
+def restart_phase(dev, cfg, seq, batch, k, tmp):
+    """Phase 14b: the example's config (``train_lm.build_100m``, float32)
+    trained 2k steps straight against k steps, a checkpoint, a fresh
+    ``Trainer`` that restores it and k more: params and optimizer state
+    bitwise equal.  First the step itself: the same step twice from the
+    same state bitwise, and the ops PyTorch calls nondeterministic in it
+    (``use_deterministic_algorithms(True, warn_only=True)``, put back
+    after)."""
+    import os.path as osp
+
+    from repro_torch._tree import tree_leaves
+    from repro_torch.data import TokenStream
+    from repro_torch.train import AdamWConfig, Trainer, TrainerConfig
+    from repro_torch.train.train_step import make_train_step
+
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    data = TokenStream(vocab=cfg.vocab, seq_len=seq, batch=batch, seed=0)
+    t_data = time.perf_counter() - t0
+    opt = AdamWConfig(lr=3e-4, warmup_steps=30, total_steps=300)
+
+    def trainer(d, every):
+        return Trainer(cfg, opt, TrainerConfig(
+            total_steps=2 * k, ckpt_every=every, ckpt_dir=osp.join(tmp, d),
+            microbatches=2), data, device=dev)
+
+    # the step twice, and what PyTorch flags in it
+    t = trainer("twice", 10 ** 9)
+    nb = {key: torch.from_numpy(v).to(dev) for key, v in next(data).items()}
+    step = make_train_step(cfg, opt, microbatches=2, remat=False)
+    outs = [step(t.params, t.opt_state, nb) for _ in range(2)]
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(outs[0]),
+                                                 tree_leaves(outs[1])))
+
+    def flagged(fn):
+        """The messages PyTorch's deterministic mode warns with in
+        ``fn()``, the mode put back after."""
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                fn()
+            finally:
+                torch.use_deterministic_algorithms(False)
+        return sorted({str(w.message).split(".")[0][:120] for w in caught
+                       if "deterministic" in str(w.message)}) or "none"
+
+    in_step = flagged(lambda: step(t.params, t.opt_state, nb))
+    # the reference's gold logit, a gather: its backward adds into the
+    # logits' gradient with atomics on the card
+    x = torch.randn(nb["labels"].numel(), cfg.vocab, device=dev,
+                    requires_grad=True)
+    lab = nb["labels"].reshape(-1, 1).long()
+    by_gather = flagged(lambda: torch.take_along_dim(x, lab, -1).sum()
+                        .backward())
+    del t, outs, x
+    log(f"phase14 {cfg.name} ({cfg.param_count() / 1e6:.1f} M params, "
+        f"{cfg.dtype}, TokenStream(vocab={cfg.vocab}) built in {t_data:.2f} "
+        f"s): the same step twice bitwise: {same}; ops flagged "
+        f"nondeterministic in it: {in_step}; in a gather's backward (the "
+        f"reference's gold logit): {by_gather}")
+    if not same:
+        raise AssertionError("phase14b: the same step twice differs")
+
+    data.load_state_dict({"step": 0})
+    full = trainer("full", 10 ** 9)
+    full.run()
+    data.load_state_dict({"step": 0})
+    t1 = trainer("restart", k)
+    t1.run(max_steps=k)                       # checkpoint at step k
+    tc0 = time.perf_counter()
+    t1._checkpoint()                          # again, timed (same content)
+    t_save = time.perf_counter() - tc0
+    del t1
+    t2 = trainer("restart", k)
+    tc0 = time.perf_counter()
+    ok = t2.try_restore()
+    t_restore = time.perf_counter() - tc0
+    if not (ok and t2.step == k and data.state_dict() == {"step": k}):
+        raise AssertionError("phase14b: no checkpoint restored at step k")
+    t2.run()
+    leaves = list(zip(tree_leaves((full.params, full.opt_state)),
+                      tree_leaves((t2.params, t2.opt_state))))
+    bad = sum(not torch.equal(a, b) for a, b in leaves)
+    ckpt = osp.join(tmp, "restart", f"ckpt_{k:08d}", "arrays.npz")
+    log(f"phase14 restart: {2 * k} steps straight against {k}, a checkpoint "
+        f"({osp.getsize(ckpt) / 1e6:.1f} MB, saved in {t_save:.3f} s, "
+        f"restored in {t_restore:.3f} s), a fresh Trainer and {k} more: "
+        f"{len(leaves) - bad} of {len(leaves)} leaves of params and "
+        f"optimizer state bitwise equal; losses "
+        f"{[round(h['loss'], 4) for h in full.history]} / "
+        f"{[round(h['loss'], 4) for h in t2.history]}")
+    if bad:
+        raise AssertionError(f"phase14b: {bad} leaves differ after restart")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2756,6 +3099,10 @@ def main() -> int:
 
     # phase 13: serving olmo-1b
     serve_phase(dev, records)
+    torch.cuda.empty_cache()
+
+    # phase 14: training, and the trained olmo-1b as the LM probe
+    train_phase(dev, records)
 
     kernels = [dict(name=name, **{k: r[k] for k in RECORD_KEYS if k in r})
                for name, r in records.items()]

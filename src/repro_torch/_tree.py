@@ -7,7 +7,8 @@ with the reference.
 """
 from __future__ import annotations
 
-__all__ = ["tree_flatten", "tree_unflatten", "tree_map", "tree_leaves"]
+__all__ = ["tree_flatten", "tree_unflatten", "tree_map", "tree_leaves",
+           "tree_flatten_with_path"]
 
 
 def tree_flatten(tree):
@@ -46,3 +47,28 @@ def tree_map(fn, tree, *rest):
     leaves, spec = tree_flatten(tree)
     others = [tree_flatten(r)[0] for r in rest]
     return tree_unflatten(spec, [fn(*xs) for xs in zip(leaves, *others)])
+
+
+def tree_flatten_with_path(tree) -> tuple[list[tuple[tuple, object]], tuple]:
+    """``([(path, leaf), ...], spec)`` in ``tree_flatten`` order, where
+    ``path`` holds each step down to the leaf as
+    ``jax.tree_util.tree_flatten_with_path`` names it: a dict's key, a
+    sequence's integer index.  ``"§".join(map(str, path))`` is then the key
+    the reference's checkpoints store a leaf under."""
+    leaves, spec = tree_flatten(tree)
+    paths = []
+
+    def rec(s, path):
+        if s is None:
+            paths.append(path)
+            return
+        kind, children = s
+        if kind is dict:
+            for k, c in children:
+                rec(c, path + (k,))
+        else:
+            for i, c in enumerate(children):
+                rec(c, path + (i,))
+
+    rec(spec, ())
+    return list(zip(paths, leaves)), spec

@@ -17,7 +17,7 @@ from repro_torch._device import resolve_device
 from repro_torch._tree import tree_map
 from repro_torch.models.layers import QTensor
 
-__all__ = ["params_from_jax", "quant_params_from_jax"]
+__all__ = ["params_from_jax", "quant_params_from_jax", "opt_state_from_jax"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -50,3 +50,15 @@ def quant_params_from_jax(tree, device="cuda"):
         return _tensor(a, dev)
 
     return tree_map(leaf, tree)
+
+
+def opt_state_from_jax(state, device="cuda"):
+    """The reference's AdamW state ``{"m", "v", "step"}`` (numpy leaves,
+    bf16 moments included; ``jax.tree.map(np.asarray, state)``) -> the
+    port's, bitwise, with ``step`` a 0-d int32 tensor."""
+    if set(state) != {"m", "v", "step"}:
+        raise ValueError(f"not an AdamW state: keys {sorted(state)}")
+    out = params_from_jax({"m": state["m"], "v": state["v"]}, device)
+    out["step"] = _tensor(np.asarray(state["step"], np.int32),
+                          resolve_device(device))
+    return out

@@ -54,6 +54,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch._device import fp32_exact, resolve_device
 from repro_torch._tree import (tree_flatten, tree_leaves, tree_map,
@@ -409,14 +410,35 @@ def _encode(cfg: ArchConfig, params: dict, mem: torch.Tensor, rates
     """The encoder stack on ``mem [R, B, Se, D]`` (unit ``i`` at
     ``rates(i)``) and its final norm: the memory."""
     enc_pos = _arange(mem.shape[2], mem)
-    for i in range(cfg.n_enc_layers):
-        p = tree_map(lambda t: t[i], params["enc_groups"])
+    for i, p in enumerate(_unstack(params["enc_groups"])[:cfg.n_enc_layers]):
         mem = _enc_block_fwd(cfg, p, mem, enc_pos, fault_rates=rates(i))
     return L.norm_fwd(params["enc_norm"], mem, cfg.norm_kind)
 
 
+def _unstack(tree: dict) -> list[dict]:
+    """A tree whose leaves are stacked on a leading axis -> one tree a
+    slot, every leaf cut once with ``unbind``: its backward stacks the
+    slots' gradients in one pass, where a ``t[g]`` a slot would add a
+    zero-filled copy of the whole stack each."""
+    leaves, spec = tree_flatten(tree)
+    cols = [leaf.unbind(0) for leaf in leaves]
+    n = len(cols[0]) if cols else 0
+    return [tree_unflatten(spec, [c[g] for c in cols]) for g in range(n)]
+
+
+def _maybe_remat(body, remat: bool):
+    """``body`` as is, or recomputed in the backward pass from its inputs
+    (``remat``: the reference's ``jax.checkpoint`` of a scanned group);
+    the values are the same either way."""
+    if not remat:
+        return body
+    return lambda *args: torch.utils.checkpoint.checkpoint(
+        body, *args, use_reentrant=False)
+
+
 def forward(params: dict, cfg: ArchConfig, batch: dict, *, fault=None,
-            kv_chunk: int = 1024) -> torch.Tensor:
+            kv_chunk: int = 1024, ssd_chunk: int = 256,
+            remat: bool = False) -> torch.Tensor:
     """Full-sequence logits, the groups as a loop.
 
     batch: ``{"tokens": [B, S]}`` or ``{"embeds": [B, S, D]}``, and for
@@ -424,6 +446,9 @@ def forward(params: dict, cfg: ArchConfig, batch: dict, *, fault=None,
     fault: optional ``(w_rates, a_rates, seed)``, rates indexed by layer
     (encoder layers first); rates ``[L]`` give ``[B, S, V]``, rates
     ``[R, L]`` run R candidates and give ``[R, B, S, V]``.
+    remat: recompute each group (each decoder layer of the
+    encoder-decoder) in the backward pass instead of keeping its
+    activations, as the reference's ``jax.checkpoint`` of its scan body.
     """
     rates, single, R = _fault_rows(fault)
     rows = _rows(batch, R)
@@ -433,20 +458,28 @@ def forward(params: dict, cfg: ArchConfig, batch: dict, *, fault=None,
         ne = cfg.n_enc_layers
         mem = _encode(cfg, params, rows["enc_embeds"], rates)
         enc_pos = _arange(mem.shape[2], mem)
-        for g in range(cfg.n_layers):
-            p = tree_map(lambda t: t[g], params["groups"])
-            x = _dec_block_fwd(cfg, p, x, positions, mem, enc_pos,
-                               fault_rates=rates(ne + g), kv_chunk=kv_chunk)
+        for g, p in enumerate(_unstack(params["groups"])[:cfg.n_layers]):
+            body = _maybe_remat(
+                lambda x, mem, p, g=g: _dec_block_fwd(
+                    cfg, p, x, positions, mem, enc_pos,
+                    fault_rates=rates(ne + g), kv_chunk=kv_chunk), remat)
+            x = body(x, mem, p)
     else:
         P = len(cfg.block_pattern)
-        for g in range(cfg.n_groups):
+        slots = [_unstack(params["groups"][f"b{s}"]) for s in range(P)]
+
+        def group(x, ps, g):
             for s, kind in enumerate(cfg.block_pattern):
                 lidx = g * P + s
-                if lidx >= cfg.n_layers:
-                    continue
-                p = tree_map(lambda t: t[g], params["groups"][f"b{s}"])
-                x = _block_fwd(cfg, kind, p, x, positions,
-                               fault_rates=rates(lidx), kv_chunk=kv_chunk)
+                if lidx < cfg.n_layers:
+                    x = _block_fwd(cfg, kind, ps[s], x, positions,
+                                   fault_rates=rates(lidx), kv_chunk=kv_chunk,
+                                   ssd_chunk=ssd_chunk)
+            return x
+
+        for g in range(cfg.n_groups):
+            body = _maybe_remat(lambda x, ps, g=g: group(x, ps, g), remat)
+            x = body(x, [slot[g] for slot in slots])
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     logits = _unembed_unit(cfg, {"final_norm": params["final_norm"],
                                  "head": head}, x)

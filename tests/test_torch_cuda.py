@@ -826,3 +826,97 @@ def test_faulted_decode_step_matches_cpu(dev):
     assert torch.allclose(got.cpu(), want, rtol=0, atol=1e-3)
     assert torch.equal(got.argmax(-1).cpu(), want.argmax(-1))
     assert torch.equal(got_cache["b0"]["pos"].cpu(), want_cache["b0"]["pos"])
+
+
+# --------------------------------------------------------------------------
+# training (repro_torch.train) on the card
+# --------------------------------------------------------------------------
+def _train_fixture(dev, seed=0):
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config("olmo-1b").reduced()              # float32
+    cpu_params = T.init_lm(cfg, seed=seed, device="cpu")
+    rng = np.random.default_rng(seed)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (4, 16))
+                                 .astype(np.int32)) for k in ("tokens",
+                                                              "labels")}
+    return (cfg, cpu_params, batch, tree_map(lambda t: t.to(dev), cpu_params),
+            {k: v.to(dev) for k, v in batch.items()})
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """One step (two microbatches) on the card against the CPU: the loss
+    and every grad within 2e-5 of the leaf's largest (cuBLAS sums in
+    another order than the CPU), lr bitwise, params within 2 lr."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.train.train_step import _value_and_grad, make_loss_fn
+    from repro_torch.train.optimizer import adamw_init
+    cfg, cp, cb, gp, gb = _train_fixture(dev)
+    loss_fn = make_loss_fn(cfg, remat=False)
+    lc, gc_ = _value_and_grad(loss_fn, cp, cb)
+    lg, gg = _value_and_grad(loss_fn, gp, gb)
+    assert abs(float(lc) - float(lg)) <= 1e-5
+    for a, b in zip(tree_leaves(gc_), tree_leaves(gg)):
+        assert float((a - b.cpu()).abs().max()) <= 2e-5 * float(a.abs().max())
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    step = make_train_step(cfg, ocfg, microbatches=2)
+    pc, sc, mc = step(cp, adamw_init(cp), cb)
+    pg, sg, mg = step(gp, adamw_init(gp), gb)
+    assert _same_bits(mc["lr"], mg["lr"].cpu())
+    assert abs(float(mc["loss"]) - float(mg["loss"])) <= 1e-5
+    assert int(sg["step"]) == 1 and sg["step"].is_cuda
+    for a, b in zip(tree_leaves(pc), tree_leaves(pg)):
+        assert b.is_cuda and float((a - b.cpu()).abs().max()) <= \
+            2 * float(mc["lr"])
+
+
+def test_train_step_is_deterministic_on_card(dev):
+    """The same step twice from the same state is bitwise equal, and waits
+    on the card nowhere (sync debug mode raises at a wait)."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.train.optimizer import adamw_init
+    cfg, _, _, gp, gb = _train_fixture(dev, seed=1)
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=2),
+                           microbatches=2)
+    st = adamw_init(gp)
+    step(gp, st, gb)                                   # warm up
+    torch.cuda.synchronize()
+    outs = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            outs.append(step(gp, st, gb))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for a, b in zip(tree_leaves(outs[0]), tree_leaves(outs[1])):
+        assert _same_bits(a, b)
+
+
+def test_trainer_restart_is_bit_identical_on_card(dev, tmp_path):
+    """Kill-and-relaunch == uninterrupted run, on the card."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.train import AdamWConfig, Trainer, TrainerConfig
+    cfg = get_config("olmo-1b").reduced()
+
+    def trainer(d):
+        return Trainer(cfg, AdamWConfig(lr=3e-3, warmup_steps=2,
+                                        total_steps=100),
+                       TrainerConfig(total_steps=8, ckpt_every=4,
+                                     ckpt_dir=str(d), microbatches=2),
+                       TokenStream(vocab=cfg.vocab, seq_len=16, batch=4,
+                                   seed=0))
+    full = trainer(tmp_path / "a")
+    full.run()
+    t1 = trainer(tmp_path / "b")
+    t1.run(max_steps=4)
+    t2 = trainer(tmp_path / "b")
+    assert t2.try_restore() and t2.step == 4
+    t2.run()
+    for a, b in zip(tree_leaves((full.params, full.opt_state)),
+                    tree_leaves((t2.params, t2.opt_state))):
+        assert a.is_cuda and _same_bits(a, b)

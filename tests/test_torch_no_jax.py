@@ -1,5 +1,5 @@
 """The port stands alone: no module of ``src/repro_torch``, nor
-``chip_smoke.py`` or ``host_cost.py``, imports ``jax``, ``jaxlib`` or the
+``chip_smoke.py``, ``host_cost.py`` or ``quant_cost.py``, imports ``jax``, ``jaxlib`` or the
 reference package ``repro``; and every entry point refuses to run
 without a card unless the caller asks for ``device="cpu"``."""
 import ast
@@ -12,7 +12,7 @@ torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py", ROOT / "host_cost.py"]
+    [ROOT / "chip_smoke.py", ROOT / "host_cost.py", ROOT / "quant_cost.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -43,12 +43,14 @@ def test_scan_sees_every_kernel_source_module():
             "objectives.py", "chip_smoke.py", "host_cost.py",
             "transformer.py", "graph.py", "lm_setup.py", "registry.py",
             "base.py", "olmo_1b.py", "runtime.py", "engine.py",
-            "kvcache.py", "monitor.py"} <= names
+            "kvcache.py", "monitor.py", "quant_cost.py", "optimizer.py",
+            "train_step.py", "trainer.py", "compression.py", "ckpt.py",
+            "train_lm.py"} <= names
 
 
 def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    from repro_torch import cnn_setup, convert, quickstart
+    from repro_torch import cnn_setup, convert, quickstart, train_lm
     from repro_torch.core import (FaultSpec, InferenceAccuracyEvaluator,
                                   profile_layer_sensitivity)
     from repro_torch.configs import get_config
@@ -57,6 +59,7 @@ def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
     from repro_torch.models.cnn import CNN_MODELS
     from repro_torch.models.graph import lm_eval_strategy
     from repro_torch.models.transformer import init_cache, init_lm
+    from repro_torch.train import AdamWConfig, Trainer, TrainerConfig
 
     lm_cfg = get_config("olmo-1b").reduced()
     lm_params = init_lm(lm_cfg, device="cpu")
@@ -90,10 +93,20 @@ def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
         lambda: make_lm_accuracy_evaluator(
             lm_cfg, lm_params, {"tokens": np.zeros((1, 4), np.int32)},
             np.zeros((1, 4), np.int64), FaultSpec(), [1.0, 0.5]),
+        lambda: convert.opt_state_from_jax(
+            {"m": {}, "v": {}, "step": np.int32(0)}),
+        lambda: Trainer(lm_cfg, AdamWConfig(), TrainerConfig(), iter(())),
+        lambda: Trainer(lm_cfg, AdamWConfig(), TrainerConfig(), iter(()),
+                        params=lm_params),
+        lambda: train_lm.main(["--steps", "1"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+    # and with device="cpu" they run there
+    t = Trainer(lm_cfg, AdamWConfig(), TrainerConfig(), iter(()),
+                params=lm_params, device="cpu")
+    assert t.device.type == "cpu" and t.opt_state["step"].device.type == "cpu"
 
 
 def test_kernel_wrappers_take_only_cuda_or_cpu():
