@@ -222,6 +222,29 @@ Phases (any failure raises, and the process exits nonzero):
      save and restore timed), a fresh ``Trainer`` that restores it and k
      more: params and optimizer state bitwise equal.  Checkpoints go to a
      temporary directory removed afterwards.
+ 15. Multi-device evaluation (``core.eval_engine.DeviceScheduler``), run
+     on the CNN right after phase 12 and on olmo-1b right after phase 9.
+     a: ``DeviceScheduler("auto").n_devices`` and the cards' names.  b:
+     phase 8's staged ResNet18 search and phase 4's full one, then phase
+     9's olmo-1b ``lm_partitioner`` search staged and full, each on a pool
+     of four slots on one card (``devices=[card] * 4``; ``"auto"`` chunks
+     fitted to a quarter of the card a slot).  Each fails unless every
+     evaluated row's accuracy and the front are bitwise the one-slot
+     run's (same NSGA-II seed, so the same rows), the path's kernels
+     launched (counts zeroed just before the search, read just after),
+     the host waited at most once a ``delta_acc`` call (sync debug mode),
+     one replica of the weights is resident (``_replicas``; for olmo-1b
+     the allocator's bytes beyond the store under twice the integer
+     copy's), and (staged) ``device_dispatches`` sums to ``dispatches``
+     over every slot a depth-0 gene was given (prefix groups: one slot a
+     gene, so two of four for the paper's two devices).  The walls print
+     beside the one-slot walls.  c: a ``[card, host]`` pool on ResNet18 at
+     the CPU tests' size (width 0.25, img 16, 8 images, kernel backend),
+     staged and full: a tensor left on the wrong slot's device would make
+     PyTorch raise; the host slot runs (a replica there), rows on the card
+     slot are bitwise the one-slot run's and every row within 1/n_eval.
+     d: with two cards or more, b's searches on ``devices="auto"``;
+     otherwise one line says the host has one card.
 The lines before the last are the ``{"kernels": [...]}`` record, one
 entry a kernel wrapper, each counting its own launches (``ops.launches``):
 ``launches`` are those of the kernel's main path, the CNN staged search of
@@ -239,7 +262,8 @@ launches are its calls' row groups: one hash pass, counted under
 ``fault_weight_tiles``, and one ``matmul_tiles_f32`` each),
 ``reconfig_launches`` phase 12's drained re-optimization,
 ``serve_launches`` phase 13's trace, ``train_probe_launches`` phase
-14c's staged search; ``lm_shapes`` the LM shapes of
+14c's staged search, ``pool_launches`` phase 15b's staged search on four
+slots (the CNN's for its kernels, olmo-1b's for the LM's); ``lm_shapes`` the LM shapes of
 phase 3 and ``decode_shapes`` phase 13's, its last row one decode layer
 as one group.  Then come the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -583,7 +607,8 @@ RECORD_KEYS = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
                "mixtral_launches", "mamba2_launches", "seamless_launches",
                "seamless_full_launches", "seamless_candidate_ms",
                "seamless_candidate_launches", "reconfig_launches",
-               "decode_shapes", "serve_launches", "train_probe_launches")
+               "decode_shapes", "serve_launches", "train_probe_launches",
+               "pool_launches")
 
 
 # fault_matmul on bf16 x at olmo-1b's projections, M = B S = 2048:
@@ -1354,7 +1379,7 @@ def staged_phase(dev, params, labels, spec, layers, cfg, full_plan, full_rows,
         kw.setdefault("fault_backend", "kernel")
         kw.setdefault("max_store_bytes", STORE_BYTES)
         return make_evaluator("resnet18", params, spec, n_eval=N_EVAL,
-                              labels=labels, device=dev, **kw)
+                              labels=labels, devices=1, device=dev, **kw)
 
     # the search, staged and fused, against a warm rerun of the full one
     s_ev = evaluator(eval_batch_size="auto")
@@ -1511,7 +1536,7 @@ def staged_phase(dev, params, labels, spec, layers, cfg, full_plan, full_rows,
                              f"run saved: {objs}, {q_stats}")
     log(f"phase8 quickstart: {time.perf_counter() - t0:.2f} s, staged stats "
         f"{json.dumps(q_stats)}")
-    return s_ev, plan
+    return s_ev, plan, wall
 
 
 LM_B, LM_S = 8, 256             # phase 9's calibration batch
@@ -1569,12 +1594,14 @@ def _lm_fixture(tag, dev, cfg, B, S, seed=0, check=True):
 def _lm_evaluator(dev, cfg, params, batch, labels, faulty_bits=LM_FAULTY_BITS,
                   **kw):
     """The LM ΔAcc evaluator at ``FaultSpec(bits=8, faulty_bits)``, rates
-    ``LM_RATE`` over ``POD_TIERS_4``; kernel backend and a 16 GiB store
-    unless ``kw`` says otherwise."""
+    ``LM_RATE`` over ``POD_TIERS_4``; kernel backend, one slot (the
+    one-slot baseline phase 15 holds a pool to, on any host) and a 16 GiB
+    store unless ``kw`` says otherwise."""
     from repro_torch.core import (POD_TIERS_4, FaultSpec,
                                   make_lm_accuracy_evaluator)
     kw.setdefault("fault_backend", "kernel")
     kw.setdefault("max_store_bytes", LM_STORE_BYTES)
+    kw.setdefault("devices", 1)
     scale = np.array([d.fault_scale for d in POD_TIERS_4], np.float32)
     spec = FaultSpec(bits=8, faulty_bits=faulty_bits,
                      weight_fault_rate=LM_RATE, act_fault_rate=LM_RATE)
@@ -1651,7 +1678,8 @@ def _lm_search(tag, dev, cfg, fixture, nsga, tokens, faulty_bits,
     if on_card:
         torch.cuda.empty_cache()
     return dict(f_ev=f_ev, f_rows=f_rows, s_launches=s_launches,
-                f_launches=f_launches, s_wall=s_wall, f_wall=f_wall)
+                f_launches=f_launches, s_wall=s_wall, f_wall=f_wall,
+                plan=plan, f_plan=f_plan)
 
 
 # profiler ranges the port opens around its scans (``models/layers.py``)
@@ -1850,6 +1878,8 @@ def lm_phase(dev, records, cfg=None, sc_cfg=None, B=LM_B, S=LM_S,
     if diff.max() > 1.0 / tokens:
         raise AssertionError("generic and kernel dAcc differ by more than "
                              "1/(B S) in a row")
+    del res["f_ev"], f_ev
+    return dict(cfg=cfg, fixture=fixture, nsga=nsga, tokens=tokens, **res)
 
 
 # phase 10b's depth cuts: mixtral-8x7b's 32 layers resolve to the
@@ -2913,6 +2943,267 @@ def restart_phase(dev, cfg, seq, batch, k, tmp):
         raise AssertionError(f"phase14b: {bad} leaves differ after restart")
 
 
+# --------------------------------------------------------------------------
+# phase 15: multi-device evaluation
+# --------------------------------------------------------------------------
+POOL_SLOTS = 4                 # phase 15's slots on one card
+# phase 15c: a [card, host] pool on ResNet18 at the CPU tests' size
+MIXED_N_EVAL, MIXED_SCALE = 8, np.array([0.0, 0.5, 1.0, 2.0], np.float32)
+MIXED_RATES = dict(weight_fault_rate=0.3, act_fault_rate=0.05, faulty_bits=4,
+                   bits=8)
+
+
+def _waits_in(fn):
+    """``fn()`` and the host waits it made, counted by the Python line that
+    waited (PyTorch's sync debug mode warns at each); none off the card."""
+    on_card = torch.cuda.is_available()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if on_card:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            if on_card:
+                torch.cuda.set_sync_debug_mode("default")
+    sites = collections.Counter(
+        f"{os.path.relpath(w.filename, HERE)}:{w.lineno}" for w in caught
+        if "called a synchronizing" in str(w.message))
+    return out, sites
+
+
+def _pooled_search(tag, ev, search, want_rows, want_plan, one_wall, kernels,
+                   on_card):
+    """Run ``search()`` (a partitioner's ``optimize``) on a pooled
+    evaluator: launch counts zeroed just before and read just after, host
+    waits counted, ``delta_acc`` calls counted.  Fails unless every row and
+    the front are bitwise ``want_rows`` / ``want_plan``'s, each of
+    ``kernels`` launched, the host waited at most once a ``delta_acc``
+    call, one replica is resident a device that ran a chunk (and on no
+    other), and (staged) ``device_dispatches`` sums
+    to ``dispatches`` over every slot a depth-0 gene was given.  Returns the launches."""
+    from repro_torch.kernels import ops
+
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    ev.clean_accuracy()                 # its one wait, outside the window
+    calls = [0]
+    inner = ev.delta_acc
+
+    def counted(P):
+        calls[0] += 1
+        return inner(P)
+
+    ev.delta_acc = counted
+    sync()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    plan, sites = _waits_in(search)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    del ev.delta_acc
+    waits = sum(sites.values())
+    rows = dict(ev._cache)
+    log(f"{tag}: {wall:.3f} s wall against {one_wall:.3f} s with one slot; "
+        f"{ev.dispatches} dispatches, {len(rows)} rows, {calls[0]} "
+        f"evaluations, host waits {waits} {dict(sites)}; replicas on "
+        f"{[str(d) for d in ev._replicas]}; launches {launches}")
+    if rows != want_rows:
+        bad = [k for k in want_rows if rows.get(k) != want_rows[k]]
+        raise AssertionError(f"{tag}: rows differ from one slot's: "
+                             f"{len(bad)} of {len(want_rows)} (rows "
+                             f"{len(rows)}), e.g. {bad[:2]}")
+    if not (np.array_equal(plan.front, want_plan.front)
+            and np.array_equal(plan.front_objs, want_plan.front_objs)):
+        raise AssertionError(f"{tag}: the front differs from one slot's")
+    if on_card and min(launches[k] for k in kernels) <= 0:
+        raise AssertionError(f"{tag}: a kernel of the path never launched")
+    if waits > calls[0]:
+        raise AssertionError(f"{tag}: {waits} host waits in {calls[0]} "
+                             f"evaluations")
+    slots = ev._scheduler.devices
+    staged = ev.eval_strategy == "staged"
+    ran = {slots[i] for i in ev.staged_stats()["device_dispatches"]} \
+        if staged else set(slots)
+    if not ran <= set(ev._replicas) <= set(slots) | {ev.device}:
+        raise AssertionError(f"{tag}: replicas on {list(ev._replicas)}, "
+                             f"slots that ran on {sorted(map(str, ran))}")
+    if staged:
+        # prefix groups: a slot a depth-0 gene, so min(slots, genes seen at
+        # depth 0) slots work (two for the paper's two devices)
+        st = ev.staged_stats()
+        dd = st["device_dispatches"]
+        roots = ev._prefix_engine._root_device
+        used = min(ev.devices, len(roots))
+        log(f"{tag} device_dispatches {dd} of {st['dispatches']}; "
+            f"depth-0 genes {sorted(roots)} on slots {roots}; dispatches a "
+            f"slot {st['dispatches'] / max(len(dd), 1):.1f}")
+        if sum(dd.values()) != st["dispatches"] \
+                or set(dd) != set(range(used)):
+            raise AssertionError(f"{tag}: device_dispatches {dd} against "
+                                 f"{st['dispatches']} dispatches on "
+                                 f"{used} of {ev.devices} slots")
+    log(f"{tag} = one slot bitwise: {len(rows)} rows and the front "
+        f"({len(plan.front)} points)")
+    return launches
+
+
+def _card_pool(dev):
+    from repro_torch.launch.mesh import indexed_device
+    return [indexed_device(dev)] * POOL_SLOTS
+
+
+def pool_phase_cnn(dev, records, params, labels, spec, layers, cfg, rows,
+                   plan, walls):
+    """Phase 15 on the CNN path (see the docstring): (a) the local cards;
+    (b) phases 8's and 4's ResNet18 searches on a pool of four slots on one
+    card against their one-slot rows, front and walls; (c) a [card, host]
+    pool at the CPU tests' size; (d) ``devices="auto"`` where the host has
+    two cards or more."""
+    from repro_torch.cnn_setup import make_evaluator
+    from repro_torch.core import PAPER_DEVICES, AFarePart, FaultSpec
+    from repro_torch.core.eval_engine import DeviceScheduler
+    from repro_torch.core.objectives import InferenceAccuracyEvaluator
+    from repro_torch.launch.mesh import indexed_device
+    from repro_torch.models.cnn import ResNet18, quantize_unit_params
+
+    on_card = dev.type == "cuda"
+    n_cards = torch.cuda.device_count() if on_card else 0
+    auto = DeviceScheduler("auto")
+    log(f"phase15a DeviceScheduler('auto').n_devices = {auto.n_devices}: "
+        f"{[torch.cuda.get_device_name(i) for i in range(n_cards)]}")
+
+    def evaluator(devices, **kw):
+        kw.setdefault("max_store_bytes", STORE_BYTES)
+        return make_evaluator("resnet18", params, spec, n_eval=N_EVAL,
+                              labels=labels, fault_backend="kernel",
+                              devices=devices, device=dev, **kw)
+
+    def search(ev):
+        return lambda: AFarePart(layers, PAPER_DEVICES, acc_evaluator=ev,
+                                 nsga2_config=cfg).optimize()
+
+    pools = [("phase15b", _card_pool(dev))]
+    if n_cards >= 2:
+        pools.append(("phase15d", "auto"))
+    for tag, pool in pools:
+        ev = evaluator(pool, eval_batch_size="auto")
+        log(f"{tag} resnet18 staged on {ev.devices} slots "
+            f"{[str(d) for d in ev._scheduler.devices]}: eval_batch_size "
+            f"'auto' -> {ev.eval_batch_size} rows")
+        launches = _pooled_search(f"{tag} resnet18 staged", ev, search(ev),
+                                  rows, plan, walls["staged"], CNN_KERNELS,
+                                  on_card)
+        if tag == "phase15b":
+            for name in CNN_KERNELS:
+                records[name]["pool_launches"] = launches[name]
+        del ev
+        ev = evaluator(pool, eval_strategy="full")
+        _pooled_search(f"{tag} resnet18 full", ev, search(ev), rows, plan,
+                       walls["full"], CNN_KERNELS, on_card)
+        del ev
+    if n_cards < 2:
+        log(f"phase15d not run: devices='auto' over real cards needs two, "
+            f"and this host has {n_cards}")
+
+    # (c) a [card, host] pool at the CPU tests' size: no tensor crosses
+    # slots (PyTorch refuses a product of tensors on two devices)
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=(MIXED_N_EVAL, 16, 16, 3))
+                         .astype(np.float32)).to(dev)
+    for seed in range(32):
+        p = ResNet18.init(seed, 8, width=0.25, img=16, device=dev)
+        z = torch.zeros(ResNet18.n_units, device=dev)
+        y = ResNet18.apply(p, x, z, z, 0).argmax(-1)
+        if len(torch.unique(y)) >= 2:
+            break
+    else:
+        raise AssertionError("no ResNet18 seed spreads the 8 images")
+    P = rng.integers(0, len(MIXED_SCALE), size=(12, ResNet18.n_units))
+    qp = quantize_unit_params(p)
+    mixed = [indexed_device(dev), torch.device("cpu")]
+    for strategy in ("staged", "full"):
+        def ev_for(devices):
+            return InferenceAccuracyEvaluator(
+                ResNet18.apply, p, x, y, FaultSpec(**MIXED_RATES),
+                MIXED_SCALE, base_seed=3, quant_params=qp,
+                fault_backend="kernel", step_fn=ResNet18.step,
+                eval_strategy=strategy, devices=devices, device=dev)
+        one, two = ev_for(1), ev_for(mixed)
+        d1, d2 = one.delta_acc(P), two.delta_acc(P)
+        diff = np.abs(d1 - d2)
+        on_host = []
+        if strategy == "staged":
+            roots = two._prefix_engine._root_device
+            on_host = [i for i, r in enumerate(P) if roots[int(r[0])] == 1]
+        log(f"phase15c resnet18 seed {seed} (8 images, width 0.25) "
+            f"{strategy} on [card, host]: replicas "
+            f"{[str(d) for d in two._replicas]}; dAcc one slot "
+            f"{d1.tolist()}, pool {d2.tolist()}; {int((diff > 0).sum())} of "
+            f"{len(P)} rows differ (rows on the host slot: {on_host})")
+        if not np.isfinite(d2).all() or diff.max() > 1.0 / MIXED_N_EVAL:
+            raise AssertionError("phase15c: the [card, host] pool is off "
+                                 "by more than 1/n_eval")
+        if set(two._replicas) != set(mixed):
+            raise AssertionError("phase15c: the host slot never ran")
+        if strategy == "staged":
+            card_rows = [i for i in range(len(P)) if i not in on_host]
+            if not on_host or not card_rows \
+                    or (d1[card_rows] != d2[card_rows]).any():
+                raise AssertionError("phase15c: the card slot's rows differ "
+                                     "from one slot's, or a slot is unused")
+        del one, two
+
+
+def pool_phase_lm(dev, records, ctx):
+    """Phase 15b/d on phase 9's olmo-1b search: four slots on one card (and
+    ``devices="auto"`` where there are two cards or more) against phase 9's
+    rows, fronts and walls; one replica of the weights resident."""
+    from repro_torch.core import lm_partitioner
+
+    on_card = dev.type == "cuda"
+    n_cards = torch.cuda.device_count() if on_card else 0
+    cfg, nsga = ctx["cfg"], ctx["nsga"]
+    pools = [("phase15b", _card_pool(dev))]
+    if n_cards >= 2:
+        pools.append(("phase15d", "auto"))
+    for tag, pool in pools:
+        for strategy in ("staged", "full"):
+            kw = dict(eval_batch_size="auto") if strategy == "staged" \
+                else dict(eval_strategy="full", eval_batch_size=1)
+            gc.collect()        # a dropped evaluator's tensors (cycles)
+            before = torch.cuda.memory_allocated(dev) if on_card else 0
+            ev, spec = _lm_evaluator(dev, cfg, *ctx["fixture"], devices=pool,
+                                     **kw)
+            log(f"{tag} {cfg.name} {strategy} on {ev.devices} slots: "
+                f"eval_batch_size -> {ev.eval_batch_size} rows")
+            want_plan = ctx["plan"] if strategy == "staged" else ctx["f_plan"]
+            launches = _pooled_search(
+                f"{tag} {cfg.name} {strategy}", ev,
+                lambda: lm_partitioner(
+                    cfg, ev, fault_spec=spec, fault_backend="kernel",
+                    eval_strategy=strategy, nsga2_config=nsga).optimize(),
+                ctx["f_rows"], want_plan,
+                ctx["s_wall" if strategy == "staged" else "f_wall"],
+                LM_KERNELS, on_card)
+            if strategy == "staged" and tag == "phase15b":
+                gc.collect()
+                store = ev._prefix_engine.store.nbytes
+                extra = (torch.cuda.memory_allocated(dev) if on_card else 0) \
+                    - before - store
+                log(f"{tag} {cfg.name} allocator: {extra} bytes beyond the "
+                    f"store's {store} after the search, the integer copy "
+                    f"{ev.fault_state_bytes()} bytes")
+                if extra > 2 * ev.fault_state_bytes():
+                    raise AssertionError(f"{tag}: more than one copy of the "
+                                         f"weights resident")
+                for name in LM_KERNELS:
+                    records[name]["pool_launches"] = launches[name]
+            del ev
+            if on_card:
+                torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2976,7 +3267,7 @@ def main() -> int:
     cfg = NSGA2Config(population=24, generations=3, seed=0)
     ev = make_evaluator("resnet18", params, spec, n_eval=512,
                         fault_backend="kernel", labels=labels,
-                        eval_strategy="full", device=dev)
+                        eval_strategy="full", devices=1, device=dev)
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -3077,16 +3368,24 @@ def main() -> int:
             f"{a.key[:90]}")
 
     # phase 8: the staged path
-    s_ev, s_plan = staged_phase(dev, params, labels, spec, layers, cfg, plan,
-                                full_rows, ev, records)
+    s_ev, s_plan, s_wall = staged_phase(dev, params, labels, spec, layers,
+                                        cfg, plan, full_rows, ev, records)
     # phase 12, run here while phase 8's evaluator is at hand: the online
     # loop on its plan
     reconfig_phase(dev, records, s_ev, s_plan, layers, cfg)
-    del params, ev, s_ev
+    del ev, s_ev
+    torch.cuda.empty_cache()
+    # phase 15 on the CNN: phases 8 and 4 on a pool of slots
+    pool_phase_cnn(dev, records, params, labels, spec, layers, cfg,
+                   full_rows, plan, {"staged": s_wall, "full": wall})
+    del params
     torch.cuda.empty_cache()
 
-    # phase 9: the dense transformer path
-    lm_phase(dev, records)
+    # phase 9: the dense transformer path, then phase 15 on its search
+    lm_ctx = lm_phase(dev, records)
+    torch.cuda.empty_cache()
+    pool_phase_lm(dev, records, lm_ctx)
+    del lm_ctx
     torch.cuda.empty_cache()
 
     # phases 10 and 10b: the RG-LRU, MoE and SSD block kinds

@@ -122,7 +122,7 @@ def make_evaluator(name: str, params, fault_spec: FaultSpec, n_eval=512,
                    eval_batch_size=None, fault_backend="kernel",
                    labels=None, eval_strategy="staged",
                    max_store_bytes: int | None = 256 << 20,
-                   fuse_chains: bool = True,
+                   fuse_chains: bool = True, devices="auto",
                    device="cuda") -> InferenceAccuracyEvaluator:
     """ΔAcc evaluator for one of the paper's CNNs.
 
@@ -136,7 +136,9 @@ def make_evaluator(name: str, params, fault_spec: FaultSpec, n_eval=512,
     ``eval_batch_size`` None gives ~512 images of activations per
     dispatch, one row per chunk at ``n_eval=512``; ``"auto"`` sizes the
     chunk to the card's memory.  ``max_store_bytes`` caps the staged
-    activation store.
+    activation store.  ``devices`` spreads the dispatches over a pool of
+    device slots (``core.eval_engine.DeviceScheduler``; a list of devices
+    is the pool); placement never changes a value.
     """
     model = CNN_MODELS[name]
     x, y = eval_batch(n_eval, device=device)
@@ -158,7 +160,7 @@ def make_evaluator(name: str, params, fault_spec: FaultSpec, n_eval=512,
         quant_params=qparams, fault_backend=fault_backend,
         step_fn=model.step, eval_strategy=eval_strategy,
         max_store_bytes=max_store_bytes, fuse_chains=fuse_chains,
-        device=device)
+        devices=devices, device=device)
 
 
 @torch.no_grad()

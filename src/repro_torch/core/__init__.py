@@ -6,11 +6,11 @@ from repro_torch.core.costmodel import (CostModel, DeviceProfile, LayerInfo,
                                         TPU_V5E_LOWVOLT, TPU_V5E_MID,
                                         TPU_V5E_ECC, PAPER_DEVICES, POD_TIERS,
                                         POD_TIERS_4)
-from repro_torch.core.eval_engine import (ActivationStore,
+from repro_torch.core.eval_engine import (ActivationStore, DeviceScheduler,
                                           PopulationEvalEngine,
                                           PrefixEvalEngine, PrefixRef,
                                           StackedView, auto_eval_batch_size,
-                                          device_memory_budget)
+                                          device_memory_budget, parse_devices)
 from repro_torch.core.fault import FaultSpec, FaultContext, PAPER_FAULT_SPEC
 from repro_torch.core.nsga2 import (NSGA2Config, nsga2, nsga2_steps,
                                     fast_non_dominated_sort)
@@ -31,8 +31,8 @@ __all__ = [
     "TPU_V5E", "TPU_V5E_LOWVOLT", "TPU_V5E_MID", "TPU_V5E_ECC",
     "PAPER_DEVICES", "POD_TIERS", "POD_TIERS_4",
     "PopulationEvalEngine", "PrefixEvalEngine", "ActivationStore",
-    "PrefixRef", "StackedView", "auto_eval_batch_size",
-    "device_memory_budget", "FaultSpec", "FaultContext", "PAPER_FAULT_SPEC",
+    "PrefixRef", "StackedView", "DeviceScheduler", "auto_eval_batch_size",
+    "device_memory_budget", "parse_devices", "FaultSpec", "FaultContext", "PAPER_FAULT_SPEC",
     "NSGA2Config", "nsga2", "nsga2_steps", "fast_non_dominated_sort",
     "InferenceAccuracyEvaluator", "SurrogateAccuracyEvaluator",
     "ObjectiveFn", "profile_layer_sensitivity", "make_lm_accuracy_evaluator",

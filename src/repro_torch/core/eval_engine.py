@@ -1,8 +1,7 @@
 """Population-level evaluation engine, the counterpart of
-``repro/core/eval_engine.py`` (the multi-device ``DeviceScheduler`` comes
-with a later slice; both engines here run on one device).
+``repro/core/eval_engine.py``.
 
-Two layers, one contract:
+Three layers, one contract:
 
 1. **Population engine** (:class:`PopulationEvalEngine`) — the
    whole-forward path.  Deduplicates rows inside a population, caches rows
@@ -20,17 +19,33 @@ Two layers, one contract:
    as one segment call each, and dispatch outputs stay stacked in the
    store as :class:`StackedView` entries.
 
-Per-row results must be independent of the other rows in the batch, so
-chunk boundaries never change values.  The staged walk does NOT pad its
-chunks: the reference pads to power-of-two buckets so that XLA compiles
-few shapes, but in eager PyTorch a padding row costs a full per-row
-convolution and serves no compile cache.  Chunk boundaries, and so every
-counter, are the reference's (``chunked_rows``).
+3. **Device scheduler** (:class:`DeviceScheduler`) — the sharded path.
+   Both engines accept a scheduler over a pool of device slots
+   (``launch/mesh.make_eval_mesh``).  The full engine round-robins its
+   chunks over the slots; the prefix engine places by *prefix group*:
+   every prefix under one depth-0 gene lands on one slot, so parent
+   activations, their children and any shared carry (:class:`PrefixRef`)
+   stay on one device.  The pool is an ordered list of devices in which a
+   device may repeat (``[cpu] * 4``, ``[cuda:0] * 4``: several slots on
+   one device, as the reference's fake host devices are); by default it
+   is the local cards.  With one slot (or no scheduler) both engines run
+   the single-device path.
 
-Device discipline of the staged walk: activations and final-depth results
-stay on the device until :meth:`PrefixEvalEngine._gather_final` copies
-each chunk's results to the host once; gene indices go to the card from
-pinned memory without blocking, so no dispatch waits for the device.
+Per-row results must be independent of the other rows in the batch, so
+chunk boundaries and placement never change values.  The staged walk does
+NOT pad its chunks: the reference pads to power-of-two buckets so that XLA
+compiles few shapes, but in eager PyTorch a padding row costs a full
+per-row convolution and serves no compile cache.  Chunk boundaries, and so
+every counter, are the reference's (``chunked_rows``).
+
+Device discipline: activations and final-depth results stay on their
+device until the once-per-call gather (:func:`gather_host`) brings every
+chunk's results to the host in one copy; gene indices go to the card from
+pinned memory without blocking (:meth:`DeviceScheduler.put`), so no
+dispatch waits for the device.  The ``batch_fn`` contract of the
+population engine is ``batch_fn(rows [U, L]) -> [U]``, and with a
+multi-slot scheduler ``batch_fn(rows, device=...)``, which must run the
+chunk on that device and may return the un-synced tensor.
 """
 from __future__ import annotations
 
@@ -43,11 +58,13 @@ import numpy as np
 import torch
 
 from repro_torch._tree import tree_leaves, tree_map
+from repro_torch.launch.mesh import local_devices, make_eval_mesh
 
 __all__ = ["PopulationEvalEngine", "PrefixEvalEngine", "ActivationStore",
-           "PrefixRef", "StackedView", "chunked_rows", "bucket_size",
-           "pad_rows", "parse_eval_batch_size", "auto_eval_batch_size",
-           "device_memory_budget", "peak_memory_bytes"]
+           "DeviceScheduler", "PrefixRef", "StackedView", "chunked_rows",
+           "bucket_size", "pad_rows", "gather_host", "parse_eval_batch_size",
+           "parse_devices", "auto_eval_batch_size", "device_memory_budget",
+           "peak_memory_bytes"]
 
 
 def parse_eval_batch_size(value) -> int | str | None:
@@ -59,6 +76,95 @@ def parse_eval_batch_size(value) -> int | str | None:
     if n < 1:
         raise ValueError(f"eval_batch_size must be >= 1, got {n}")
     return n
+
+
+def parse_devices(value) -> int | str | None:
+    """The CLI/config grammar for the ``devices`` knob: ``None`` (leave the
+    evaluator's setting alone) and ``"auto"`` (every device of the pool)
+    pass through, anything else must be a positive device count."""
+    if value is None or value == "auto":
+        return value
+    n = int(value)
+    if n < 1:
+        raise ValueError(f"devices must be >= 1, got {n}")
+    return n
+
+
+class DeviceScheduler:
+    """Placement of evaluation dispatches over a pool of device slots.
+
+    ``devices="auto"`` takes every slot of ``pool``, an int the first ``n``
+    (raising when the pool has fewer), and a list of devices is the pool
+    itself.  ``pool`` defaults to the local cards (``cuda:0 .. count-1``,
+    or the host without one); a device may repeat in it, which gives one
+    device several slots.  The slots are enumerated through
+    ``launch/mesh.make_eval_mesh``, so the engines and the launch stack
+    agree on device order.
+
+    Placement is committed-input scheduling: a chunk's inputs are put on
+    ``device_for(i)`` (or a slot the engine picked) and the chunk runs
+    there; per-row results do not depend on the device, so placement never
+    changes values.
+    """
+
+    def __init__(self, devices="auto", pool=None):
+        if isinstance(devices, (list, tuple)):
+            pool, n = list(devices), len(devices)
+        else:
+            pool = local_devices() if pool is None else list(pool)
+            spec = parse_devices(devices)
+            n = len(pool) if spec in (None, "auto") else spec
+            if n > len(pool):
+                raise ValueError(
+                    f"devices={n} requested but the pool holds "
+                    f"{len(pool)} devices; pass a pool with a device "
+                    f"repeated (devices=[dev] * {n}) for several slots on "
+                    f"one device")
+        self.mesh = make_eval_mesh(n, pool)
+        self.devices = list(self.mesh.devices.flat)
+
+    @property
+    def n_devices(self) -> int:
+        return len(self.devices)
+
+    def device_for(self, i: int) -> torch.device:
+        """Round-robin slot for the ``i``-th chunk of a batch."""
+        return self.devices[i % len(self.devices)]
+
+    @staticmethod
+    def put(array, device: torch.device | None) -> torch.Tensor:
+        """THE placement idiom: a host array as a tensor on ``device`` (the
+        host when None).  On a card the copy is pinned and sent without
+        blocking (a pageable copy would wait for the stream); PyTorch's
+        pinned-memory cache keeps the buffer until the copy has run."""
+        t = torch.from_numpy(np.ascontiguousarray(array))
+        if device is not None and device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t if device is None else t.to(device)
+
+
+def gather_host(values: list) -> list[np.ndarray]:
+    """Host arrays of a call's chunk results with ONE wait for them all:
+    the results left on cards are brought to the first of those cards (a
+    peer copy in the stream's order, no wait) and copied to the host once;
+    results already on the host are read as they are."""
+    out: list = [None] * len(values)
+    on_card = [i for i, v in enumerate(values)
+               if isinstance(v, torch.Tensor) and v.device.type == "cuda"]
+    if on_card:
+        dev = values[on_card[0]].device
+        parts = [values[i].detach().reshape(-1).to(dev, non_blocking=True)
+                 for i in on_card]
+        flat = torch.cat(parts).cpu().numpy()
+        j = 0
+        for i, p in zip(on_card, parts):
+            out[i] = flat[j:j + p.numel()].reshape(values[i].shape)
+            j += p.numel()
+    for i, v in enumerate(values):
+        if out[i] is None:
+            out[i] = np.asarray(v.detach() if isinstance(v, torch.Tensor)
+                                else v)
+    return out
 
 
 def bucket_size(n: int) -> int:
@@ -94,14 +200,8 @@ def pad_rows(rows: np.ndarray, padded: int) -> np.ndarray:
 
 
 def to_device_index(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """An int64 index tensor on ``device``.  On a card the host copy is
-    pinned and sent without blocking (a pageable copy would wait for the
-    stream); PyTorch's pinned-memory cache keeps the buffer until the copy
-    has run."""
-    t = torch.from_numpy(np.ascontiguousarray(a, np.int64))
-    if device.type != "cuda":
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
+    """An int64 index tensor on ``device`` (:meth:`DeviceScheduler.put`)."""
+    return DeviceScheduler.put(np.asarray(a, np.int64), device)
 
 
 class PrefixRef:
@@ -186,12 +286,14 @@ class ActivationStore:
     ``max_bytes`` caps resident bytes; eviction is least-recently-used,
     skipping keys pinned for the current depth.  Eviction is a
     performance event, never a correctness one: the engine recomputes
-    evicted prefixes on demand.
+    evicted prefixes on demand.  Each entry records the scheduler slot it
+    lives on (None without a multi-slot scheduler).
     """
 
     def __init__(self, max_bytes: int | None = None):
         self.max_bytes = max_bytes
         self._store: OrderedDict[tuple, object] = OrderedDict()
+        self._slot: dict[tuple, int | None] = {}
         self.nbytes = 0
         self.peak_nbytes = 0
         self.evictions = 0
@@ -211,11 +313,16 @@ class ActivationStore:
             self._store.move_to_end(key)
         return act
 
-    def put(self, key: tuple, act, pinned: frozenset | set = frozenset()):
+    def slot_of(self, key: tuple) -> int | None:
+        return self._slot.get(key)
+
+    def put(self, key: tuple, act, pinned: frozenset | set = frozenset(),
+            slot: int | None = None):
         if key in self._store:
             self._store.move_to_end(key)
             return
         self._store[key] = act
+        self._slot[key] = slot
         self.nbytes += self._entry_bytes_add(act)
         if self.max_bytes is not None:
             self._evict(pinned)
@@ -254,12 +361,14 @@ class ActivationStore:
             if key in pinned:
                 continue
             self.nbytes -= self._entry_bytes_drop(self._store.pop(key))
+            del self._slot[key]
             self.evictions += 1
         # everything left is pinned: allow a transient overshoot rather
         # than evict activations the current depth is about to read
 
     def clear(self):
         self._store.clear()
+        self._slot.clear()
         self._batch_views.clear()
         self.nbytes = 0
 
@@ -272,8 +381,8 @@ class PrefixEvalEngine:
     skips those already stored, runs unit *i* over the fresh ones in
     chunks of ``eval_batch_size`` rows, and stores the outputs.
 
-    Callable contracts (``device_ids`` / ``genes`` are int64 tensors on
-    ``device``):
+    Callable contracts (``device_ids`` / ``genes`` are int64 tensors on the
+    device the call runs on, which the callable reads from them):
 
         unit_fns[i](parent_acts, device_ids [U]) -> child_acts | accs
         segment_fn(start, length)(parent_acts, genes [U, length]) -> ...
@@ -289,6 +398,15 @@ class PrefixEvalEngine:
     ladder (``start % length == 0``), so segment keys number at most
     ``~2·L``.  Fused and unfused walks are bitwise identical.
 
+    Placement: with a multi-slot ``scheduler`` each depth-0 gene takes a
+    slot round-robin in first-seen order and every prefix under it stays
+    there (``_device_index``), so a dispatch group is ``(depth, slot)`` in
+    the depth walk and ``(start, length, slot)`` in the fused walk; gene
+    indices go to the slot's device, parents are already there.  Each store
+    entry records its slot and every read checks it, so an activation never
+    feeds a dispatch on another slot (on one device nothing else would
+    catch that).  ``max_store_bytes`` caps the ONE store all slots share.
+
     Cost accounting: ``unit_runs`` counts unit executions (recompute
     fallbacks included); ``rows_evaluated * n_units`` is what the
     full-forward path would run, so ``unit_runs_avoided`` is the win.
@@ -297,6 +415,7 @@ class PrefixEvalEngine:
     def __init__(self, unit_fns: Sequence[Callable], n_units: int,
                  eval_batch_size: int | None = None,
                  max_store_bytes: int | None = None,
+                 scheduler: DeviceScheduler | None = None,
                  shared_fields: dict[str, int] | None = None,
                  segment_fn: Callable[[int, int], Callable] | None = None,
                  device: torch.device | str = "cpu"):
@@ -305,11 +424,14 @@ class PrefixEvalEngine:
         self.n_units = n_units
         self.eval_batch_size = eval_batch_size
         self.store = ActivationStore(max_store_bytes)
+        self.scheduler = scheduler
         self.shared_fields = dict(shared_fields or {})
         self.segment_fn = segment_fn       # None => unfused depth walk
-        self.device = torch.device(device)
+        self.device = torch.device(device)   # the single-slot device
+        self._root_device: dict[int, int] = {}  # depth-0 gene -> slot
         self._cache: dict[tuple, float] = {}   # full row -> final metric
         self.dispatches = 0        # unit / segment calls
+        self.device_dispatches: dict[int, int] = {}  # slot -> calls
         self.rows_evaluated = 0    # unique uncached rows walked
         self.unit_runs = 0         # unit executions actually performed
         self.prefix_hits = 0       # needed prefixes found in the store
@@ -332,8 +454,7 @@ class PrefixEvalEngine:
         return self.full_unit_runs - self.unit_runs
 
     def stats(self) -> dict:
-        """The reference's counters; ``device_dispatches`` stays empty
-        until the multi-device scheduler is ported."""
+        """The reference's counters."""
         needed = self.unit_runs - self.recomputes + self.prefix_hits
         return {
             "rows_evaluated": self.rows_evaluated,
@@ -345,7 +466,7 @@ class PrefixEvalEngine:
             "recomputes": self.recomputes,
             "evictions": self.store.evictions,
             "dispatches": self.dispatches,
-            "device_dispatches": {},
+            "device_dispatches": dict(self.device_dispatches),
             "store_entries": len(self.store),
             "store_bytes": self.store.nbytes,
             "chains": self.chains,
@@ -361,6 +482,13 @@ class PrefixEvalEngine:
     def clear(self):
         """Drop cached accuracies and activations (fault env changed)."""
         self._cache.clear()
+        self.store.clear()
+
+    def reset_placement(self):
+        """Forget the prefix-group slots, the per-slot dispatch counts AND
+        the stored activations (they live on the old pool's devices)."""
+        self._root_device.clear()
+        self.device_dispatches.clear()
         self.store.clear()
 
     # -- evaluation ----------------------------------------------------------
@@ -381,10 +509,27 @@ class PrefixEvalEngine:
             self._run_rows(np.array(list(fresh), dtype=P.dtype))
         return np.array([self._cache[k] for k in keys])
 
+    def _multi(self) -> DeviceScheduler | None:
+        """The scheduler iff it actually places (> 1 slot)."""
+        s = self.scheduler
+        return s if s is not None and s.n_devices > 1 else None
+
+    def _device_index(self, prefix: tuple) -> int:
+        """Slot of a prefix: its depth-0 gene's slot (depth-0 genes take the
+        slots round-robin in first-seen order, deterministic because
+        prefixes are walked in population order).  Children inherit it, so
+        a whole prefix subtree lives on one slot."""
+        root = int(prefix[0])
+        if root not in self._root_device:
+            self._root_device[root] = \
+                len(self._root_device) % self.scheduler.n_devices
+        return self._root_device[root]
+
     def _run_rows(self, R: np.ndarray):
         """Evaluate unique uncached rows: the chain-fused walk when a
         ``segment_fn`` is attached, the depth-by-depth walk otherwise.
-        Final-depth results are gathered after every dispatch has gone out."""
+        Final-depth results are gathered after every dispatch has gone
+        out, so the slots' devices run their chunks concurrently."""
         self.rows_evaluated += len(R)
         if self.segment_fn is not None:
             self._run_rows_fused(R)
@@ -392,8 +537,9 @@ class PrefixEvalEngine:
             self._run_rows_staged(R)
 
     def _run_rows_staged(self, R: np.ndarray):
-        """The depth walk: one dispatch group per depth."""
+        """The depth walk: one dispatch group per (depth, slot)."""
         L = self.n_units
+        sched = self._multi()
         pending: list[tuple[list, list]] = []   # (prefixes, result chunks)
         for i in range(L):
             last = i == L - 1
@@ -410,48 +556,65 @@ class PrefixEvalEngine:
                     todo[p] = None
             if not todo:
                 continue
-            group = list(todo)
-            parents = None if i == 0 else \
-                [self._parent_for(p[:-1]) for p in group]
-            devs = np.array([[p[-1]] for p in group], np.int64)
-            outs = self._dispatch_group(self.unit_fns[i], parents, devs,
-                                        final=last, unit_axis=False)
-            if last:
-                pending.append((group, outs))
+            prefixes = list(todo)
+            if sched is None:
+                groups = [(None, prefixes)]
             else:
-                self._store_group(group, outs, set(group))
-            self.unit_runs += len(group)
+                by_dev: dict[int, list] = {}
+                for p in prefixes:
+                    by_dev.setdefault(self._device_index(p), []).append(p)
+                groups = [(d, by_dev[d]) for d in sorted(by_dev)]
+            pin = set(prefixes)
+            for dev_idx, group in groups:
+                parents = None if i == 0 else \
+                    [self._parent_for(p[:-1], dev_idx) for p in group]
+                devs = np.array([[p[-1]] for p in group], np.int64)
+                outs = self._dispatch_group(self.unit_fns[i], parents, devs,
+                                            final=last, dev_idx=dev_idx,
+                                            unit_axis=False)
+                if last:
+                    pending.append((group, outs))
+                else:
+                    self._store_group(group, outs, pin, dev_idx)
+                self.unit_runs += len(group)
         self._gather_final(pending)
 
     # -- chain-fused walk ---------------------------------------------------
     def _run_rows_fused(self, R: np.ndarray):
         """Plan non-branching chains over the fresh rows' prefix trie and
-        dispatch each ``(start, length)`` segment group as one call."""
+        dispatch each ``(start, length, slot)`` segment group as one
+        call."""
         L = self.n_units
+        sched = self._multi()
         segments = self._plan_segments([self.key(row) for row in R])
         groups: dict[tuple, list] = {}
         for seg in segments:
-            groups.setdefault((seg[0], seg[1]), []).append(seg)
+            start, length, parent, genes = seg
+            dev_idx = None if sched is None \
+                else self._device_index(parent + genes)
+            groups.setdefault((start, length, dev_idx), []).append(seg)
         pending: list[tuple[list, list]] = []
         # ascending start: every parent-producing segment (ending at
         # start-1) has start' < start, so dependencies are satisfied
-        for key in sorted(groups):
-            start, length = key
+        order = sorted(groups, key=lambda t: (
+            t[0], t[1], -1 if t[2] is None else t[2]))
+        for key in order:
+            start, length, dev_idx = key
             segs = groups[key]
             final = start + length == L
             fn = self.segment_fn(start, length)
             parents = None if start == 0 else \
-                [self._parent_for(s[2]) for s in segs]
+                [self._parent_for(s[2], dev_idx) for s in segs]
             genes = np.array([s[3] for s in segs], np.int64)  # [U, length]
             outs = self._dispatch_group(fn, parents, genes, final=final,
-                                        unit_axis=True)
+                                        dev_idx=dev_idx, unit_axis=True)
             keys = [s[2] + s[3] for s in segs]     # segment end prefixes
             if final:
                 pending.append((keys, outs))
             else:
                 # pin only the keys being stored: an evicted parent
                 # re-enters through the recompute fallback
-                self._store_group(keys, outs, set(keys))
+                self._store_group(keys, outs, set(keys), dev_idx)
             self.unit_runs += len(segs) * length
             self.fused_segments += len(segs)
         self._gather_final(pending)
@@ -538,8 +701,9 @@ class PrefixEvalEngine:
         with ``shared_fields`` keep eager per-row entries."""
         return not self.shared_fields
 
-    def _store_group(self, keys: list, chunks: list, pin: set):
-        """Store one dispatch group's outputs: per-row
+    def _store_group(self, keys: list, chunks: list, pin: set,
+                     slot: int | None):
+        """Store one dispatch group's outputs on its slot: per-row
         :class:`StackedView` entries into the intact batch, or eager
         per-row slices when shared-field interning must rewrite fields."""
         j = 0
@@ -547,24 +711,29 @@ class PrefixEvalEngine:
             rows = keys[j:j + n]
             if self._use_views():
                 for r, key in enumerate(rows):
-                    self.store.put(key, StackedView(batch, r), pinned=pin)
+                    self.store.put(key, StackedView(batch, r), pinned=pin,
+                                   slot=slot)
                 self.views_stored += n
             else:
                 for r, key in enumerate(rows):
                     act = tree_map(lambda a, r=r: a[r], batch.tree)
-                    self.store.put(key, self._intern(key, act), pinned=pin)
+                    self.store.put(key, self._intern(key, act), pinned=pin,
+                                   slot=slot)
             j += n
 
     def _gather_final(self, pending: list):
-        """The once-per-call gather: one host copy per chunk."""
-        for keys, chunks in pending:
+        """The once-per-call gather: every chunk's results in one host
+        copy (:func:`gather_host`)."""
+        chunks = []
+        for keys, outs in pending:
             j = 0
-            for out, n in chunks:
-                vals = np.asarray(out.detach().cpu()
-                                  if isinstance(out, torch.Tensor) else out)
-                for p, v in zip(keys[j:j + n], vals[:n]):
-                    self._cache[p] = float(v)
+            for out, n in outs:
+                chunks.append((keys[j:j + n], out, n))
                 j += n
+        vals = gather_host([out for _, out, _ in chunks])
+        for (keys, _, n), v in zip(chunks, vals):
+            for p, x in zip(keys, v[:n]):
+                self._cache[p] = float(x)
 
     def _intern(self, prefix: tuple, act):
         """Replace shared carry fields (deeper than their keying depth)
@@ -580,53 +749,63 @@ class PrefixEvalEngine:
                 out[field] = PrefixRef(prefix[:depth + 1])
         return out
 
-    def _resolve(self, act):
+    def _resolve(self, act, slot: int | None):
         """Materialise :class:`PrefixRef` fields of a stored activation
-        (recomputing the referenced prefix if it was evicted)."""
+        from the same slot (recomputing the referenced prefix if it was
+        evicted)."""
         if not self.shared_fields or not isinstance(act, dict) \
                 or not any(isinstance(v, PrefixRef) for v in act.values()):
             return act
-        return {k: self._ensure_act(v.prefix) if isinstance(v, PrefixRef)
-                else v for k, v in act.items()}
+        return {k: self._ensure_act(v.prefix, slot)
+                if isinstance(v, PrefixRef) else v for k, v in act.items()}
 
-    def _materialize(self, entry):
+    def _materialize(self, entry, slot: int | None):
         """A stored entry as a standalone activation: slice a view out of
         its batch (counted, memoised) or resolve shared-field refs."""
         if isinstance(entry, StackedView):
             if entry._sliced is None:
                 self.slices_materialized += 1
             return entry.materialize()
-        return self._resolve(entry)
+        return self._resolve(entry, slot)
 
-    def _parent_for(self, prefix: tuple):
-        """Stored entry for a parent prefix (a :class:`StackedView` is
-        returned as is, so chunk assembly can gather), or the recompute
-        fallback when LRU eviction dropped it."""
+    def _parent_for(self, prefix: tuple, slot: int | None):
+        """Stored entry for a parent prefix on ``slot`` (a
+        :class:`StackedView` is returned as is, so chunk assembly can
+        gather), or the recompute fallback when LRU eviction dropped it."""
         act = self.store.get(prefix)
-        if act is not None:
-            return act
-        return self._recompute(prefix)
+        if act is None:
+            return self._recompute(prefix)
+        if self.store.slot_of(prefix) != slot:
+            raise RuntimeError(
+                f"prefix {prefix} is stored on slot "
+                f"{self.store.slot_of(prefix)} but read for slot {slot}")
+        return act
 
-    def _ensure_act(self, prefix: tuple):
-        """Resolved standalone activation for ``prefix``."""
-        return self._materialize(self._parent_for(prefix))
+    def _ensure_act(self, prefix: tuple, slot: int | None):
+        """Resolved standalone activation for ``prefix`` on ``slot``."""
+        return self._materialize(self._parent_for(prefix, slot), slot)
 
     def _recompute(self, prefix: tuple):
         """The eviction fallback: re-run unit ``len(prefix)-1`` for one
-        prefix (recursing up the chain as needed) and re-store it."""
+        prefix on its slot (recursing up the chain as needed) and re-store
+        it."""
         i = len(prefix) - 1
-        parents = None if i == 0 else [self._parent_for(prefix[:-1])]
+        dev_idx = None if self._multi() is None else \
+            self._device_index(prefix)
+        parents = None if i == 0 else [self._parent_for(prefix[:-1], dev_idx)]
         devs = np.array([[prefix[-1]]], np.int64)
         outs = self._dispatch_group(self.unit_fns[i], parents, devs,
-                                    final=False, unit_axis=False)
+                                    final=False, dev_idx=dev_idx,
+                                    unit_axis=False)
         batch, _ = outs[0]
         act = tree_map(lambda a: a[0], batch.tree)
         self.unit_runs += 1
         self.recomputes += 1
-        self.store.put(prefix, self._intern(prefix, act), pinned={prefix})
+        self.store.put(prefix, self._intern(prefix, act), pinned={prefix},
+                       slot=dev_idx)
         return act
 
-    def _stack_chunk(self, parents: list):
+    def _stack_chunk(self, parents: list, slot: int | None):
         """One chunk's stacked parent activations: a single
         ``index_select`` when every parent is a view into ONE batch, else
         the materialised rows stacked."""
@@ -643,26 +822,33 @@ class PrefixEvalEngine:
                 out.append(a.index_select(0, idx))
             it = iter(out)
             return tree_map(lambda _: next(it), first.batch.tree)
-        mats = [self._materialize(p) for p in parents]
+        mats = [self._materialize(p, slot) for p in parents]
         return tree_map(lambda *xs: torch.stack(xs), *mats)
 
     def _dispatch_group(self, fn: Callable, parents: list | None,
                         genes: np.ndarray, final: bool,
+                        dev_idx: int | None = None,
                         unit_axis: bool = True) -> list:
         """Chunked calls of one unit or fused segment over its
-        ``[U, length]`` gene rows.  Non-final chunks come back as
-        ``(_StackedBatch, n)``; the final depth returns the un-synced
-        ``(result, n)`` pairs gathered after every dispatch has gone out.
-        ``unit_axis=False`` strips the gene axis for the single-unit
-        contract (``devs: [U]``)."""
+        ``[U, length]`` gene rows, on slot ``dev_idx``'s device (the
+        engine's own without a slot; the parents are there already).
+        Non-final chunks come back as ``(_StackedBatch, n)``; the final
+        depth returns the un-synced ``(result, n)`` pairs gathered after
+        every dispatch has gone out.  ``unit_axis=False`` strips the gene
+        axis for the single-unit contract (``devs: [U]``)."""
+        device = self.device if dev_idx is None \
+            else self.scheduler.devices[dev_idx]
         outs: list = []
         for start, stop, _ in chunked_rows(len(genes), self.eval_batch_size):
             g = genes[start:stop]
-            g_t = to_device_index(g if unit_axis else g[:, 0], self.device)
+            g_t = to_device_index(g if unit_axis else g[:, 0], device)
             acts = None if parents is None else \
-                self._stack_chunk(parents[start:stop])
+                self._stack_chunk(parents[start:stop], dev_idx)
             out = fn(acts, g_t)
             self.dispatches += 1
+            if dev_idx is not None:
+                self.device_dispatches[dev_idx] = \
+                    self.device_dispatches.get(dev_idx, 0) + 1
             n = stop - start
             outs.append((out, n) if final else (_StackedBatch(out, n), n))
         return outs
@@ -672,14 +858,21 @@ class PopulationEvalEngine:
     """Dedup + cache + chunked evaluation of integer rows.
 
     ``batch_fn(rows [U, L]) -> [U]`` evaluates one chunk and may return a
-    device tensor: results are brought to the host once, after every
-    chunk has been issued.
+    device tensor.  With a multi-slot :class:`DeviceScheduler` the chunks
+    go round-robin over the slots (``batch_fn(rows, device=...)``), and
+    without an ``eval_batch_size`` the unique rows split evenly over them
+    (``ceil(U / n)`` a chunk).  Results come to the host once, after every
+    chunk has been issued (:func:`gather_host`), so the devices run their
+    chunks concurrently.  One slot (or no scheduler) is the single-device
+    path.
     """
 
     def __init__(self, batch_fn: Callable[[np.ndarray], object],
-                 eval_batch_size: int | None = None):
+                 eval_batch_size: int | None = None,
+                 scheduler: DeviceScheduler | None = None):
         self.batch_fn = batch_fn
         self.eval_batch_size = eval_batch_size
+        self.scheduler = scheduler
         self._cache: dict[tuple, float] = {}
         self.dispatches = 0          # batch_fn calls
         self.rows_evaluated = 0      # unique rows actually computed
@@ -699,17 +892,27 @@ class PopulationEvalEngine:
         if fresh:
             rows = P[list(fresh.values())]
             fresh_keys = list(fresh)
+            sched = self.scheduler
+            if sched is not None and sched.n_devices <= 1:
+                sched = None
+            ebs = self.eval_batch_size
+            if ebs is None and sched is not None:
+                ebs = -(-len(rows) // sched.n_devices)
             pending = []
-            for start, stop, padded in chunked_rows(len(rows),
-                                                    self.eval_batch_size):
-                val = self.batch_fn(pad_rows(rows[start:stop], padded))
+            for ci, (start, stop, padded) in enumerate(
+                    chunked_rows(len(rows), ebs)):
+                chunk = pad_rows(rows[start:stop], padded)
+                if sched is not None:
+                    val = self.batch_fn(chunk, device=sched.device_for(ci))
+                else:
+                    val = self.batch_fn(chunk)
                 self.dispatches += 1
                 self.rows_evaluated += stop - start
                 pending.append((fresh_keys[start:stop], val, stop - start))
-            for chunk_keys, val, n in pending:
-                vals = np.asarray(val.cpu() if hasattr(val, "cpu") else val)
-                for k, v in zip(chunk_keys, vals[:n]):
-                    self._cache[k] = float(v)
+            vals = gather_host([val for _, val, _ in pending])
+            for (chunk_keys, _, n), v in zip(pending, vals):
+                for k, x in zip(chunk_keys, v[:n]):
+                    self._cache[k] = float(x)
         return np.array([self._cache[k] for k in keys])
 
 
@@ -737,19 +940,24 @@ def peak_memory_bytes(fn: Callable[[], object], device: torch.device) -> int:
     return max(int(peak), 0)
 
 
-def device_memory_budget(default: int = 2 << 30,
+def device_memory_budget(default: int = 2 << 30, n_devices: int = 1,
                          device: torch.device | None = None) -> int:
-    """Bytes of device memory the evaluator may plan against.
+    """Bytes of memory the evaluator may plan against on ONE device,
+    shared by ``n_devices`` slots.
 
-    Order: ``REPRO_EVAL_MEM_BUDGET`` (bytes; an explicit operator cap) ->
-    the card's memory -> a quarter of host RAM -> ``default``.  On the
-    card the figure is ``torch.cuda.mem_get_info``'s FREE bytes plus what
-    PyTorch's allocator has reserved but not handed out: the probe
-    (:func:`peak_memory_bytes`) measures bytes above the current
-    allocation, so the budget is what is left beyond it.  The TOTAL would
-    count the resident params, tables and store twice, and the free bytes
-    alone would miss the allocator's cached blocks, which it reuses first.
+    Order: ``REPRO_EVAL_MEM_BUDGET`` (bytes per device; an explicit
+    operator cap is never rescaled) -> the card's memory over the slots on
+    it -> a quarter of host RAM over ``n_devices`` (host slots share the
+    one RAM, as the reference's fake host devices do) -> ``default /
+    n_devices``.  On a card the figure is ``torch.cuda.mem_get_info``'s
+    FREE bytes plus what PyTorch's allocator has reserved but not handed
+    out: the probe (:func:`peak_memory_bytes`) measures bytes above the
+    current allocation, so the budget is what is left beyond it.  The TOTAL
+    would count the resident params, tables and store twice, and the free
+    bytes alone would miss the allocator's cached blocks, which it reuses
+    first.  With ``n_devices=1`` this is the single-device budget.
     """
+    n_devices = max(1, int(n_devices))
     env = os.environ.get("REPRO_EVAL_MEM_BUDGET")
     if env:
         return int(env)
@@ -757,30 +965,35 @@ def device_memory_budget(default: int = 2 << 30,
         free, _ = torch.cuda.mem_get_info(device)
         cached = (torch.cuda.memory_reserved(device)
                   - torch.cuda.memory_allocated(device))
-        return int(free + cached)
+        return int(free + cached) // n_devices
     try:
         pages = os.sysconf("SC_PHYS_PAGES")
         page = os.sysconf("SC_PAGE_SIZE")
         if pages > 0 and page > 0:
-            return pages * page // 4
+            return pages * page // 4 // n_devices
     except (ValueError, OSError, AttributeError):
         pass
-    return default
+    return default // n_devices
 
 
 def auto_eval_batch_size(probe: Callable[[int], int],
                          budget: int | None = None,
                          reserved: int = 0,
                          max_rows: int = 1024,
+                         n_devices: int = 1,
                          device: torch.device | None = None) -> int | None:
-    """The largest power-of-two chunk whose footprint fits the budget.
+    """The largest power-of-two chunk whose footprint fits ONE device.
 
     ``probe(n_rows)`` returns the peak device bytes of an ``n_rows``
     dispatch.  Two probes (1 and 2 rows) give the per-row slope and the
     fixed intercept; ``reserved`` carves out bytes the caller keeps
-    resident across dispatches (the staged store's cap).  Returns None
-    when the probe reports nothing or no per-row slope (no sizing
-    information, so no cap); the floor is 1 row.
+    resident across dispatches (the staged store's cap).  A chunk is a
+    one-device dispatch even when a scheduler spreads chunks over a pool,
+    so an explicit ``budget`` is the caller's per-device number, and
+    otherwise :func:`device_memory_budget` resolves it for ``device``
+    shared by ``n_devices`` slots.  Returns None when the probe reports
+    nothing or no per-row slope (no sizing information, so no cap); the
+    floor is 1 row.
     """
     p1, p2 = probe(1), probe(2)
     if p1 <= 0 or p2 <= 0 or p2 <= p1:
@@ -788,7 +1001,7 @@ def auto_eval_batch_size(probe: Callable[[int], int],
     per_row = p2 - p1
     fixed = max(p1 - per_row, 0)
     avail = budget if budget is not None else device_memory_budget(
-        device=device)
+        n_devices=n_devices, device=device)
     avail -= reserved + fixed
     n = 1
     while n * 2 <= max_rows and (n * 2) * per_row <= avail:

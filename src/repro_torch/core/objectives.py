@@ -34,6 +34,13 @@ Fault backends (all value-identical; bitwise on the CPU):
     through a weakref, so a ``device_fault_scale`` change rebuilds
     nothing.
 
+Placement (``devices``): the dispatches spread over a pool of device
+slots (``eval_engine.DeviceScheduler``).  Everything the evaluation reads
+lives once per distinct device of the pool (:class:`_Replica`): the
+evaluator's own device holds what it was given, another device a copy made
+at its first dispatch, and the slots on one device share it.  Placement
+never changes a value.
+
 Every ΔAcc and accuracy computation runs in IEEE fp32 (``fp32_exact``:
 TF32 off for cuDNN and matmuls whatever the caller's globals say).  Clean
 accuracy runs the generic float path at zero rates.
@@ -51,34 +58,78 @@ import torch
 from repro_torch._device import fp32_exact, resolve_device
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.core.costmodel import CostModel
-from repro_torch.core.eval_engine import (PopulationEvalEngine,
+from repro_torch.core.eval_engine import (DeviceScheduler,
+                                          PopulationEvalEngine,
                                           PrefixEvalEngine,
                                           auto_eval_batch_size, chunked_rows,
+                                          device_memory_budget,
                                           peak_memory_bytes)
 from repro_torch.core.fault import FaultSpec
+from repro_torch.launch.mesh import indexed_device, local_devices
 
 __all__ = ["InferenceAccuracyEvaluator", "SurrogateAccuracyEvaluator",
            "ObjectiveFn", "profile_layer_sensitivity",
            "make_lm_accuracy_evaluator", "FAULT_BACKENDS"]
 
 FAULT_BACKENDS = ("generic", "tables", "kernel")
-_DEVICES_TODO = ("devices > 1 is not ported yet (ROADMAP.md Queue A item 9, "
-                 "multi-GPU scheduling)")
 
-# Segment functions per evaluator, weakly keyed: dropping the evaluator
-# drops its entry, and ObjectiveFn/partitioner rebuilds that reuse one
-# evaluator keep its segments.  A cached function must not hold the
-# evaluator (it would keep its own key, and the CUDA tensors, alive).
+# Segment functions per evaluator, keyed ``(device, start, length)`` and
+# weakly by the evaluator: dropping the evaluator drops its entry, and
+# ObjectiveFn/partitioner rebuilds that reuse one evaluator keep its
+# segments.  A cached function must not hold the evaluator (it would keep
+# its own key, and the CUDA tensors, alive).
 _SEGMENT_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
-def _kernel_env(ref):
-    """The evaluator's CURRENT fault environment, ``(w_rates_by_device,
-    a_rates_by_device, base_seed)`` as device tensors and an int, read at
-    call time through the weakref ``ref`` (the kernel backend's
-    counterpart of the reference's ``_pallas_env_args``)."""
+def _kernel_env(ref, device: torch.device):
+    """The evaluator's CURRENT fault environment on ``device``,
+    ``(w_rates_by_device, a_rates_by_device, base_seed)`` as device tensors
+    and an int, read at call time through the weakref ``ref`` (the kernel
+    backend's counterpart of the reference's ``_pallas_env_args``)."""
     ev = ref()
-    return ev._w_dev, ev._a_dev, int(ev.base_seed)
+    rep = ev._replicas[device]
+    return rep.w_dev, rep.a_dev, int(ev.base_seed)
+
+
+class _Replica:
+    """What the evaluation reads on one device of the pool: the
+    calibration input and labels, the backend's weights (float params,
+    the kernel backend's integer copy or the tables) and the per-device
+    rate tensors.  It holds no reference to the evaluator."""
+
+    __slots__ = ("device", "x", "labels", "params", "qparams", "tables",
+                 "w_dev", "a_dev")
+
+    def __init__(self, device, x, labels, params, qparams, tables):
+        self.device = device
+        self.x, self.labels = x, labels
+        self.params, self.qparams, self.tables = params, qparams, tables
+        self.w_dev = self.a_dev = None
+
+
+def _to_device(tree, device: torch.device):
+    """A copy of ``tree`` (tensors, ``QTensor``s) on ``device``, sent to a
+    card without blocking.  A tensor that appears twice (a tied embedding
+    and head) is copied once, and one expanded over its leading axis (a
+    table's boundary leaf) is copied as one row and expanded again."""
+    from repro_torch.models.layers import QTensor
+    non_blocking = device.type == "cuda"
+    done: dict = {}
+
+    def move(a):
+        if isinstance(a, QTensor):
+            return dataclasses.replace(a, qw=move(a.qw), scale=move(a.scale))
+        if not isinstance(a, torch.Tensor):
+            return a
+        key = (a.data_ptr(), a.dtype, tuple(a.shape), a.stride())
+        if key not in done:
+            if a.ndim and a.shape[0] > 1 and a.stride(0) == 0:
+                done[key] = move(a[0]).expand_as(a)
+            else:
+                done[key] = a.to(device, non_blocking=non_blocking)
+        return done[key]
+
+    return tree_map(move, tree)
 
 
 def _accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -144,8 +195,9 @@ class InferenceAccuracyEvaluator:
         tensors.  Accuracy is the Top-1 over every label of a row.
       eval_batch_size: max rows per dispatch (None = one dispatch;
         ``"auto"`` = probe the memory of a 1- and a 2-row dispatch and
-        take the largest power-of-two chunk that fits the card, see
-        ``eval_engine.auto_eval_batch_size``; None off the card).
+        take the largest power-of-two chunk that fits one slot's share of
+        its card, see ``eval_engine.auto_eval_batch_size``; None off the
+        card).
       weight_tables / quant_params: the ``tables`` / ``kernel`` backends'
         fault state.
       fault_backend: ``"generic"``, ``"tables"``, ``"kernel"`` or
@@ -155,12 +207,20 @@ class InferenceAccuracyEvaluator:
       eval_strategy: ``"staged"`` (needs ``step_fn``), ``"full"``, or
         ``"auto"`` (staged iff ``step_fn`` is given).
       max_store_bytes: LRU cap of the staged activation store (None =
-        unbounded); eviction recomputes, it never changes a value.
+        unbounded), one store for every slot; eviction recomputes, it
+        never changes a value.
       shared_carry_fields: staged-engine interning spec (carry-dict field
         -> keying depth), as in the reference.
       fuse_chains: staged-path chain fusion (default on).
-      devices: 1 (``"auto"`` resolves to 1); more raises.
-      device: where evaluation runs, ``"cuda"`` by default.
+      devices: the slots the dispatches spread over (see
+        ``eval_engine.DeviceScheduler``): ``"auto"`` (every slot of the
+        pool), a count (the first n), or a list of devices, which becomes
+        the pool (a device may repeat: ``[cpu] * 4``).  The default pool is
+        ``device`` followed by the other local cards, or ``[device]`` on
+        the host.  Chunks go round-robin (full path) or by prefix group
+        (staged path); placement never changes a value.
+      device: the evaluator's own device, where its inputs live, ``"cuda"``
+        by default.
     """
 
     def __init__(self, apply_fn, params, x, labels, spec: FaultSpec,
@@ -173,22 +233,20 @@ class InferenceAccuracyEvaluator:
                  eval_strategy: str = "auto",
                  n_units: int | None = None,
                  max_store_bytes: int | None = 256 << 20,
-                 devices: int | str | None = 1,
+                 devices: int | str | list | None = "auto",
                  shared_carry_fields: dict | None = None,
                  fuse_chains: bool = True, device="cuda"):
-        self.device = resolve_device(device)
+        self.device = indexed_device(resolve_device(device))
         if quant_params is not None and weight_tables is not None:
             raise ValueError("pass quant_params (kernel backend) or "
                              "weight_tables (tables backend), not both")
-        self.devices = devices
         self.spec = spec
         self.base_seed = base_seed
-        self.weight_tables = weight_tables
-        self._qparams = quant_params
+        self._home = _Replica(self.device, _as_input(x, self.device),
+                              torch.as_tensor(labels, device=self.device),
+                              params, quant_params, weight_tables)
+        self._replicas = {self.device: self._home}
         self._apply_fn = apply_fn
-        self._params = params
-        self._x = _as_input(x, self.device)
-        self.labels = torch.as_tensor(labels, device=self.device)
         self._step_fn = step_fn
         if n_units is None and isinstance(params, (list, tuple)):
             n_units = len(params)
@@ -196,18 +254,82 @@ class InferenceAccuracyEvaluator:
         self.max_store_bytes = max_store_bytes
         self.shared_carry_fields = dict(shared_carry_fields or {})
         self._fuse_chains = bool(fuse_chains)
-        self._built_unit_fns = None
+        self._built_unit_fns = None        # device -> unit functions
         self._prefix_engine = None
         self._fault_env_rebuilds = 0
         self.auto_probe_bytes: dict[int, int] = {}
         self._engine = PopulationEvalEngine(self._dispatch)
         self._cache = self._engine._cache
         self._clean: float | None = None
+        self._pool = None                  # a pool given as devices=[...]
+        self._scheduler = None
+        self.devices = devices
         self._fault_backend = None
         self.fault_backend = fault_backend
         self.eval_strategy = eval_strategy
         self.device_fault_scale = device_fault_scale
         self.eval_batch_size = eval_batch_size  # "auto" probes the card
+
+    # -- what lives on the evaluator's own device ----------------------------
+    @property
+    def _x(self):
+        return self._home.x
+
+    @property
+    def labels(self) -> torch.Tensor:
+        return self._home.labels
+
+    @property
+    def _params(self):
+        return self._home.params
+
+    @property
+    def _qparams(self):
+        return self._home.qparams
+
+    @property
+    def _w_dev(self) -> torch.Tensor:
+        return self._home.w_dev
+
+    @property
+    def _a_dev(self) -> torch.Tensor:
+        return self._home.a_dev
+
+    @property
+    def weight_tables(self):
+        return self._home.tables
+
+    @weight_tables.setter
+    def weight_tables(self, value):
+        self._home.tables = value
+        self._drop_replicas()
+
+    def _replica(self, device: torch.device) -> _Replica:
+        """The evaluation's tensors on ``device``: the evaluator's own there,
+        else a copy made now, of what the current backend reads (its
+        first dispatch on that device; the slots on it share it)."""
+        rep = self._replicas.get(device)
+        if rep is None:
+            h, backend = self._home, self._fault_backend
+            rep = _Replica(
+                device, _to_device(h.x, device), _to_device(h.labels, device),
+                _to_device(h.params, device) if backend == "generic" else None,
+                _to_device(h.qparams, device) if backend == "kernel" else None,
+                _to_device(h.tables, device) if backend == "tables" else None)
+            self._send_rates(rep)
+            self._replicas[device] = rep
+        return rep
+
+    def _send_rates(self, rep: _Replica):
+        rep.w_dev = DeviceScheduler.put(self.w_rates_by_device, rep.device)
+        rep.a_dev = DeviceScheduler.put(self.a_rates_by_device, rep.device)
+
+    def _drop_replicas(self):
+        """Forget the copies on other devices and every built function (the
+        functions close over a replica's tensors)."""
+        self._replicas = {self.device: self._home}
+        self._built_unit_fns = None
+        _SEGMENT_CACHE.pop(self, None)
 
     # -- knobs ---------------------------------------------------------------
     @property
@@ -230,12 +352,37 @@ class InferenceAccuracyEvaluator:
 
     @property
     def devices(self) -> int:
-        return 1
+        """Slots the evaluation spreads over (see the constructor)."""
+        return self._scheduler.n_devices
 
     @devices.setter
     def devices(self, value):
-        if value not in (None, "auto", 1):
-            raise NotImplementedError(_DEVICES_TODO)
+        if isinstance(value, (list, tuple)):
+            self._pool = [indexed_device(d) for d in value]
+            sched = DeviceScheduler(self._pool)
+        else:
+            sched = DeviceScheduler("auto" if value is None else value,
+                                    pool=self._pool or self._local_pool())
+        old = self._scheduler
+        if old is not None and sched.devices == old.devices:
+            return                              # same pool, keep state
+        self._scheduler = sched
+        self._engine.scheduler = sched
+        if self._prefix_engine is not None:
+            # stored activations live on the old pool's devices
+            self._prefix_engine.scheduler = sched
+            self._prefix_engine.reset_placement()
+        self._drop_replicas()
+        if getattr(self, "_ebs_auto", False):
+            # the probed chunk was fitted to the old pool's budget
+            self.eval_batch_size = "auto"
+
+    def _local_pool(self) -> list[torch.device]:
+        """The default pool: the evaluator's device, then the host's other
+        cards in index order."""
+        if self.device.type != "cuda":
+            return [self.device]
+        return [self.device] + [d for d in local_devices() if d != self.device]
 
     @property
     def fuse_chains(self) -> bool:
@@ -270,8 +417,9 @@ class InferenceAccuracyEvaluator:
     @fault_backend.setter
     def fault_backend(self, value: str | None):
         """Switch the injection path (a cost decision: the backends are
-        value-identical); the path's unit and segment functions, cached
-        rows and stored activations are dropped."""
+        value-identical); the path's unit and segment functions, its copies
+        on other devices, cached rows and stored activations are
+        dropped."""
         if value in (None, "auto"):
             value = "tables" if self.weight_tables is not None else "generic"
         if value not in FAULT_BACKENDS:
@@ -283,8 +431,7 @@ class InferenceAccuracyEvaluator:
         if value == "tables" and self.weight_tables is None:
             raise ValueError("fault_backend='tables' needs weight_tables")
         self._fault_backend = value
-        self._built_unit_fns = None
-        _SEGMENT_CACHE.pop(self, None)
+        self._drop_replicas()
         self._engine._cache.clear()
         if self._prefix_engine is not None:
             self._prefix_engine.store.clear()
@@ -298,13 +445,13 @@ class InferenceAccuracyEvaluator:
 
     @device_fault_scale.setter
     def device_fault_scale(self, value):
-        """Refresh the fault environment.  Cached rows and stored
-        activations encode the old rates and are dropped.  The kernel
-        backend rebuilds nothing (its functions read the rate tensors at
-        call time); under generic and tables the unit and segment
-        functions, which hold the rates, are dropped, the tables too (the
-        backend degrades to generic), and ``_fault_env_rebuilds`` counts
-        it."""
+        """Refresh the fault environment: every replica's rate tensors.
+        Cached rows and stored activations encode the old rates and are
+        dropped.  The kernel backend rebuilds nothing (its functions read
+        the rate tensors at call time); under generic and tables the unit
+        and segment functions, which hold the rates, are dropped, the
+        tables too (the backend degrades to generic), and
+        ``_fault_env_rebuilds`` counts it."""
         value = np.asarray(value, np.float32)
         changed = (getattr(self, "_device_fault_scale", None) is not None
                    and not np.array_equal(self._device_fault_scale, value))
@@ -313,10 +460,8 @@ class InferenceAccuracyEvaluator:
             self.spec.weight_fault_rate * value, np.float32)
         self.a_rates_by_device = np.asarray(
             self.spec.act_fault_rate * value, np.float32)
-        self._w_dev = torch.as_tensor(self.w_rates_by_device,
-                                      device=self.device)
-        self._a_dev = torch.as_tensor(self.a_rates_by_device,
-                                      device=self.device)
+        for rep in self._replicas.values():
+            self._send_rates(rep)
         if not changed:
             return
         self._engine._cache.clear()
@@ -328,8 +473,6 @@ class InferenceAccuracyEvaluator:
         self.weight_tables = None
         if self._fault_backend == "tables":
             self._fault_backend = "generic"
-        self._built_unit_fns = None
-        _SEGMENT_CACHE.pop(self, None)
 
     # -- staged (prefix-reuse) machinery --------------------------------------
     def _ensure_prefix_engine(self) -> PrefixEvalEngine:
@@ -342,6 +485,7 @@ class InferenceAccuracyEvaluator:
                  for i in range(L)],
                 L, eval_batch_size=self._engine.eval_batch_size,
                 max_store_bytes=self.max_store_bytes,
+                scheduler=self._scheduler,
                 shared_fields=self.shared_carry_fields,
                 segment_fn=self._segment_dispatch if self._fuse_chains
                 else None, device=self.device)
@@ -350,73 +494,81 @@ class InferenceAccuracyEvaluator:
 
     def _unit_dispatch(self, i: int, acts, devs):
         """Engine unit callable: unit ``i`` over the fresh prefixes'
-        (parent activation, device) rows."""
+        (parent activation, device) rows, on the device ``devs`` is on."""
+        return self._unit_fns(devs.device)[i](acts, devs)
+
+    def _unit_fns(self, device: torch.device) -> list:
+        """The unit functions on ``device``, built at first use."""
         if self._built_unit_fns is None:
-            self._built_unit_fns = self._build_unit_fns()
-        return self._built_unit_fns[i](acts, devs)
+            self._built_unit_fns = {}
+        fns = self._built_unit_fns.get(device)
+        if fns is None:
+            fns = self._built_unit_fns[device] = \
+                self._build_unit_fns(self._replica(device))
+        return fns
 
     def _segment_dispatch(self, start: int, length: int) -> Callable:
         """Engine ``segment_fn``: the composed function of units
-        ``start..start+length-1``, built once per (start, length) and
-        kept in ``_SEGMENT_CACHE``."""
+        ``start..start+length-1`` on the device its genes are on."""
+        return lambda acts, genes: self._segment_fn(
+            genes.device, start, length)(acts, genes)
+
+    def _segment_fn(self, device: torch.device, start: int,
+                    length: int) -> Callable:
+        """Built once per (device, start, length), kept in
+        ``_SEGMENT_CACHE``."""
         cache = _SEGMENT_CACHE.get(self)
         if cache is None:
             cache = _SEGMENT_CACHE[self] = {}
-        fn = cache.get((start, length))
+        key = (device, start, length)
+        fn = cache.get(key)
         if fn is None:
-            fn = cache[(start, length)] = \
-                self._build_segment_fn(start, length)
+            fn = cache[key] = self._build_segment_fn(self._replica(device),
+                                                     start, length)
         return fn
 
-    def _generic_env(self) -> Callable[[], tuple]:
-        """The generic/tables environment: today's rate tensors, held by
-        the functions (a rate change drops them)."""
-        w, a, base = self._w_dev, self._a_dev, int(self.base_seed)
+    def _generic_env(self, rep: _Replica) -> Callable[[], tuple]:
+        """The generic/tables environment: the replica's rate tensors of
+        today, held by the functions (a rate change drops them)."""
+        w, a, base = rep.w_dev, rep.a_dev, int(self.base_seed)
         return lambda: (w, a, base)
 
-    def _build_unit_fns(self) -> list:
-        """One function per unit depth, ``fn(acts, devs [U])``: the
-        generic path, or the tables gather (``weight_tables``)."""
+    def _kernel_env_fn(self, rep: _Replica) -> Callable[[], tuple]:
+        """The kernel environment, read at call time through a weakref."""
+        return lambda r=weakref.ref(self), d=rep.device: _kernel_env(r, d)
+
+    def _build_unit_fns(self, rep: _Replica) -> list:
+        """One function per unit depth on ``rep``'s device, ``fn(acts, devs
+        [U])``: the generic path, the tables gather, or the kernel
+        backend's resident integer params."""
         if self._fault_backend == "kernel":
-            return self._build_unit_fns_kernel()
-        tables = self.weight_tables if self._fault_backend == "tables" \
-            else None
-        env = self._generic_env()
-        return [self._unit_fn(i, self._params, tables, env)
+            env, params, tables = self._kernel_env_fn(rep), rep.qparams, None
+        else:
+            env, params = self._generic_env(rep), rep.params
+            tables = rep.tables if self._fault_backend == "tables" else None
+        return [self._unit_fn(i, params, tables, rep, env)
                 for i in range(self._n_units)]
 
-    def _build_unit_fns_kernel(self) -> list:
-        """Unit functions of the kernel backend: the resident integer
-        params, the environment read at call time through a weakref."""
-        env = lambda r=weakref.ref(self): _kernel_env(r)   # noqa: E731
-        return [self._unit_fn(i, self._qparams, None, env)
-                for i in range(self._n_units)]
-
-    def _unit_fn(self, i, params, tables, env) -> Callable:
-        fn = _compose(self._step_fn, i, 1, params, tables, self._x,
-                      self.labels, env)
+    def _unit_fn(self, i, params, tables, rep, env) -> Callable:
+        fn = _compose(self._step_fn, i, 1, params, tables, rep.x, rep.labels,
+                      env)
         return lambda acts, devs, f=fn: f(acts, devs[:, None])
 
-    def _build_segment_fn(self, start: int, length: int) -> Callable:
-        """Units ``start..start+length-1`` composed (see ``_compose``).
-        Length-1 segments reuse the unit functions.  The result holds no
-        reference to ``self``: it lives in the weak-keyed cache."""
+    def _build_segment_fn(self, rep: _Replica, start: int,
+                          length: int) -> Callable:
+        """Units ``start..start+length-1`` composed (see ``_compose``) on
+        ``rep``'s device.  Length-1 segments reuse the unit functions.  The
+        result holds no reference to ``self``: it lives in the weak-keyed
+        cache."""
         if length == 1:
-            if self._built_unit_fns is None:
-                self._built_unit_fns = self._build_unit_fns()
-            unit = self._built_unit_fns[start]
+            unit = self._unit_fns(rep.device)[start]
             return lambda acts, genes, f=unit: f(acts, genes[:, 0])
         if self._fault_backend == "kernel":
-            return self._build_segment_fn_kernel(start, length)
-        tables = self.weight_tables if self._fault_backend == "tables" \
-            else None
-        return _compose(self._step_fn, start, length, self._params, tables,
-                        self._x, self.labels, self._generic_env())
-
-    def _build_segment_fn_kernel(self, start: int, length: int) -> Callable:
-        env = lambda r=weakref.ref(self): _kernel_env(r)   # noqa: E731
-        return _compose(self._step_fn, start, length, self._qparams, None,
-                        self._x, self.labels, env)
+            return _compose(self._step_fn, start, length, rep.qparams, None,
+                            rep.x, rep.labels, self._kernel_env_fn(rep))
+        tables = rep.tables if self._fault_backend == "tables" else None
+        return _compose(self._step_fn, start, length, rep.params, tables,
+                        rep.x, rep.labels, self._generic_env(rep))
 
     def staged_stats(self) -> dict:
         """Prefix-reuse accounting (unit runs, hits, evictions, ...)."""
@@ -429,11 +581,13 @@ class InferenceAccuracyEvaluator:
         """Resolve ``eval_batch_size="auto"``: run a 1-row and a 2-row
         whole-forward dispatch of the current backend, read the
         allocator's peak above what was allocated before each, and fit the
-        largest power-of-two chunk into the card's budget with the staged
-        store cap reserved.  The staged unit and segment calls touch less
-        than a whole forward per row, so the probe bounds them.  The row
-        cache, the store and the evaluator's counters are left as they
-        were.  Off the card the probe reads 0 and the result is None."""
+        largest power-of-two chunk into ONE slot's budget (the least over
+        the pool's devices of a device's budget over its slots) with the
+        staged store cap reserved in full.  The staged unit and segment
+        calls touch less than a whole forward per row, so the probe bounds
+        them.  The row cache, the store and the evaluator's counters are
+        left as they were.  Off the card the probe reads 0 and the result
+        is None."""
         L = self._n_units
         if not L:
             return None
@@ -441,32 +595,38 @@ class InferenceAccuracyEvaluator:
         readings = self.auto_probe_bytes = {}      # rows -> bytes, kept
 
         def probe(n: int) -> int:
-            rows = np.zeros((n, L), np.int64)
-            readings[n] = peak_memory_bytes(lambda: self._dispatch(rows),
-                                            self.device)
+            if n not in readings:
+                rows = np.zeros((n, L), np.int64)
+                readings[n] = peak_memory_bytes(
+                    lambda: self._dispatch(rows), self.device)
             return readings[n]
 
+        probe(1), probe(2)      # the budget below is read after the probes
+        slots = self._scheduler.devices
+        budget = min(device_memory_budget(n_devices=slots.count(d), device=d)
+                     for d in dict.fromkeys(slots))
         reserved = (self.max_store_bytes or 0) \
             if self._strategy == "staged" else 0
-        return auto_eval_batch_size(probe, reserved=reserved,
-                                    device=self.device)
+        return auto_eval_batch_size(probe, budget=budget, reserved=reserved)
 
     # -- fault state ----------------------------------------------------------
     def fault_table_bytes(self) -> int:
-        """Resident bytes of pre-corrupted weight tables (0 without)."""
-        if self.weight_tables is None:
-            return 0
+        """Resident bytes of pre-corrupted weight tables over every replica
+        (0 without)."""
         return sum(t.numel() * t.element_size()
-                   for unit in self.weight_tables
-                   for t in tree_leaves(unit))
+                   for rep in self._replicas.values() if rep.tables is not None
+                   for unit in rep.tables for t in tree_leaves(unit))
 
     def fault_state_bytes(self) -> int:
-        """Resident bytes of the backend's fault state: the integer copy
-        (``kernel``), the tables (``tables``) or 0 (``generic``)."""
+        """Resident bytes of the backend's fault state over every replica:
+        the integer copy (``kernel``), the tables (``tables``) or 0
+        (``generic``)."""
         if self._fault_backend == "kernel":
             from repro_torch.models.layers import QTensor
             return sum(q.qw.numel() * q.qw.element_size() + 4
-                       for unit in self._qparams for q in tree_leaves(unit)
+                       for rep in self._replicas.values()
+                       if rep.qparams is not None
+                       for unit in rep.qparams for q in tree_leaves(unit)
                        if isinstance(q, QTensor))
         return self.fault_table_bytes()
 
@@ -481,24 +641,28 @@ class InferenceAccuracyEvaluator:
 
     @torch.no_grad()
     @fp32_exact()
-    def _dispatch(self, rows: np.ndarray) -> torch.Tensor:
+    def _dispatch(self, rows: np.ndarray,
+                  device: torch.device | None = None) -> torch.Tensor:
         """``[U, L]`` device ids -> ``[U]`` faulty accuracies over the
-        whole forward (a device tensor; the engine syncs once per call)."""
+        whole forward, run on ``device`` (the evaluator's own when None);
+        a device tensor: the engine gathers once per call."""
         rows = np.asarray(rows, np.int64)
-        dev = self.device
-        AR = torch.as_tensor(self.a_rates_by_device[rows], device=dev)
+        dev = self.device if device is None else device
+        rep = self._replica(dev)
+        put = DeviceScheduler.put
+        AR = put(self.a_rates_by_device[rows], dev)
         seed = int(self.base_seed)
         if self._fault_backend == "tables":
-            idx = torch.as_tensor(rows, device=dev)
+            idx = put(rows, dev)
             gathered = [tree_map(lambda t, i=i: t[idx[:, i]], table)
-                        for i, table in enumerate(self.weight_tables)]
-            logits = self._apply_fn(gathered, self._x, None, AR, seed)
+                        for i, table in enumerate(rep.tables)]
+            logits = self._apply_fn(gathered, rep.x, None, AR, seed)
         else:
-            WR = torch.as_tensor(self.w_rates_by_device[rows], device=dev)
-            params = self._qparams if self._fault_backend == "kernel" \
-                else self._params
-            logits = self._apply_fn(params, self._x, WR, AR, seed)
-        return _accuracy(logits, self.labels)
+            WR = put(self.w_rates_by_device[rows], dev)
+            params = rep.qparams if self._fault_backend == "kernel" \
+                else rep.params
+            logits = self._apply_fn(params, rep.x, WR, AR, seed)
+        return _accuracy(logits, rep.labels)
 
     @torch.no_grad()
     @fp32_exact()
@@ -553,7 +717,7 @@ def make_lm_accuracy_evaluator(cfg, params, batch, labels, spec: FaultSpec,
                                eval_batch_size: int | str | None = None,
                                eval_strategy: str = "auto",
                                max_store_bytes: int | None = 256 << 20,
-                               devices: int | str | None = 1,
+                               devices: int | str | list | None = "auto",
                                fuse_chains: bool = True,
                                fault_backend: str | None = "auto",
                                device="cuda") -> InferenceAccuracyEvaluator:

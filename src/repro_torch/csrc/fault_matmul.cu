@@ -143,6 +143,27 @@
 
 namespace {
 
+// cudaFuncSetAttribute sets a kernel's attribute on the CURRENT card only,
+// so each kernel that asks for more than 48 KB of dynamic shared memory
+// keeps one flag a card (the wrappers launch with the tensors' card
+// current).  `card` returns the current card.
+constexpr int MAX_CARDS = 64;
+
+template <typename Kernel>
+cudaError_t smem_attr(Kernel* kernel, int bytes, bool (&set)[MAX_CARDS],
+                      int* card) {
+  cudaError_t err = cudaGetDevice(card);
+  if (err != cudaSuccess) return err;
+  if (*card < 0 || *card >= MAX_CARDS) return cudaErrorInvalidDevice;
+  if (!set[*card]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    set[*card] = true;
+  }
+  return cudaSuccess;
+}
+
 // ---------------------------------------------------------------------
 // SIMT body (int16, int32)
 namespace simt {
@@ -633,13 +654,11 @@ cudaError_t launch(const float* x, const int8_t* qw, float* dst,
                    int K, int N, int splits, int k_chunk, uint32_t seed,
                    int faulty_bits, int mbu_width, cudaStream_t s) {
   constexpr int smem = SMEM_BYTES<BN>;
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel<BN, MODEL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
+  static bool attr_set[MAX_CARDS] = {};
+  int card;
+  const cudaError_t err =
+      smem_attr(kernel<BN, MODEL>, smem, attr_set, &card);
+  if (err != cudaSuccess) return err;
   const bool x_vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, rows * splits);
   kernel<BN, MODEL><<<grid, THREADS, smem, s>>>(
@@ -1011,27 +1030,31 @@ cudaError_t encode_map(CUtensorMap* map, const void* p, cuuint32_t rank,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The last map encoded for an operand, reused while its pointer and shape
-// repeat (the W' workspace call after call): encoding is host work on
-// every call otherwise.  The shape fixes the strides and the box (each
-// cache serves one operand of one kernel, so one type and swizzle).
+// The last map encoded for an operand, reused while its card, pointer and
+// shape repeat (the W' workspace call after call): encoding is host work
+// on every call otherwise.  The shape fixes the strides and the box (each
+// cache serves one operand of one kernel, so one type and swizzle); the
+// card keeps a map made for one card's allocation from another card's
+// launch, should an address be reused across cards.
 struct MapCache {
+  int card = -1;
   const void* p = nullptr;
   cuuint64_t dims[5] = {};
   CUtensorMap map;
 };
 
-cudaError_t cached_map(MapCache& c, const void* p, cuuint32_t rank,
-                       const cuuint64_t* dims, const cuuint64_t* strides,
+cudaError_t cached_map(MapCache& c, int card, const void* p,
+                       cuuint32_t rank, const cuuint64_t* dims, const cuuint64_t* strides,
                        const cuuint32_t* box, CUtensorMapSwizzle swizzle,
                        CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
-  bool same = c.p == p;
+  bool same = c.card == card && c.p == p;
   for (cuuint32_t i = 0; i < rank; ++i) same = same && c.dims[i] == dims[i];
   if (same) return cudaSuccess;
   c.p = nullptr;
   const cudaError_t err = encode_map(&c.map, p, rank, dims, strides, box,
                                      swizzle, type);
   if (err != cudaSuccess) return err;
+  c.card = card;
   c.p = p;
   for (cuuint32_t i = 0; i < rank; ++i) c.dims[i] = dims[i];
   return cudaSuccess;
@@ -1041,13 +1064,10 @@ cudaError_t launch_product(const __nv_bfloat16* x, const __nv_bfloat16* tiles,
                            void* dst, int rows, int M, int K, int N, int nK,
                            int64_t row_elems, int k_tiles, int splits,
                            cudaStream_t s) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        product_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
+  static bool attr_set[MAX_CARDS] = {};
+  int card;
+  cudaError_t err = smem_attr(product_kernel, SMEM, attr_set, &card);
+  if (err != cudaSuccess) return err;
   const int nN = (N + TILE_N - 1) / TILE_N;
   // W' as dims (256-byte line, line of a tile, panel, k-tile, row): the box
   // {128, 16, 2, KS, 1} lands k-step major, the two panels side by side
@@ -1059,8 +1079,8 @@ cudaError_t launch_product(const __nv_bfloat16* x, const __nv_bfloat16* tiles,
       256, static_cast<cuuint64_t>(nK) * TILE_BYTES, TILE_BYTES,
       static_cast<cuuint64_t>(row_elems) * 2};
   const cuuint32_t w_box[5] = {128, 16, 2, KS, 1};
-  cudaError_t err = cached_map(w_cache, tiles, 5, w_dims, w_strides, w_box,
-                               CU_TENSOR_MAP_SWIZZLE_NONE);
+  err = cached_map(w_cache, card, tiles, 5, w_dims, w_strides, w_box,
+                   CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err != cudaSuccess) return err;
   // x as [rows, M, K] in [BM, 64] boxes, 128B swizzle, where its rows are
   // 16-byte multiples and it is 16-byte aligned; else the producer loads it
@@ -1072,7 +1092,7 @@ cudaError_t launch_product(const __nv_bfloat16* x, const __nv_bfloat16* tiles,
     const cuuint64_t x_strides[2] = {static_cast<cuuint64_t>(K) * 2,
                                      static_cast<cuuint64_t>(M) * K * 2};
     const cuuint32_t x_box[3] = {KS * BK, BM, 1};
-    err = cached_map(x_cache, x, 3, x_dims, x_strides, x_box,
+    err = cached_map(x_cache, card, x, 3, x_dims, x_strides, x_box,
                      CU_TENSOR_MAP_SWIZZLE_128B);
     if (err != cudaSuccess) return err;
   }
@@ -1279,13 +1299,10 @@ cudaError_t launch_product(const float* x, const __nv_bfloat16* tiles,
                            float* dst, int rows, int M, int K, int N, int nK,
                            int64_t row_elems, int k_tiles, int splits,
                            cudaStream_t s) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        product_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
+  static bool attr_set[MAX_CARDS] = {};
+  int card;
+  cudaError_t err = smem_attr(product_kernel, SMEM, attr_set, &card);
+  if (err != cudaSuccess) return err;
   // x as [rows, M, K] float32 in [BM, 32] boxes, 128B swizzle, where its
   // rows are 16-byte multiples and it is 16-byte aligned; else the
   // producer loads it
@@ -1299,8 +1316,8 @@ cudaError_t launch_product(const float* x, const __nv_bfloat16* tiles,
     const cuuint64_t x_strides[2] = {static_cast<cuuint64_t>(K) * 4,
                                      static_cast<cuuint64_t>(M) * K * 4};
     const cuuint32_t x_box[3] = {32, BM, 1};
-    const cudaError_t err = bfp::cached_map(
-        x_cache, x, 3, x_dims, x_strides, x_box, CU_TENSOR_MAP_SWIZZLE_128B,
+    err = bfp::cached_map(
+        x_cache, card, x, 3, x_dims, x_strides, x_box, CU_TENSOR_MAP_SWIZZLE_128B,
         CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
     if (err != cudaSuccess) return err;
   }

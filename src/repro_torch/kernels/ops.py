@@ -111,14 +111,20 @@ def _model_id(fault_model: str, faulty_bits: int) -> int:
     return MODEL_IDS[fault_model]
 
 
-def _launch(fn: str, *args):
-    err = _entry(fn)(*args)
+def _launch(fn: str, device: torch.device, *args):
+    """Call C entry ``fn`` with ``args`` and ``device``'s current stream,
+    with ``device`` the current card: a launch, a stream and the kernels'
+    shared-memory attributes all belong to the current card.  The card is
+    switched only when it differs (one card: never)."""
+    f = _entry(fn)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index == torch.cuda.current_device():
+        err = f(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = f(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn} failed: cudaError_t {err}")
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 @functools.lru_cache(maxsize=None)
@@ -201,11 +207,11 @@ def bitflip(q: torch.Tensor, seed, rate, faulty_bits: int, *,
     out = torch.empty((rates.numel(), *q.shape),
                       dtype=q.dtype if scale is None else dtype,
                       device=q.device)
-    _launch("afp_bitflip", q.data_ptr(), out.data_ptr(), rates.data_ptr(),
-            scale_ptr, q.numel(), rates.numel(), _INT_BYTES[q.dtype],
-            _model_id(fault_model, faulty_bits), seed_u32(seed), faulty_bits,
-            mbu_width, int(scale is not None and dtype == torch.bfloat16),
-            _stream(q.device))
+    _launch("afp_bitflip", q.device, q.data_ptr(), out.data_ptr(),
+            rates.data_ptr(), scale_ptr, q.numel(), rates.numel(),
+            _INT_BYTES[q.dtype], _model_id(fault_model, faulty_bits),
+            seed_u32(seed), faulty_bits, mbu_width,
+            int(scale is not None and dtype == torch.bfloat16))
     launches["bitflip"] += 1
     return out if per_row else out[0]
 
@@ -309,9 +315,9 @@ def _qb_launch(xs, seeds, rates, faulty_bits, spec, model_id, mbu_width):
         blocks += R * chunks
     if table:
         partials = torch.empty(blocks, dtype=torch.float32, device=dev)
-        _launch("afp_quant_bitflip_group", b"".join(table), len(table),
+        _launch("afp_quant_bitflip_group", dev, b"".join(table), len(table),
                 partials.data_ptr(), blocks, model_id, spec.qmin, spec.qmax,
-                faulty_bits, mbu_width, _stream(dev))
+                faulty_bits, mbu_width)
         launches["quant_bitflip"] += 2
     return outs
 
@@ -322,10 +328,10 @@ def _hash_launch(qw, out, scale_t, rates, seed, faulty_bits, model_id,
     ``out`` (checked by the caller)."""
     rows = rates.numel() if rows is None else rows
     K, N = qw.shape
-    _launch("afp_fault_weight_tiles", qw.data_ptr(), out.data_ptr(),
-            scale_t.data_ptr(), rates.data_ptr() + 4 * r0, rows, K, N,
+    _launch("afp_fault_weight_tiles", qw.device, qw.data_ptr(),
+            out.data_ptr(), scale_t.data_ptr(), rates.data_ptr() + 4 * r0, rows, K, N,
             _INT_BYTES[qw.dtype], model_id, seed_u32(seed), faulty_bits,
-            mbu_width, _stream(qw.device))
+            mbu_width)
     launches["fault_weight_tiles"] += 1
 
 
@@ -334,16 +340,16 @@ def _product_launch(x_ptr, tiles, out_ptr, rows, M, K, N, splits,
     """The product of ``rows`` rows of bf16 x at ``x_ptr`` by their W'
     tiles into ``out_ptr`` (checked by the caller); ``partial_ptr`` is the
     split-K workspace, 0 for one slice."""
-    _launch("afp_matmul_tiles", x_ptr, tiles.data_ptr(), out_ptr,
-            partial_ptr, rows, M, K, N, splits, _stream(tiles.device))
+    _launch("afp_matmul_tiles", tiles.device, x_ptr, tiles.data_ptr(),
+            out_ptr, partial_ptr, rows, M, K, N, splits)
     launches["matmul_tiles"] += 1
 
 
 def _product_f32_launch(x_ptr, tiles, out_ptr, rows, M, K, N, splits,
                         partial_ptr):
     """``_product_launch`` for float32 x (float32 out)."""
-    _launch("afp_matmul_tiles_f32", x_ptr, tiles.data_ptr(), out_ptr,
-            partial_ptr, rows, M, K, N, splits, _stream(tiles.device))
+    _launch("afp_matmul_tiles_f32", tiles.device, x_ptr, tiles.data_ptr(),
+            out_ptr, partial_ptr, rows, M, K, N, splits)
     launches["matmul_tiles_f32"] += 1
 
 
@@ -509,11 +515,11 @@ def fault_matmul(x: torch.Tensor, qw: torch.Tensor, scale, seed, rate,
                           else (0,), dtype=torch.float32, device=x.device)
     for r0 in range(0, R, step):
         rows = min(step, R - r0)
-        _launch("afp_fault_matmul", x.data_ptr() + r0 * M * K * 4,
+        _launch("afp_fault_matmul", x.device, x.data_ptr() + r0 * M * K * 4,
                 qw.data_ptr(), out.data_ptr() + r0 * M * N * 4,
                 partial.data_ptr(), scale_t.data_ptr(),
                 rates.data_ptr() + r0 * 4, rows, M, K, N, splits,
                 _INT_BYTES[qw.dtype], model_id, seed_u32(seed), faulty_bits,
-                mbu_width, _stream(x.device))
+                mbu_width)
         launches["fault_matmul"] += 1
     return out

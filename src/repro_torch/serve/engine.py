@@ -63,13 +63,6 @@ class ServeConfig:
                                     # own ΔAcc x (1 + margin) — anti-thrash
     pipeline_stages: int | None = None    # record swap migration cost if set
 
-    def __post_init__(self):
-        if self.pipeline_stages:
-            raise NotImplementedError(
-                "ServeConfig.pipeline_stages records a swap's pipeline "
-                "migration, which needs the launch/ package: ROADMAP.md "
-                "Queue A item 14")
-
 
 @dataclasses.dataclass
 class Request:
@@ -276,6 +269,10 @@ class Engine:
               "new_partition": self._partition.copy(),
               "migrated_layers": (0 if old is None
                                   else int((old != self._partition).sum()))}
+        if self.scfg.pipeline_stages and old is not None:
+            from repro_torch.launch.pipeline import swap_migration
+            ev["migration"] = swap_migration(
+                old, self._partition, self.cfg, self.scfg.pipeline_stages)
         self.swap_events.append(ev)
         self._swap_stall_s += stall
         self._max_swap_stall_s = max(self._max_swap_stall_s, stall)

@@ -920,3 +920,69 @@ def test_trainer_restart_is_bit_identical_on_card(dev, tmp_path):
     for a, b in zip(tree_leaves((full.params, full.opt_state)),
                     tree_leaves((t2.params, t2.opt_state))):
         assert a.is_cuda and _same_bits(a, b)
+
+
+# --------------------------------------------------------------------------
+# the kernels on any card, and a pool of slots on one card
+# --------------------------------------------------------------------------
+def test_kernels_on_a_second_card_while_the_first_is_current(dev):
+    """Each kernel launched on cuda:1 while cuda:0 is the current card
+    equals its plain version, and leaves cuda:0 current.  The shared-memory
+    attribute of fault_matmul's three tensor-core kernels is set once per
+    card, so their first launch there is the one this checks."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: a launch on a card that is not the "
+                    "current one cannot be staged on a one-card host")
+    torch.cuda.set_device(0)
+    d1 = torch.device("cuda", 1)
+    g = torch.Generator(device=d1).manual_seed(5)
+    rates = torch.tensor([0.0, 0.2], device=d1)
+    q = torch.randint(-100, 100, (33, 17, 3), dtype=torch.int8, device=d1)
+    assert _same_bits(ops.bitflip(q, 3, rates, 4),
+                      ref.bitflip_ref(q, 3, rates, 4))
+    x = torch.randn(2, 5, 31, 33, device=d1, generator=g).to(torch.bfloat16)
+    assert _same_bits(ops.quant_bitflip(x, 9, rates, 4, QuantSpec(8)),
+                      ref.quant_bitflip_ref(x, 9, rates, 4, QuantSpec(8)))
+    # fault_matmul's three tensor-core routes at x = I_K: float32 x on int8
+    # (wgmma), bf16 x (the hash pass and the bf16 product), float32 x on a
+    # bf16 weight dtype (the hash pass and the float32 product)
+    K, N = 256, 320
+    qw = torch.randint(-127, 128, (K, N), dtype=torch.int8, device=d1)
+    scale = torch.tensor(0.0123, device=d1)
+    bf = torch.bfloat16
+    w = ref.bitflip_ref(qw, 5, rates, 6, scale=scale)
+    eye = torch.eye(K, device=d1).expand(2, K, K).contiguous()
+    assert _same_bits(ops.fault_matmul(eye, qw, scale, 5, rates, 6), w)
+    assert _same_bits(ops.fault_matmul(eye.to(bf), qw, scale, 5, rates, 6),
+                      w.to(bf))
+    assert _same_bits(ops.fault_matmul(eye, qw, scale, 5, rates, 6,
+                                       out_dtype=bf), w.to(bf).float())
+    torch.cuda.synchronize(d1)
+    assert torch.cuda.current_device() == 0
+
+
+def test_pool_of_two_slots_on_one_card_bitwise(dev):
+    """A ``[cuda:0, cuda:0]`` pool gives every row's ΔAcc bitwise what one
+    slot gives, staged and full, on a small ResNet18 under the kernel
+    backend; both slots run and one copy of the weights serves them."""
+    from repro_torch.cnn_setup import clean_argmax_labels, make_evaluator
+    from repro_torch.core import FaultSpec
+    from repro_torch.models.cnn import ResNet18
+    params = ResNet18.init(11, 16, width=0.5, img=32, device=dev)
+    labels = clean_argmax_labels("resnet18", params, 64, device=dev)
+    spec = FaultSpec(weight_fault_rate=0.2, act_fault_rate=0.2,
+                     faulty_bits=4, bits=8)
+    P = np.random.default_rng(3).integers(0, 2, size=(12, ResNet18.n_units))
+    card = torch.device("cuda", torch.cuda.current_device())
+    for strategy in ("staged", "full"):
+        kw = dict(n_eval=64, labels=labels, eval_strategy=strategy,
+                  eval_batch_size=None, device=dev)
+        one = make_evaluator("resnet18", params, spec, devices=1, **kw)
+        two = make_evaluator("resnet18", params, spec,
+                             devices=[card, card], **kw)
+        assert two.devices == 2
+        np.testing.assert_array_equal(two.delta_acc(P), one.delta_acc(P))
+        assert list(two._replicas) == [card]
+        if strategy == "staged":
+            dd = two.staged_stats()["device_dispatches"]
+            assert set(dd) == {0, 1}

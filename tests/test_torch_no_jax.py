@@ -45,7 +45,9 @@ def test_scan_sees_every_kernel_source_module():
             "base.py", "olmo_1b.py", "runtime.py", "engine.py",
             "kvcache.py", "monitor.py", "quant_cost.py", "optimizer.py",
             "train_step.py", "trainer.py", "compression.py", "ckpt.py",
-            "train_lm.py"} <= names
+            "train_lm.py", "mesh.py", "pipeline.py"} <= names
+    assert (ROOT / "src" / "repro_torch" / "launch" / "__init__.py") \
+        in PORT_FILES
 
 
 def test_entry_points_refuse_cuda_without_a_card(monkeypatch):

@@ -146,14 +146,12 @@ def test_kernel_backend_hot_swap(setups):
 
 
 def test_unported_paths_raise(setups):
-    """Multi-GPU scheduling (Queue A item 9) is still to be ported; the
-    staged strategy is ported and needs the per-unit ``step_fn``."""
+    """The staged strategy needs the per-unit ``step_fn``; the reference's
+    ``"pallas"`` backend is the port's ``"kernel"``."""
     _, port, _ = setups["alexnet"]
     ev = port["generic"]
     with pytest.raises(ValueError, match="needs step_fn"):
         ev.eval_strategy = "staged"
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        ev.devices = 2
     with pytest.raises(ValueError):
         ev.fault_backend = "pallas"
 

@@ -147,14 +147,14 @@ def _captured(monkeypatch):
     """Launches recorded instead of run: (entries, partials numel, args)."""
     calls = []
 
-    def fake_launch(fn, table, count, partials_ptr, total, *args):
+    def fake_launch(fn, device, table, count, partials_ptr, total, *args):
         assert fn == "afp_quant_bitflip_group"
+        assert device.type == "cpu"          # the group's tensors' device
         entries = [ops._QB_ENTRY.unpack_from(table, i * ops._QB_ENTRY.size)
                    for i in range(count)]
         calls.append((entries, total, args))
 
     monkeypatch.setattr(ops, "_launch", fake_launch)
-    monkeypatch.setattr(ops, "_stream", lambda dev: 0)
     monkeypatch.setattr(ops, "_is_cuda", lambda t: True)
     return calls
 

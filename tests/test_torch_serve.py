@@ -327,9 +327,49 @@ def test_slo_accounting():
     assert s["dropped"] == 0 and s["ttft_s_mean"] > 0
 
 
-def test_pipeline_stages_needs_launch():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tserve.ServeConfig(pipeline_stages=2)
+def test_pipeline_stages_records_swap_migration():
+    """``ServeConfig(pipeline_stages=2)``: each hot swap after the first
+    records which layer groups change pipeline stage, as the reference's
+    engine does, on a 4-layer reduced olmo-1b serving the same trace."""
+    import dataclasses
+
+    swaps = [np.zeros(4, np.int64), np.array([0, 0, 0, 1]),
+             np.array([0, 1, 1, 1])]
+    events = {}
+    for side in SIDES:
+        _, _, lib = lm(side)
+        if side == "ref":
+            cfg = dataclasses.replace(jget("olmo-1b").reduced(), n_layers=4)
+            params = JT.init_lm(cfg, jax.random.PRNGKey(1))
+        else:
+            cfg = dataclasses.replace(get_config("olmo-1b").reduced(),
+                                      n_layers=4)
+            params = convert.params_from_jax(
+                jax.tree.map(np.asarray, JT.init_lm(
+                    dataclasses.replace(jget("olmo-1b").reduced(),
+                                        n_layers=4),
+                    jax.random.PRNGKey(1))), device="cpu")
+
+        def zero_rates(partition, scales):
+            z = np.zeros(4, np.float32)
+            return z, z
+
+        eng = lib.serve.Engine(
+            cfg, params, lib.serve.ServeConfig(max_batch=2, max_len=32,
+                                               pipeline_stages=2),
+            partition_to_rates=zero_rates)
+        for r in _mk_reqs(lib.serve, cfg, [4, 6], [6, 6], seed=12):
+            eng.submit(r)
+        for part in swaps:
+            eng.apply_partition(part)
+            eng.step()
+        eng.run()
+        events[side] = eng.swap_events
+    for side in SIDES:
+        assert "migration" not in events[side][0]
+    got = [e["migration"] for e in events["port"][1:]]
+    assert got == [e["migration"] for e in events["ref"][1:]]
+    assert [m["migrated_groups"] for m in got] == [1, 2]
 
 
 def test_sharded_cache_specs_need_launch():
