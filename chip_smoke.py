@@ -245,6 +245,38 @@ Phases (any failure raises, and the process exits nonzero):
      slot are bitwise the one-slot run's and every row within 1/n_eval.
      d: with two cards or more, b's searches on ``devices="auto"``;
      otherwise one line says the host has one card.
+ 16. The launch stack (``repro_torch.launch``), run last.  a: olmo-1b at
+     its published widths and depth (bf16) through
+     ``steps.abstract_pp_train_step`` on a ``(pod=4, data=1, model=1)``
+     mesh of four slots of the card, the pipeline cut by phase 9's
+     ``lm_partitioner`` plan over ``POD_TIERS_4`` (``contiguous_stages``
+     -> ``group_cuts``), phase 14's first ``TokenStream`` batch of 8 x 256
+     in 4 microbatches, ``PP_STEPS`` steps of GPipe and AdamW; it prints
+     the cuts and stage lengths, the first loss beside ``make_loss_fn``'s
+     on the same params and batch (it fails beyond 2^-8 of the loss: both
+     run the same bf16 ops a row, but cuBLAS may pick another algorithm
+     for 2 rows than for 8), the losses (the last must be below the
+     first), the step walls, tokens a second, the allocator's peak, the
+     host waits a step (limit 1, sync debug mode), ``model_flops /
+     (wall x 989 TFLOP/s)`` (``launch/roofline.py``) and the port kernels
+     launched over the steps (it fails unless none: training with faults
+     is ROADMAP item 13b).  b: olmo-1b prefilled
+     (8 prompts of 64) by ``abstract_serve_prefill`` and decoded
+     ``SHARD_STEPS`` faulted steps (phase 13's regime: 16 bits, 4 faulty,
+     rates 0.2 x the tier scale of the plan's layers, a grouped
+     ``quant_bitflip`` pair a layer) by ``abstract_serve_decode`` with
+     every attention cache's 128 slots split over four slots of the card
+     (``data=1, model=4``), beside the unsharded ``decode_step``: the
+     prefill's logits bitwise, the greedy tokens equal on every step, the
+     logits within 2^-5 of the largest (the shards' partials are summed in
+     another order, and a bf16 rounding or a 16-bit grid step may move),
+     and ``2 n_layers`` ``quant_bitflip`` kernels a sharded step; the step
+     walls print.  c: ``train.compression.compress_psum`` over four slots
+     of the card, slot ``s`` holding the first layer group's gradient of
+     16a's stage ``s``, three calls (the error feedback carries), every
+     mean and residual bitwise the same call on the host.  d: ``python -m
+     repro_torch.launch.train --arch olmo-1b --steps 10 --device cuda``
+     (the reduced config): its loss falls.
 The lines before the last are the ``{"kernels": [...]}`` record, one
 entry a kernel wrapper, each counting its own launches (``ops.launches``):
 ``launches`` are those of the kernel's main path, the CNN staged search of
@@ -263,7 +295,11 @@ launches are its calls' row groups: one hash pass, counted under
 ``reconfig_launches`` phase 12's drained re-optimization,
 ``serve_launches`` phase 13's trace, ``train_probe_launches`` phase
 14c's staged search, ``pool_launches`` phase 15b's staged search on four
-slots (the CNN's for its kernels, olmo-1b's for the LM's); ``lm_shapes`` the LM shapes of
+slots (the CNN's for its kernels, olmo-1b's for the LM's),
+``pp_launches`` phase 16a's pipelined steps (counted over its steps; the
+phase fails unless every count is 0: the training step runs no port
+kernel), ``shard_decode_launches`` phase 16b's sharded decode steps
+(counted over those steps alone, not the unsharded ones beside them); ``lm_shapes`` the LM shapes of
 phase 3 and ``decode_shapes`` phase 13's, its last row one decode layer
 as one group.  Then come the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -608,7 +644,7 @@ RECORD_KEYS = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
                "seamless_full_launches", "seamless_candidate_ms",
                "seamless_candidate_launches", "reconfig_launches",
                "decode_shapes", "serve_launches", "train_probe_launches",
-               "pool_launches")
+               "pool_launches", "pp_launches", "shard_decode_launches")
 
 
 # fault_matmul on bf16 x at olmo-1b's projections, M = B S = 2048:
@@ -3204,6 +3240,290 @@ def pool_phase_lm(dev, records, ctx):
                 torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------
+# phase 16: the launch stack
+# --------------------------------------------------------------------------
+PP_STAGES, PP_MICRO, PP_STEPS = 4, 4, 5     # 16a: 4 stages, GPipe
+SHARDS, SHARD_PROMPT, SHARD_STEPS, SHARD_LEN = 4, 64, 8, 128   # 16b
+PSUM_CALLS = 3                                # 16c
+
+
+def pipeline_stage(dev, records, partition, cfg, B, S, vocab, steps):
+    """Phase 16a: olmo-1b's pipelined train step over ``PP_STAGES`` slots of
+    the card, cut by phase 9's AFarePart plan.  Returns one layer group's
+    gradient from each stage (16c's input)."""
+    from repro_torch.core.partitioner import contiguous_stages
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import pipeline as pp
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.roofline import PEAK_FLOPS, model_flops
+    from repro_torch.launch.steps import abstract_pp_train_step
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train import AdamWConfig
+    from repro_torch.train.train_step import (_value_and_grad,
+                                              init_train_state, make_loss_fn)
+
+    on_card = dev.type == "cuda"
+    mesh = make_test_mesh((PP_STAGES, 1, 1), ("pod", "data", "model"),
+                          pool=[dev] * PP_STAGES)
+    shape = ShapeSpec("pp", seq_len=S, global_batch=B, kind="train")
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=steps)
+    fn, (pp_s, _, _) = abstract_pp_train_step(
+        cfg, mesh, shape, opt, n_micro=PP_MICRO, partition=partition)
+    layer_cuts = contiguous_stages(np.asarray(partition), PP_STAGES)
+    lens = [fn.cuts[i + 1] - fn.cuts[i] for i in range(PP_STAGES)]
+    data = next(TokenStream(vocab=vocab, seq_len=S, batch=B, seed=0))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    params = init_lm(cfg, seed=0, device=dev)
+    with torch.no_grad():
+        ref = make_loss_fn(cfg, remat=False)(params, batch).item()
+    placed = pp.place_pp_params(pp.to_pp(params, fn.cuts), mesh)
+    del params
+    gc.collect()
+    state = init_train_state(cfg, placed, opt)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    hist, walls, waits = [], [], 0
+    ops.reset_launches()
+    for i in range(steps):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if on_card and i:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                placed, state, m = fn(placed, state, batch)
+                keys = list(m)
+                vals = torch.stack([m[k].to(torch.float32).to(dev)
+                                    for k in keys]).tolist()
+                walls.append(time.perf_counter() - t0)
+            finally:
+                if on_card:
+                    torch.cuda.set_sync_debug_mode("default")
+        if i:
+            waits += sum("called a synchronizing" in str(w.message)
+                         for w in caught)
+        hist.append(dict(zip(keys, vals)))
+    launched = {k: launch_counts()[k] for k in records}
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    first = hist[0]["loss"]
+    diff = abs(first - ref)
+    bound = 2.0 ** -8 * abs(ref)
+    med = float(np.median(walls[1:]))
+    mfu = model_flops(cfg, shape) / (med * PEAK_FLOPS)
+    bubble = (PP_STAGES - 1) / (PP_MICRO + PP_STAGES - 1)
+    log(f"phase16a {cfg.name} pipelined: P={''.join(map(str, partition))} -> "
+        f"layer cuts {list(layer_cuts)} -> group cuts {fn.cuts}, stage "
+        f"lengths {lens} on {PP_STAGES} slots of {dev}; {B}x{S} tokens in "
+        f"{PP_MICRO} microbatches ({PP_MICRO + PP_STAGES - 1} ticks, bubble "
+        f"share {bubble:.4f})")
+    log(f"phase16a first loss {first:.6f} against make_loss_fn's {ref:.6f} "
+        f"on the same params and batch: |diff| {diff:.6f} (bound "
+        f"2^-8 |loss| = {bound:.6f}); losses "
+        f"{[round(h['loss'], 4) for h in hist]}; step walls "
+        f"{[round(1e3 * w, 3) for w in walls]} ms, median after the first "
+        f"{1e3 * med:.3f} ms, {B * S / med:.0f} tokens/s; "
+        f"max_memory_allocated {peak}; host waits {waits} in {steps - 1} "
+        f"steps; model_flops / (wall x {PEAK_FLOPS:.3g}) = {mfu:.4f}; "
+        f"port kernel launches in the {steps} steps "
+        f"{launched}")
+    problems = []
+    if not np.isfinite([h["loss"] for h in hist]).all():
+        problems.append("a non-finite loss")
+    if diff > bound:
+        problems.append(f"first loss {first} off make_loss_fn's {ref} by "
+                        f"{diff} > {bound}")
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        problems.append("the loss did not fall over the steps")
+    if on_card and waits > steps - 1:
+        problems.append(f"{waits} host waits in {steps - 1} steps")
+    # training with faults is ROADMAP item 13b: the step launches no kernel
+    if any(launched.values()):
+        problems.append(f"the pipelined steps launched port kernels "
+                        f"{launched}")
+    if problems:
+        raise AssertionError("phase16a: " + "; ".join(problems))
+    for name, r in records.items():
+        r["pp_launches"] = launched[name]
+    loss_fn = pp.make_pp_loss(cfg, mesh, fn.cuts, PP_MICRO)
+    _, grads = _value_and_grad(loss_fn, placed, batch)
+    del placed, state, loss_fn
+    group = [_first_group(g) for g in grads["stages"]]
+    del grads
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    ops.reset_launches()
+    return group
+
+
+def _first_group(stage_tree):
+    """A stage's first layer group's leaves, ``{path: tensor}`` (copies)."""
+    from repro_torch._tree import tree_flatten_with_path
+    return {"/".join(map(str, p)): t[0, 0].clone()
+            for p, t in tree_flatten_with_path(stage_tree)[0]}
+
+
+def psum_stage(dev, group):
+    """Phase 16c: ``compress_psum`` over one slot a stage on the card,
+    ``PSUM_CALLS`` calls (the error feedback carries), each bitwise the same
+    call on the host."""
+    from repro_torch.train.compression import compress_psum, \
+        init_error_feedback
+
+    on_card = dev.type == "cuda"
+    err = [init_error_feedback(g) for g in group]
+    host = [{k: v.cpu() for k, v in g.items()} for g in group]
+    herr = [init_error_feedback(g) for g in host]
+    n_el = sum(v.numel() for v in group[0].values())
+    bad, walls = 0, []
+    for call in range(PSUM_CALLS):
+        # another gradient a call: the stage's, scaled
+        gs = [{k: v * (call + 1) for k, v in g.items()} for g in group]
+        hs = [{k: v * (call + 1) for k, v in g.items()} for g in host]
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean, err = compress_psum(gs, err)
+        if on_card:
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        hmean, herr = compress_psum(hs, herr)
+        for i in range(len(group)):
+            for k in group[i]:
+                bad += not bits_equal(mean[i][k].cpu(), hmean[i][k])
+                bad += not bits_equal(err[i][k].cpu(), herr[i][k])
+    log(f"phase16c compress_psum over {len(group)} slots of {dev}, one layer "
+        f"group's gradients a slot ({len(group[0])} leaves, {n_el} elements "
+        f"each), {PSUM_CALLS} calls: walls {[round(1e3 * w, 3) for w in walls]}"
+        f" ms; {bad} tensors differ from the host's")
+    if bad:
+        raise AssertionError(f"phase16c: {bad} tensors of compress_psum "
+                             f"differ between the card and the host")
+
+
+def sharded_decode_stage(dev, records, partition, cfg, B=SERVE_BATCH,
+                         prompt=SHARD_PROMPT, steps=SHARD_STEPS,
+                         max_len=SHARD_LEN):
+    """Phase 16b: olmo-1b prefilled by ``abstract_serve_prefill`` and
+    decoded ``steps`` faulted steps by ``abstract_serve_decode`` with every
+    attention cache's sequence axis over ``SHARDS`` slots of the card
+    (data=1, model=SHARDS), against the unsharded ``decode_step``."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core import POD_TIERS_4
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import (abstract_serve_decode,
+                                          abstract_serve_prefill)
+    from repro_torch.models.transformer import decode_step, init_lm, prefill
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    mesh = make_test_mesh((1, SHARDS), pool=[dev] * SHARDS)
+    pfn, _ = abstract_serve_prefill(cfg, mesh, ShapeSpec(
+        "p", seq_len=max_len, global_batch=B, kind="prefill"))
+    dfn, _ = abstract_serve_decode(cfg, mesh, ShapeSpec(
+        "d", seq_len=max_len, global_batch=B, kind="decode"))
+    params = init_lm(cfg, seed=0, device=dev)
+    toks = np.random.default_rng(7).integers(0, cfg.vocab, (B, prompt))
+    batch = {"tokens": torch.from_numpy(toks.astype(np.int32)).to(dev)}
+    scale = np.array([d.fault_scale for d in POD_TIERS_4], np.float32)
+    w = torch.from_numpy(0.2 * scale[np.asarray(partition)]).to(dev)
+    with torch.no_grad():
+        last, shards = pfn(params, batch)
+        logits, cache = prefill(params, cfg, batch, max_len)
+    if not torch.equal(last, logits[:, -1]):
+        raise AssertionError("phase16b: the sharded prefill's logits differ")
+    tok_s = tok_u = last.argmax(-1).to(torch.int32)
+    same, worst, top, walls, walls_u, launched = True, 0.0, 0.0, [], [], []
+    for i in range(steps):
+        pos = torch.full((B,), prompt + i, dtype=torch.int32, device=dev)
+        fault = (w, w, 1000 + i)
+        sync()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            ls, shards = dfn(params, shards, {"tokens": tok_s,
+                                              "positions": pos}, fault=fault)
+        nxt_s = ls.argmax(-1).to(torch.int32)
+        got = nxt_s.tolist()
+        walls.append(time.perf_counter() - t0)
+        launched.append(launch_counts())
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            lu, cache = decode_step(params, cfg, cache, tok_u, pos,
+                                    fault=fault)
+        nxt_u = lu.argmax(-1).to(torch.int32)
+        want = nxt_u.tolist()
+        walls_u.append(time.perf_counter() - t0)
+        same = same and got == want
+        worst = max(worst, (ls.float() - lu.float()).abs().max().item())
+        top = max(top, lu.float().abs().max().item())
+        tok_s, tok_u = nxt_s, nxt_u
+    bound = 2.0 ** -5 * top
+    per_step = 2 * cfg.n_layers
+    totals = {name: sum(c[name] for c in launched) for name in records}
+    log(f"phase16b {cfg.name}: {B} prompts of {prompt} prefilled and "
+        f"{steps} faulted decode steps (16 bits, 4 faulty, rates 0.2 x the "
+        f"tier scale of P={''.join(map(str, partition))}) on a (data=1, "
+        f"model={SHARDS}) mesh of {dev}, {max_len // SHARDS} of {max_len} "
+        f"slots a shard: tokens equal on every step {same}; logits max "
+        f"|diff| {worst:.5f} (bound 2^-5 max|logit| = {bound:.5f}); step wall "
+        f"median {1e3 * np.median(walls):.3f} ms sharded, "
+        f"{1e3 * np.median(walls_u):.3f} ms unsharded (walls "
+        f"{[round(1e3 * x, 3) for x in walls]}); quant_bitflip kernels a "
+        f"sharded step {[c['quant_bitflip'] for c in launched]}; port "
+        f"kernel launches in the {steps} sharded steps {totals}")
+    if not same or worst > bound:
+        raise AssertionError("phase16b: the sharded decode left the "
+                             "unsharded one")
+    if on_card and any(c["quant_bitflip"] != per_step for c in launched):
+        raise AssertionError(f"phase16b: quant_bitflip kernels a step "
+                             f"{launched}, expected {per_step}")
+    for name, r in records.items():
+        r["shard_decode_launches"] = totals[name]
+    del params, shards, cache
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+
+def launch_phase(dev, records, partition, cfg=None, B=TRAIN_B, S=TRAIN_S,
+                 vocab=TRAIN_VOCAB, steps=PP_STEPS, cli_steps=10):
+    """Phase 16: the launch stack (see the docstring).  The arguments other
+    than ``dev``, ``records`` and ``partition`` let a rehearsal on the CPU
+    run it at a small size."""
+    from repro_torch.configs import get_config
+
+    cfg = cfg or get_config("olmo-1b")
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    group = pipeline_stage(dev, records, partition, cfg, B, S, vocab, steps)
+    sharded_decode_stage(dev, records, partition, cfg)
+    psum_stage(dev, group)
+    del group
+    # 16d: the training CLI on the card
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "olmo-1b", "--steps", str(cli_steps), "--ckpt-dir",
+         os.path.join(HERE, "build", "launch_train_ckpt"), "--device",
+         str(dev)], capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": os.path.join(HERE, "src")})
+    lines = r.stdout.strip().splitlines()
+    log(f"phase16d python -m repro_torch.launch.train --arch olmo-1b --steps "
+        f"{cli_steps} --device {dev}: exit {r.returncode} in "
+        f"{time.perf_counter() - t0:.2f} s; {' | '.join(lines)}")
+    m = re.match(r"loss: ([0-9.]+) -> ([0-9.]+)", lines[-1] if lines else "")
+    if r.returncode or not m or not float(m.group(2)) < float(m.group(1)):
+        raise AssertionError(f"phase16d: the training CLI failed or its loss "
+                             f"did not fall: {r.stderr[-2000:]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3385,6 +3705,7 @@ def main() -> int:
     lm_ctx = lm_phase(dev, records)
     torch.cuda.empty_cache()
     pool_phase_lm(dev, records, lm_ctx)
+    lm_partition = lm_ctx["plan"].partition          # phase 16's cut
     del lm_ctx
     torch.cuda.empty_cache()
 
@@ -3402,6 +3723,10 @@ def main() -> int:
 
     # phase 14: training, and the trained olmo-1b as the LM probe
     train_phase(dev, records)
+    torch.cuda.empty_cache()
+
+    # phase 16: the launch stack (phase 9's plan cuts the pipeline)
+    launch_phase(dev, records, lm_partition)
 
     kernels = [dict(name=name, **{k: r[k] for k in RECORD_KEYS if k in r})
                for name, r in records.items()]

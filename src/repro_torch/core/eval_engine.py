@@ -95,8 +95,9 @@ class DeviceScheduler:
 
     ``devices="auto"`` takes every slot of ``pool``, an int the first ``n``
     (raising when the pool has fewer), and a list of devices is the pool
-    itself.  ``pool`` defaults to the local cards (``cuda:0 .. count-1``,
-    or the host without one); a device may repeat in it, which gives one
+    itself.  ``pool`` defaults to the local cards (``cuda:0 .. count-1``;
+    without a card that raises, and the caller passes its pool); a device
+    may repeat in it, which gives one
     device several slots.  The slots are enumerated through
     ``launch/mesh.make_eval_mesh``, so the engines and the launch stack
     agree on device order.

@@ -482,16 +482,25 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return num.reshape(B, Hq, Dh), m.reshape(B, Hq), den.reshape(B, Hq)
 
 
-def lse_combine(num: torch.Tensor, m: torch.Tensor, den: torch.Tensor,
-                axis_name: str | None = None) -> torch.Tensor:
-    """Fold the partials of :func:`decode_attention`.  One card holds the
-    whole cache, so there is one shard and nothing to combine across: a
-    cache sharded over a mesh axis belongs to ROADMAP.md Queue A item 14."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"lse_combine over mesh axis {axis_name!r}: a sequence-sharded "
-            "cache needs the launch/ package, ROADMAP.md Queue A item 14")
-    return num / torch.clamp_min(den[..., None], 1e-30)
+def lse_combine(num, m, den) -> torch.Tensor:
+    """Fold the partials of :func:`decode_attention`: ``num``, ``m`` and
+    ``den`` are one shard's tensors, or sequences of several shards'
+    (a cache sequence-sharded over a mesh axis), all on one device.
+    Several shards combine as the reference's ``pmax``/``psum`` do: the
+    max over the shards, each shard's ``num`` and ``den`` rescaled by
+    ``exp(m_i - max)`` and summed in shard order."""
+    if isinstance(num, torch.Tensor):
+        return num / torch.clamp_min(den[..., None], 1e-30)
+    m_g = m[0]
+    for m_i in m[1:]:
+        m_g = torch.maximum(m_g, m_i)
+    num_g = den_g = None
+    for n_i, m_i, d_i in zip(num, m, den, strict=True):
+        w = torch.exp(m_i - m_g)
+        a, b = n_i * w[..., None], d_i * w
+        num_g = a if num_g is None else num_g + a
+        den_g = b if den_g is None else den_g + b
+    return num_g / torch.clamp_min(den_g[..., None], 1e-30)
 
 
 # --------------------------------------------------------------------------

@@ -46,9 +46,12 @@ its second axis:
 
 ``pos`` is -1 in an empty slot.  A decode step writes into the cache in
 place and returns it.  Prefill and decode run their float32 sums in IEEE
-fp32 (``fp32_exact``), as the evaluators do.  The whole cache lies on one
-card: there is one sequence shard, so the flash-decode partials need no
-combine across a mesh (``layers.lse_combine``).
+fp32 (``fp32_exact``), as the evaluators do.  A decode step also takes a
+cache sequence-sharded over several devices (flash-decode): a list of
+shards in ``serve.kvcache.cache_specs(seq_shards=n)``'s layout, each on
+its own device, shard ``i`` holding global slots ``[i Sc_loc, (i + 1)
+Sc_loc)`` of every attention cache; each shard's partials are computed on
+its device and folded by ``layers.lse_combine``.
 """
 from __future__ import annotations
 
@@ -886,17 +889,30 @@ def _layer_fault(fault, lidx: int):
     return w_rates[lidx], a_rates[lidx], seed + 7919 * lidx
 
 
+def _group_entry(cache, key: str, g: int):
+    """Group ``g`` of the cache's ``key`` entry (views): a dict, or for a
+    sequence-sharded cache (a list of shards) a list of one a shard."""
+    if isinstance(cache, list):
+        return [tree_map(lambda t: t[g], shard[key]) for shard in cache]
+    return tree_map(lambda t: t[g], cache[key])
+
+
 @fp32_exact()
-def decode_step(params: dict, cfg: ArchConfig, cache: dict,
+def decode_step(params: dict, cfg: ArchConfig, cache,
                 tokens: torch.Tensor, pos: torch.Tensor, *,
                 enc_memory: torch.Tensor | None = None, fault=None):
     """One decode step: ``tokens [B]`` at absolute positions ``pos [B]``
     (integer tensors on the params' device) -> ``(logits [B, V], cache)``,
-    the cache updated in place.  ``fault``: optional ``(w_rates [L],
-    a_rates [L], seed)``, the rates float32 tensors on the device and the
-    seed a host int.  Nothing in a step waits on the card.  The
-    encoder-decoder takes its memory as ``enc_memory [B, Se, D]`` and
-    injects no faults, as in the reference."""
+    the cache updated in place.  ``cache`` is :func:`init_cache`'s tree, or
+    a list of sequence shards (see the module docstring): the block runs on
+    the params' device, each shard's attention on the shard's, and a
+    recurrent state is read from shard 0 and written to every shard.
+    ``fault``: optional ``(w_rates [L], a_rates [L], seed)``, the rates
+    float32 tensors on the device and the seed a host int; a layer is
+    corrupted once, before its attention splits over the shards.  Nothing
+    in a step waits on the card.  The encoder-decoder takes its memory as
+    ``enc_memory [B, Se, D]`` and injects no faults, as in the
+    reference."""
     x = embed_tokens(cfg, params, tokens[:, None])            # [B, 1, D]
     if cfg.is_encdec:
         return _decode_step_encdec(params, cfg, cache, x, pos, enc_memory)
@@ -907,7 +923,7 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict,
             if lidx >= cfg.n_layers:    # the reference's where keeps both
                 continue
             p = tree_map(lambda t: t[g], params["groups"][f"b{s}"])
-            c = tree_map(lambda t: t[g], cache[f"b{s}"])
+            c = _group_entry(cache, f"b{s}", g)
             x = _decode_block(cfg, kind, p, c, x, pos,
                               _layer_fault(fault, lidx))
     return unembed(cfg, params, x)[:, 0], cache
@@ -919,13 +935,18 @@ def _decode_attention(cfg: ArchConfig, p: dict, c: dict, h: torch.Tensor,
     """Self-attention of the token ``h [B, 1, D]``: its q, k and v by plain
     products (``ref.matmul``: XLA's order on the CPU), its K, V and
     position written into slot ``pos % Sc`` of ``c`` in place, attention
-    against the cache, the output projection."""
+    against the cache, the output projection.  A list ``c`` is one entry a
+    sequence shard: global slot ``pos % (n Sc_loc)`` is written in its
+    owner shard only, and the shards' partials are combined."""
     B, Dh = h.shape[0], cfg.head_dim_
     q = kref.matmul(h, p["wq"]).reshape(B, 1, cfg.n_heads, Dh)
     k = kref.matmul(h, p["wk"]).reshape(B, 1, cfg.n_kv_heads, Dh)
     v = kref.matmul(h, p["wv"]).reshape(B, 1, cfg.n_kv_heads, Dh)
     q = L.rope(q, pos[:, None], cfg.rope_theta)[:, 0]       # [B, Hq, Dh]
     k = L.rope(k, pos[:, None], cfg.rope_theta)[:, 0]
+    if isinstance(c, list):
+        o = _sharded_attention(c, q, k, v[:, 0], pos, window, softcap)
+        return kref.matmul(o.reshape(B, 1, -1).to(h.dtype), p["wo"])
     slot = (pos % c["k"].shape[1]).long()
     bidx = torch.arange(B, device=pos.device)
     c["k"][bidx, slot] = k.to(c["k"].dtype)
@@ -937,7 +958,33 @@ def _decode_attention(cfg: ArchConfig, p: dict, c: dict, h: torch.Tensor,
     return kref.matmul(o.reshape(B, 1, -1).to(h.dtype), p["wo"])
 
 
-def _decode_block(cfg: ArchConfig, kind: str, p: dict, c: dict,
+def _sharded_attention(shards: list, q, k, v, pos, window, softcap):
+    """One token's attention against a sequence-sharded cache entry: the
+    new K/V and position written into their owner shard (``slot_g = pos %
+    Sc_total``, ``owner = slot_g // Sc_loc``; the other shards' slots are
+    rewritten unchanged, so no index depends on the data and nothing
+    waits), each shard's partials on its own device, the combine on
+    ``q``'s."""
+    n, sc_loc = len(shards), shards[0]["k"].shape[1]
+    slot_g = pos % (sc_loc * n)
+    owner, slot_l = slot_g // sc_loc, (slot_g % sc_loc).long()
+    parts = []
+    for i, c in enumerate(shards):
+        dev = c["k"].device
+        bidx = torch.arange(q.shape[0], device=dev)
+        sl, mine, pos_i = slot_l.to(dev), (owner == i).to(dev), pos.to(dev)
+        for name, new in (("k", k), ("v", v), ("pos", pos)):
+            t = c[name]
+            m = mine.reshape(-1, *[1] * (new.dim() - 1))
+            t[bidx, sl] = torch.where(m, new.to(dev, t.dtype), t[bidx, sl])
+        parts.append(L.decode_attention(q.to(dev), c["k"], c["v"], c["pos"],
+                                        pos_i, window=window,
+                                        softcap=softcap))
+    num, m, den = ([t.to(q.device) for t in ts] for ts in zip(*parts))
+    return L.lse_combine(num, m, den)
+
+
+def _decode_block(cfg: ArchConfig, kind: str, p: dict, c,
                   x: torch.Tensor, pos: torch.Tensor, fault_rates=None
                   ) -> torch.Tensor:
     """One block of ``x [B, 1, D]`` against its cache entry ``c`` (views
@@ -969,6 +1016,8 @@ def _decode_block(cfg: ArchConfig, kind: str, p: dict, c: dict,
         if cfg.moe_dense_residual:
             f = f + L.mlp_fwd(p["dense_mlp"], h, cfg.act_fn)
         return x + f
+    shards = c if isinstance(c, list) else [c]
+    c = {name: t.to(x.device) for name, t in shards[0].items()}
     h = L.norm_fwd(p["ln1"], x, cfg.norm_kind)
     if kind == "rglru":
         r, st = L.rglru_fwd(p["rec"], h, state=c)
@@ -982,8 +1031,9 @@ def _decode_block(cfg: ArchConfig, kind: str, p: dict, c: dict,
         x = x + s
     else:
         raise ValueError(kind)
-    for name, t in st.items():
-        c[name].copy_(t)
+    for shard in shards:
+        for name, t in st.items():
+            shard[name].copy_(t)
     return x
 
 
@@ -1000,7 +1050,7 @@ def _decode_step_encdec(params: dict, cfg: ArchConfig, cache: dict,
               head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta)
     for g in range(cfg.n_layers):
         p = tree_map(lambda t: t[g], params["groups"])
-        c = tree_map(lambda t: t[g], cache["b0"])
+        c = _group_entry(cache, "b0", g)
         h = L.norm_fwd(p["ln1"], x, cfg.norm_kind)
         x = x + _decode_attention(cfg, p["attn"], c, h, pos)
         h = L.norm_fwd(p["ln_x"], x, cfg.norm_kind)

@@ -36,16 +36,21 @@ def slot_bytes(cfg: ArchConfig, max_len: int) -> int:
 def cache_specs(cfg: ArchConfig, batch: int, max_len: int,
                 seq_shards: int = 1) -> dict:
     """:func:`init_cache`'s tree as meta tensors (shapes and dtypes, no
-    memory).  One card holds one shard: a sequence-sharded cache
-    (``seq_shards`` > 1) needs the launch/ package, ROADMAP.md Queue A
-    item 14, and raises."""
-    if seq_shards != 1:
-        raise NotImplementedError(
-            f"cache_specs(seq_shards={seq_shards}): a sequence-sharded cache "
-            "needs the launch/ package, ROADMAP.md Queue A item 14")
-    return {slot: {name: torch.empty(shape, dtype=dt, device="meta")
-                   for name, (shape, dt, _) in entry.items()}
-            for slot, entry in cache_layout(cfg, batch, max_len).items()}
+    memory), with the sequence dimension of the attention caches divided
+    by ``seq_shards``: one shard's local shape under flash-decode sequence
+    sharding (``launch/shardings.cache_pspecs``).  Recurrent states are
+    whole in every shard."""
+    out = {}
+    for slot, entry in cache_layout(cfg, batch, max_len).items():
+        out[slot] = {}
+        for name, (shape, dt, _) in entry.items():
+            if name in ("k", "v", "pos"):
+                if shape[2] % seq_shards:
+                    raise ValueError(f"{slot}/{name}: {shape[2]} cache slots "
+                                     f"do not split into {seq_shards} shards")
+                shape = (*shape[:2], shape[2] // seq_shards, *shape[3:])
+            out[slot][name] = torch.empty(shape, dtype=dt, device="meta")
+    return out
 
 
 def cache_bytes(cfg: ArchConfig, batch: int, max_len: int) -> int:

@@ -56,8 +56,11 @@ def warmup_cosine(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(tree) -> torch.Tensor:
-    leaves = [torch.sum(torch.square(x.to(torch.float32)))
-              for x in tree_flatten(tree)[0]]
+    """The norm over every leaf, on the first leaf's device (the leaves of
+    a pipeline's params lie on several)."""
+    flat = tree_flatten(tree)[0]
+    leaves = [torch.sum(torch.square(x.to(torch.float32))).to(flat[0].device)
+              for x in flat]
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
@@ -69,8 +72,13 @@ def clip_by_global_norm(grads, max_norm: float):
     # PyTorch (``Tensor.__rtruediv__``): divide as the reference does
     scale = torch.clamp(torch.full_like(norm, max_norm)
                         / torch.clamp_min(norm, 1e-12), max=1.0)
-    return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
-                    grads), norm
+    return tree_map(lambda g: (g.to(torch.float32) * _on(scale, g)).to(
+        g.dtype), grads), norm
+
+
+def _on(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` on ``like``'s device (itself when already there)."""
+    return t.to(like.device)
 
 
 def adamw_init(params, cfg: AdamWConfig | None = None) -> dict:
@@ -100,11 +108,11 @@ def adamw_update(cfg: AdamWConfig, params, grads, state):
         gf = g.to(torch.float32)
         m_new = cfg.b1 * m.to(torch.float32) + (1 - cfg.b1) * gf
         v_new = cfg.b2 * v.to(torch.float32) + (1 - cfg.b2) * gf * gf
-        mh = m_new / b1c
-        vh = v_new / b2c
+        mh = m_new / _on(b1c, p)
+        vh = v_new / _on(b2c, p)
         delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * \
             p.to(torch.float32)
-        p_new = (p.to(torch.float32) - lr * delta).to(p.dtype)
+        p_new = (p.to(torch.float32) - _on(lr, p) * delta).to(p.dtype)
         return p_new, m_new.to(mdt), v_new.to(mdt)
 
     flat_p, spec = tree_flatten(params)

@@ -55,8 +55,8 @@ def make_loss_fn(cfg: ArchConfig, remat: bool = True, fault=None,
             "scale only, and the port's fault kernels have no backward")
     if seq_axis is not None:
         raise NotImplementedError(
-            f"seq_axis={seq_axis!r}: sequence sharding needs a process "
-            "group, ROADMAP item 14 (launch)")
+            f"seq_axis={seq_axis!r}: the reference's GSPMD layout hint for "
+            "sequence-sharded activations, ROADMAP item 14b")
 
     def loss_fn(params, batch):
         logits = forward(params, cfg,

@@ -986,3 +986,62 @@ def test_pool_of_two_slots_on_one_card_bitwise(dev):
         if strategy == "staged":
             dd = two.staged_stats()["device_dispatches"]
             assert set(dd) == {0, 1}
+
+
+def test_pipeline_and_sharded_decode_on_two_slots(dev):
+    """The launch stack on ``[cuda:0] * 2``: the 2-stage pipeline's loss
+    and grads against the same loss on the CPU (within 1e-5 and 2e-5 of
+    each leaf's largest, as the train step above), and a 2-shard decode
+    step's logits against the unsharded step on the card (within 1e-5,
+    the greedy tokens equal), waiting on the card nowhere."""
+    import dataclasses
+
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.launch import pipeline as pp
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.shardings import P, shard_tree
+    from repro_torch.models.transformer import decode_step, init_lm, prefill
+    from repro_torch.train.train_step import _value_and_grad
+
+    cfg = dataclasses.replace(get_config("olmo-1b").reduced(), n_layers=4)
+    cpu = torch.device("cpu")
+    params = init_lm(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (4, 16))
+                                 .astype(np.int32)) for k in ("tokens",
+                                                              "labels")}
+    cuts = [0, 1, 4]
+    out = []
+    for d in (cpu, dev):
+        mesh = make_test_mesh((2, 1, 1), ("pod", "data", "model"),
+                              pool=[d] * 2)
+        placed = pp.place_pp_params(pp.to_pp(params, cuts), mesh)
+        loss, grads = _value_and_grad(pp.make_pp_loss(cfg, mesh, cuts, 2),
+                                      placed, {k: v.to(d) for k, v in
+                                               batch.items()})
+        out.append((float(loss), pp.gather_pp_params(grads, mesh, cpu)))
+    assert abs(out[0][0] - out[1][0]) <= 1e-5
+    for a, b in zip(tree_leaves(out[0][1]), tree_leaves(out[1][1])):
+        assert float((a - b).abs().max()) <= 2e-5 * float(a.abs().max())
+
+    gp = tree_map(lambda t: t.to(dev), params)
+    toks = batch["tokens"].to(dev)
+    with torch.no_grad():
+        logits, cache = prefill(gp, cfg, {"tokens": toks}, 32)
+    specs = {"b0": {"k": P(None, None, "model"), "v": P(None, None, "model"),
+                    "pos": P(None, None, "model")}}
+    shards = shard_tree(cache, specs, make_test_mesh((2,), ("model",),
+                                                     pool=[dev] * 2))
+    tok = logits[:, -1].argmax(-1).to(torch.int32)
+    pos = torch.full((4,), 16, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            got, _ = decode_step(gp, cfg, shards, tok, pos)
+            want, _ = decode_step(gp, cfg, cache, tok, pos)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert float((got - want).abs().max()) <= 1e-5
+    assert torch.equal(got.argmax(-1), want.argmax(-1))

@@ -274,8 +274,9 @@ def test_lse_combine_has_one_shard():
                           jnp.asarray(den.numpy()), None)
     np.testing.assert_array_equal(TL.lse_combine(num, m, den).numpy(),
                                   np.asarray(want))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TL.lse_combine(num, m, den, "seq")
+    # a list of one shard's partials folds to the same values
+    np.testing.assert_array_equal(
+        TL.lse_combine([num], [m], [den]).numpy(), np.asarray(want))
 
 
 def test_bf16_decode_matches_op_by_op():

@@ -45,7 +45,8 @@ def test_scan_sees_every_kernel_source_module():
             "base.py", "olmo_1b.py", "runtime.py", "engine.py",
             "kvcache.py", "monitor.py", "quant_cost.py", "optimizer.py",
             "train_step.py", "trainer.py", "compression.py", "ckpt.py",
-            "train_lm.py", "mesh.py", "pipeline.py"} <= names
+            "train_lm.py", "mesh.py", "pipeline.py", "shardings.py",
+            "steps.py", "roofline.py", "train.py"} <= names
     assert (ROOT / "src" / "repro_torch" / "launch" / "__init__.py") \
         in PORT_FILES
 
@@ -61,6 +62,7 @@ def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
     from repro_torch.models.cnn import CNN_MODELS
     from repro_torch.models.graph import lm_eval_strategy
     from repro_torch.models.transformer import init_cache, init_lm
+    from repro_torch.launch import train as launch_train
     from repro_torch.train import AdamWConfig, Trainer, TrainerConfig
 
     lm_cfg = get_config("olmo-1b").reduced()
@@ -101,6 +103,7 @@ def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
         lambda: Trainer(lm_cfg, AdamWConfig(), TrainerConfig(), iter(()),
                         params=lm_params),
         lambda: train_lm.main(["--steps", "1"]),
+        lambda: launch_train.main(["--arch", "olmo-1b", "--steps", "1"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -373,13 +373,20 @@ def test_pipeline_stages_records_swap_migration():
 
 
 def test_sharded_cache_specs_need_launch():
-    """One card holds one shard: ``seq_shards`` 1 is the whole cache, any
-    other count raises, naming item 14."""
-    cfg = get_config("olmo-1b").reduced()
-    assert tserve.cache_specs(cfg, 2, 64, seq_shards=1).keys() == \
-        tserve.cache_specs(cfg, 2, 64).keys()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tserve.cache_specs(cfg, 2, 64, seq_shards=2)
+    """``seq_shards`` 1 is the whole cache; ``n`` shards divide every
+    attention cache's sequence dimension by ``n`` (the reference's local
+    shard shapes), and a count that does not divide raises."""
+    for arch in ("olmo-1b", "gemma2-27b", "recurrentgemma-2b"):
+        cfg, jcfg = get_config(arch).reduced(), jget(arch).reduced()
+        assert tserve.cache_specs(cfg, 2, 64, seq_shards=1).keys() == \
+            tserve.cache_specs(cfg, 2, 64).keys()
+        got = tserve.cache_specs(cfg, 2, 64, seq_shards=2)
+        want = jserve.cache_specs(jcfg, 2, 64, seq_shards=2)
+        for slot, entry in want.items():
+            for name, w in entry.items():
+                assert tuple(got[slot][name].shape) == w.shape, (arch, name)
+        with pytest.raises(ValueError, match="do not split"):
+            tserve.cache_specs(cfg, 2, 64, seq_shards=3)
 
 
 # -- fault monitor ----------------------------------------------------------

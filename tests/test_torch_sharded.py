@@ -95,12 +95,16 @@ def test_parse_devices_matches_reference(value):
 
 
 def test_device_scheduler_resolution():
-    auto = teng.DeviceScheduler("auto")          # no card here: the host
+    # no card here and no pool: the local cards are asked for, and raise
+    for devices in ("auto", 1, 2):
+        with pytest.raises(RuntimeError, match="pass a pool"):
+            teng.DeviceScheduler(devices)
+    auto = teng.DeviceScheduler("auto", pool=[CPU])
     assert auto.devices == [CPU] and auto.n_devices == 1
     assert auto.devices == list(auto.mesh.devices.flat)
-    assert teng.DeviceScheduler(1).n_devices == 1
+    assert teng.DeviceScheduler(1, pool=[CPU]).n_devices == 1
     with pytest.raises(ValueError, match="pool holds 1"):
-        teng.DeviceScheduler(2)
+        teng.DeviceScheduler(2, pool=[CPU])
     pool = [CPU] * 4
     assert teng.DeviceScheduler("auto", pool=pool).n_devices == 4
     two = teng.DeviceScheduler(2, pool=pool)
