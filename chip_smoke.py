@@ -259,8 +259,9 @@ Phases (any failure raises, and the process exits nonzero):
      first), the step walls, tokens a second, the allocator's peak, the
      host waits a step (limit 1, sync debug mode), ``model_flops /
      (wall x 989 TFLOP/s)`` (``launch/roofline.py``) and the port kernels
-     launched over the steps (it fails unless none: training with faults
-     is ROADMAP item 13b).  b: olmo-1b prefilled
+     launched over the steps (it fails unless none: the launch stack's
+     training steps take no faults, as the reference's do not; phase 17
+     trains with them).  b: olmo-1b prefilled
      (8 prompts of 64) by ``abstract_serve_prefill`` and decoded
      ``SHARD_STEPS`` faulted steps (phase 13's regime: 16 bits, 4 faulty,
      rates 0.2 x the tier scale of the plan's layers, a grouped
@@ -277,6 +278,39 @@ Phases (any failure raises, and the process exits nonzero):
      mean and residual bitwise the same call on the host.  d: ``python -m
      repro_torch.launch.train --arch olmo-1b --steps 10 --device cuda``
      (the reduced config): its loss falls.
+ 17. Training with faults, run right after phase 14 (before phase 16).
+     a: ``quant_bitflip`` under autograd (``ops.quant_bitflip_group`` with
+     an input that requires grad) at a faulted olmo-1b step's shapes:
+     layer 0's float leaves as ``_inject`` groups them (expanded over one
+     row, seeds + 977 j) and a microbatch's block input [1, 4, 256, 2048],
+     bf16, 16 bits with 4 faulty: the forward with the q' store bitwise
+     the plain version's outputs and its integers (int32), one launch pair
+     a group; the backward (the reference's scale-only gradient, plain
+     PyTorch) against autograd through the plain version on the card: the
+     same nonzero entries, each within 2^-20 sum|g q'| / qmax of its row
+     plus 2^-8 of its value; each group's device time with the q' store
+     and without, the plain forward's and the backward's times, and the
+     bound (bytes: x read, out and q' written; operations: the hash).  b:
+     olmo-1b at its published widths and depth (bf16, phase 14's init),
+     phase 14's first ``TokenStream`` batch of 8 x 256 (vocab 4096) in 2
+     microbatches without remat, rates 0.2 x the ``POD_TIERS_4`` fault
+     scale of phase 9's plan (as phase 16b), seed 17: each microbatch's
+     loss and gradients through ``make_loss_fn(fault=...)`` with the
+     kernels and with the plain versions (``ops.quant_bitflip_group``
+     swapped for ``ref.quant_bitflip_group_ref``) on the card: the losses
+     and every gradient leaf bitwise (the kernel's outputs and q' are the
+     plain version's bits, and the backward runs the same PyTorch ops on
+     them), and some block leaf with the reference's few nonzero entries
+     a layer; then
+     ``FAULT_TRAIN_STEPS`` faulted ``make_train_step`` steps and as many
+     unfaulted ones (phase 14's step) after a warm-up each, as
+     ``Trainer.run`` takes them: step wall (median), tokens a second, the
+     allocator's peak, host waits a step (limit 1, sync debug mode), the
+     launches a step (it fails unless ``quant_bitflip`` > 0 and every
+     other kernel 0 when faulted, and all 0 when not) and one profiled
+     step's busy time and idle share.  c: ``repro_torch.
+     serve_fault_resilient.main(["--device", "cuda"])``, the online-phase
+     entry point, once: its plan, reconfiguration events and swaps.
 The lines before the last are the ``{"kernels": [...]}`` record, one
 entry a kernel wrapper, each counting its own launches (``ops.launches``):
 ``launches`` are those of the kernel's main path, the CNN staged search of
@@ -297,9 +331,14 @@ launches are its calls' row groups: one hash pass, counted under
 14c's staged search, ``pool_launches`` phase 15b's staged search on four
 slots (the CNN's for its kernels, olmo-1b's for the LM's),
 ``pp_launches`` phase 16a's pipelined steps (counted over its steps; the
-phase fails unless every count is 0: the training step runs no port
-kernel), ``shard_decode_launches`` phase 16b's sharded decode steps
-(counted over those steps alone, not the unsharded ones beside them); ``lm_shapes`` the LM shapes of
+phase fails unless every count is 0: the pipelined step takes no faults
+and runs no port kernel), ``shard_decode_launches`` phase 16b's sharded
+decode steps
+(counted over those steps alone, not the unsharded ones beside them);
+``fault_train_launches`` phase 17b's faulted training step's (a step's
+mean over its steps); ``train_shapes`` phase 17a's rows for
+``quant_bitflip`` (``ms`` with the q' store, ``nostore_ms`` without,
+``backward_ms`` the plain PyTorch backward); ``lm_shapes`` the LM shapes of
 phase 3 and ``decode_shapes`` phase 13's, its last row one decode layer
 as one group.  Then come the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -644,7 +683,8 @@ RECORD_KEYS = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
                "seamless_full_launches", "seamless_candidate_ms",
                "seamless_candidate_launches", "reconfig_launches",
                "decode_shapes", "serve_launches", "train_probe_launches",
-               "pool_launches", "pp_launches", "shard_decode_launches")
+               "pool_launches", "pp_launches", "shard_decode_launches",
+               "train_shapes", "fault_train_launches")
 
 
 # fault_matmul on bf16 x at olmo-1b's projections, M = B S = 2048:
@@ -2979,6 +3019,346 @@ def restart_phase(dev, cfg, seq, batch, k, tmp):
         raise AssertionError(f"phase14b: {bad} leaves differ after restart")
 
 
+# phase 17's faulted olmo-1b training: phase 14's batch, microbatches and
+# remat setting (none), its rates 0.2 x the tier scale of phase 9's plan
+# (POD_TIERS_4, as phase 16b), FAULT_TRAIN_STEPS timed steps of each kind
+FAULT_TRAIN_STEPS = 10
+FAULT_TRAIN_SEED = 17
+
+
+def _grad_problems(label, got, want, x, q, g, spec):
+    """The kernel's and the plain version's gradients of ``x`` (whose
+    q' is ``q`` and output cotangent ``g``): the same nonzero entries,
+    each within 2^-20 sum_j |g_j q'_j| / qmax of its row plus 2^-8 of
+    its value (another order of the sum, a bf16 rounding).  Returns the
+    problems and the largest difference."""
+    R = q.shape[0]
+    s = (g.reshape(R, -1).float().abs() * q.float().abs()).sum(1) \
+        * spec.inv_qmax
+    tol = (2.0 ** -20 * s)[:, None].expand(R, x.numel() // R).sum(0) \
+        if x.shape[0] == R and x.stride(0) == 0 else \
+        (2.0 ** -20 * s)[:, None].expand(R, x.numel() // R)
+    tol = tol.reshape(got.shape) + 2.0 ** -8 * want.float().abs()
+    diff = (got.float() - want.float()).abs()
+    problems = []
+    if not torch.equal(got != 0, want != 0):
+        problems.append(f"{label}: nonzero entries differ")
+    if not bool((diff <= tol).all()):
+        problems.append(f"{label}: {int((diff > tol).sum())} entries beyond "
+                        "the bound")
+    return problems, float(diff.max())
+
+
+def check_train_kernels(dev, cfg, params, records, B=TRAIN_B // TRAIN_MICRO,
+                        S=TRAIN_S):
+    """Phase 17a: ``quant_bitflip`` under autograd at a faulted training
+    step's shapes (see the docstring): layer 0's float leaves as
+    ``_inject`` groups them (expanded over one row, seeds + 977 j) and a
+    microbatch's block input, each group's forward with the q' store
+    bitwise its plain version (outputs and q'), its backward against
+    autograd through the plain version, and the times."""
+    from repro_torch._tree import tree_flatten
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers as L
+    from repro_torch.quant import QuantSpec
+
+    on_card = dev.type == "cuda"
+    spec, fb = QuantSpec(L.FAULT_BITS), L.FAULT_LSBS
+    gen = torch.Generator(device=dev).manual_seed(FAULT_TRAIN_SEED)
+    leaves = [t[0].detach().clone() for t in
+              tree_flatten(params["groups"]["b0"])[0] if t.is_floating_point()]
+    x_in = torch.randn(1, B, S, cfg.d_model, device=dev, generator=gen) \
+        .to(cfg.torch_dtype)
+    rate = torch.tensor([0.2], device=dev)
+    groups = (("block leaves", leaves, [977 * j for j in range(len(leaves))],
+               True),
+              ("block input", [x_in], [1], False))
+    rows = []
+    for label, ts, seeds, expand in groups:
+        ts = [t.requires_grad_(True) for t in ts]
+        xs = [t.expand(1, *t.shape) if expand else t for t in ts]
+        rates = [rate] * len(xs)
+        shapes = sorted({str(list(x.shape)) for x in xs})
+        # the forward with the q' store: bitwise, outputs and integers
+        with torch.no_grad():
+            ys, qs = ops._qb_forward(xs, seeds, rates, fb, spec, "flip", 2,
+                                     keep_q=True)
+            for x, y, q, s in zip(xs, ys, qs, seeds):
+                wy, wq = ref.quant_bitflip_q_ref(x, s, rate, fb, spec)
+                if not (bits_equal(y, wy) and torch.equal(q, wq)):
+                    raise AssertionError(f"phase17a {label} {list(x.shape)}: "
+                                         "the q' store's forward differs "
+                                         "from the plain version")
+        del ys
+        # the backward against autograd through the plain version
+        gs = [torch.randn(x.shape, device=dev, generator=gen).to(x.dtype)
+              for x in xs]
+        ops.reset_launches()
+        torch.autograd.backward(ops.quant_bitflip_group(xs, seeds, rates, fb,
+                                                        spec), gs)
+        launched = ops.launches["quant_bitflip"]
+        want_launches = 2 * -(-len(xs) // ops._QB_MAX_ENTRIES)
+        if on_card and launched != want_launches:
+            raise AssertionError(f"phase17a {label}: {ops.launches} launches"
+                                 f", expected {want_launches} quant_bitflip")
+        got = [t.grad for t in ts]
+        for t in ts:
+            t.grad = None
+        torch.autograd.backward(ref.quant_bitflip_group_ref(
+            xs, seeds, rates, fb, spec), gs)
+        problems, gerr = [], 0.0
+        for t, x, q, g, a in zip(ts, xs, qs, gs, got):
+            p, e = _grad_problems(f"{label} {list(x.shape)}", a, t.grad, x,
+                                  q, g, spec)
+            problems += p
+            gerr = max(gerr, e)
+            t.grad = None
+        if problems:
+            raise AssertionError("phase17a: " + "; ".join(problems))
+        n = sum(x.numel() for x in xs)
+        eb, qb = xs[0].element_size(), qs[0].element_size()
+        b_ms, b_by = bound(n * (2 * eb + qb),
+                           int_ops=n * fb * HASH_OPS_PER_DRAW)
+        times = {}
+        if on_card:
+            with torch.no_grad():
+                times = dict(
+                    ms=device_ms(lambda: ops._qb_forward(
+                        xs, seeds, rates, fb, spec, "flip", 2, keep_q=True),
+                        launches=10, replays=5),
+                    nostore_ms=device_ms(lambda: ops.quant_bitflip_group(
+                        xs, seeds, rates, fb, spec), launches=10, replays=5),
+                    plain_ms=time_ms(lambda: ref.quant_bitflip_group_ref(
+                        xs, seeds, rates, fb, spec), iters=3, warmup=1),
+                    backward_ms=time_ms(lambda: [
+                        ref.quant_bitflip_grad_ref(x, q, g, spec)
+                        for x, q, g in zip(xs, qs, gs)], iters=3, warmup=1))
+        rows.append(dict(label=f"{cfg.name} train {label}",
+                         shape=f"{' '.join(shapes)} {str(xs[0].dtype)[6:]}, "
+                               f"q' {str(qs[0].dtype)[6:]}",
+                         tensors=len(xs), bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None, max_abs_err=0.0, grad_max_err=gerr,
+                         **times))
+        log(f"phase17a quant_bitflip under autograd, {label} "
+            f"({len(xs)} tensors, {' '.join(shapes)}, {spec.bits} bits, "
+            f"{fb} faulty): forward with the q' store bitwise the plain "
+            f"version's outputs and integers ({str(qs[0].dtype)[6:]}), "
+            f"{launched} launches under autograd; gradient's nonzero "
+            f"entries equal autograd through the plain version's, largest "
+            f"difference {gerr:.3e}"
+            + (f"; device {times['ms']:.4f} ms with the q' store, "
+               f"{times['nostore_ms']:.4f} ms without, plain "
+               f"{times['plain_ms']:.3f} ms, backward (plain PyTorch) "
+               f"{times['backward_ms']:.3f} ms, bound {b_ms:.4f} ms "
+               f"({b_by})" if on_card else ""))
+        del xs, ts, qs, gs, got
+    records["quant_bitflip"]["train_shapes"] = rows
+
+
+def _step_loop(dev, step, params, data, steps, on_card):
+    """``steps`` train steps as ``Trainer.run`` takes them (the batch on
+    the card first, then the step and its one read of the metrics), after
+    one warm-up: ``(history, step walls, peak bytes, host waits and their
+    sites, launches over the steps, params)``."""
+    from repro_torch.kernels import ops
+    from repro_torch.train.optimizer import adamw_init
+
+    def to_dev(a):
+        t = torch.from_numpy(a)
+        return t.pin_memory().to(dev, non_blocking=True) if on_card else t
+
+    def one(params, st):
+        batch = {k: to_dev(v) for k, v in next(data).items()}
+        t0 = time.perf_counter()
+        params, st, m = step(params, st, batch)
+        keys = list(m)           # the step's one wait: its metrics at once
+        vals = torch.stack([m[k].to(torch.float32) for k in keys]).tolist()
+        dts.append(time.perf_counter() - t0)
+        hist.append(dict(zip(keys, vals)))
+        return params, st
+
+    hist, dts = [], []
+    params, st = one(params, adamw_init(params))          # the warm-up
+    dts.clear()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if on_card:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(steps):
+                params, st = one(params, st)
+        finally:
+            if on_card:
+                torch.cuda.set_sync_debug_mode("default")
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    sites = collections.Counter(
+        f"{os.path.relpath(w.filename, HERE)}:{w.lineno}" for w in caught
+        if "called a synchronizing" in str(w.message))
+    return hist, np.array(dts), peak, sites, launches, params, st
+
+
+def fault_train_phase(dev, records, partition, cfg=None, B=TRAIN_B,
+                      S=TRAIN_S, vocab=TRAIN_VOCAB, steps=FAULT_TRAIN_STEPS):
+    """Phase 17: training with faults (see the docstring).  The arguments
+    other than ``dev``, ``records`` and ``partition`` let a rehearsal on the
+    CPU run it at a small size."""
+    from repro_torch import serve_fault_resilient
+    from repro_torch._tree import tree_flatten_with_path
+    from repro_torch.configs import get_config
+    from repro_torch.core import POD_TIERS_4
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.quant import QuantSpec
+    from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.train.train_step import _value_and_grad, make_loss_fn
+
+    on_card = dev.type == "cuda"
+    cfg = cfg or get_config("olmo-1b")
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_lm(cfg, seed=0, device=dev)        # phase 14's init
+    scale = np.array([d.fault_scale for d in POD_TIERS_4], np.float32)
+    r = torch.from_numpy(0.2 * scale[np.asarray(partition)]).to(dev)
+    fault = (r, r, FAULT_TRAIN_SEED)
+    log(f"phase17 {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.dtype}; TokenStream(vocab={vocab}, seq_len={S}, batch={B}), "
+        f"{TRAIN_MICRO} microbatches, no remat (phase 14's); partition "
+        f"{''.join(map(str, partition))} -> weight and activation rates "
+        f"{np.round(r.cpu().numpy(), 6).tolist()} (0.2 x POD_TIERS_4 "
+        f"fault scale), 16 bits with 4 faulty, seed {FAULT_TRAIN_SEED}; "
+        f"init {time.perf_counter() - t0:.2f} s")
+
+    # ---- 17a: the kernel under autograd at the training shapes --------
+    check_train_kernels(dev, cfg, params, records, B // TRAIN_MICRO, S)
+
+    # ---- 17b: one step through the kernels and through the plain ------
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             next(TokenStream(vocab=vocab, seq_len=S, batch=B,
+                              seed=0)).items()}
+    loss_fn = make_loss_fn(cfg, remat=False, fault=fault)
+    kernel_group_fn = ops.quant_bitflip_group
+
+    def plain_group(xs, seeds, rates, fb, spec=QuantSpec(), **kw):
+        return ref.quant_bitflip_group_ref(xs, seeds, rates, fb, spec, **kw)
+
+    problems, n_sparse, losses = [], 0, []
+    b = B // TRAIN_MICRO
+    for i in range(TRAIN_MICRO):
+        mb = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
+        ops.reset_launches()
+        lk, gk = _value_and_grad(loss_fn, params, mb)
+        launched = launch_counts()
+        ops.quant_bitflip_group = plain_group       # the plain versions
+        try:
+            lp, gp = _value_and_grad(loss_fn, params, mb)
+        finally:
+            ops.quant_bitflip_group = kernel_group_fn
+        losses.append((float(lk), float(lp)))
+        if not bits_equal(lk, lp):
+            problems.append(f"microbatch {i}: loss {float(lk)!r} through the "
+                            f"kernels, {float(lp)!r} through the plain")
+        if on_card and (launched["quant_bitflip"] <= 0 or any(
+                launched[k] for k in launched if k != "quant_bitflip")):
+            problems.append(f"microbatch {i}: launches {launched}")
+        for (path, a), (_, w) in zip(tree_flatten_with_path(gk)[0],
+                                     tree_flatten_with_path(gp)[0]):
+            name = "/".join(map(str, path))
+            if not bits_equal(a, w):
+                problems.append(
+                    f"microbatch {i} {name}: not bitwise ({int((a != 0).sum())}"
+                    f" nonzero entries against {int((w != 0).sum())}, "
+                    f"{float((a.float() - w.float()).abs().max()):.3e} apart "
+                    "at most)")
+            n_sparse += int(path[0] == "groups" and 0 < int((a != 0).sum())
+                            <= 4 * a.shape[0] < a.numel())
+        del gk, gp
+        gc.collect()
+    if not n_sparse:
+        problems.append("no block leaf has the reference's few nonzero "
+                        "gradient entries")
+    if problems:
+        raise AssertionError("phase17b: " + "; ".join(problems))
+    log(f"phase17b one step's {TRAIN_MICRO} microbatches through the kernels "
+        f"and through the plain versions on the card: losses "
+        f"{[a for a, _ in losses]} bitwise; every gradient leaf bitwise "
+        f"({n_sparse} block leaves at a few entries a layer: the "
+        f"reference's scale-only gradient); launches a microbatch's forward "
+        f"and backward {launched}")
+
+    # ---- 17b: FAULT_TRAIN_STEPS faulted steps beside unfaulted ones ----
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                      total_steps=TRAIN_STEPS)
+    out = {}
+    for tag, f in (("faulted", fault), ("unfaulted", None)):
+        step = make_train_step(cfg, opt, microbatches=TRAIN_MICRO,
+                               remat=False, fault=f)
+        data = TokenStream(vocab=vocab, seq_len=S, batch=B, seed=0)
+        hist, dts, peak, sites, launches, p2, st = _step_loop(
+            dev, step, params, data, steps, on_card)
+        *_, busy, groups, _ = _profiled_split(
+            lambda: step(p2, st, batch), on_card, iters=1)
+        del p2, st
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        med = float(np.median(dts))
+        waits = sum(sites.values())
+        per_step = {k: v / steps for k, v in launches.items()}
+        out[tag] = dict(med=med, peak=peak, waits=waits, per_step=per_step,
+                        loss=[h["loss"] for h in hist])
+        log(f"phase17b {tag} make_train_step: {steps} steps after a warm-up, "
+            f"step wall median {1e3 * med:.3f} ms (range "
+            f"{1e3 * dts.min():.3f}-{1e3 * dts.max():.3f}), {B * S / med:.0f}"
+            f" tokens/s, max_memory_allocated {peak}, host waits {waits} in "
+            f"{steps} steps at {dict(sites)}, launches a step "
+            f"{ {k: v for k, v in per_step.items() if v} }; losses "
+            f"{np.round(out[tag]['loss'], 4).tolist()}"
+            + (f"; one profiled step: kernels busy {busy:.3f} ms "
+               f"({100 * (1 - busy / (1e3 * med)):.1f}% idle against the "
+               f"median), " + _groups_text(groups) if on_card else ""))
+        problems = []
+        if not np.isfinite(out[tag]["loss"]).all():
+            problems.append("a non-finite loss")
+        if on_card and waits > steps:
+            problems.append(f"{waits} host waits in {steps} steps")
+        want_qb = tag == "faulted"
+        if on_card and ((per_step["quant_bitflip"] > 0) != want_qb or any(
+                v for k, v in per_step.items() if k != "quant_bitflip")):
+            problems.append(f"launches a step {per_step}")
+        if problems:
+            raise AssertionError(f"phase17b {tag}: " + "; ".join(problems))
+    for name, rec in records.items():
+        rec["fault_train_launches"] = out["faulted"]["per_step"][name]
+    f_, u_ = out["faulted"], out["unfaulted"]
+    log(f"phase17b faulted against unfaulted on this card: step "
+        f"{1e3 * f_['med']:.3f} ms against {1e3 * u_['med']:.3f} ms "
+        f"(x{f_['med'] / u_['med']:.3f}), peak {f_['peak']} against "
+        f"{u_['peak']} bytes (+{(f_['peak'] - u_['peak']) / 2**30:.2f} GiB), "
+        f"quant_bitflip {f_['per_step']['quant_bitflip']:.0f} launches a step")
+    del params
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- 17c: the online-phase entry point -----------------------------
+    t0 = time.perf_counter()
+    res = serve_fault_resilient.main(["--device", str(dev)])
+    log(f"phase17c python -m repro_torch.serve_fault_resilient --device "
+        f"{dev}: {time.perf_counter() - t0:.2f} s, plan "
+        f"{''.join(map(str, res['plan'].partition))}, "
+        f"{len(res['events'])} reconfiguration events at steps "
+        f"{[e.step for e in res['events']]}, engine swaps at decode steps "
+        f"{[e['step'] for e in res['swap_events']]}")
+
+
 # --------------------------------------------------------------------------
 # phase 15: multi-device evaluation
 # --------------------------------------------------------------------------
@@ -3340,7 +3720,8 @@ def pipeline_stage(dev, records, partition, cfg, B, S, vocab, steps):
         problems.append("the loss did not fall over the steps")
     if on_card and waits > steps - 1:
         problems.append(f"{waits} host waits in {steps - 1} steps")
-    # training with faults is ROADMAP item 13b: the step launches no kernel
+    # the pipelined step takes no faults (nor does the reference's): it
+    # launches no port kernel
     if any(launched.values()):
         problems.append(f"the pipelined steps launched port kernels "
                         f"{launched}")
@@ -3723,6 +4104,10 @@ def main() -> int:
 
     # phase 14: training, and the trained olmo-1b as the LM probe
     train_phase(dev, records)
+    torch.cuda.empty_cache()
+
+    # phase 17: training with faults, and the online-phase entry point
+    fault_train_phase(dev, records, lm_partition)
     torch.cuda.empty_cache()
 
     # phase 16: the launch stack (phase 9's plan cuts the pipeline)

@@ -52,6 +52,12 @@
 //     division on the card's quarter-width pipe for almost all elements;
 //   * a row whose threshold is 0 skips the draws: its mask is 0, which
 //     leaves q as it is under all four models.
+//
+// Training (ops.quant_bitflip_group under autograd) also needs q', the
+// corrupted integers, for the backward's d scale = sum g q'.  The flip
+// pass then stores them into a [rows, n] int32 buffer a tensor, beside
+// out: Params::q, null without a gradient, which skips the store (a
+// branch uniform over the block); with it, 4 bytes more an element.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -85,7 +91,8 @@ static_assert(sizeof(Entry) == 72, "Entry must match ops._QB_ENTRY");
 
 struct Params {
   Entry e[kMaxEntries];
-  float* partials;       // one float a block
+  int32_t* q[kMaxEntries];  // entry e's q' [rows, n], or null
+  float* partials;          // one float a block
   int count, qmin, qmax, faulty_bits, mbu_width;
 };
 
@@ -234,11 +241,11 @@ struct Row {
 // NaN, or on a row whose rcp is not normal (a subnormal scale), the
 // element takes the IEEE quotient itself, clipped.  The fast path needs
 // no clip: |x| <= amax keeps |fl(x / scale)| below qmax (1 + 2^-22), whose
-// integer lies in [-qmax, qmax].
+// integer lies in [-qmax, qmax].  Each element's q' goes to qv.
 template <typename T, int MODEL, int FB, bool HASH, bool MAGIC, int N>
 __device__ __forceinline__ void quant_fault(T (&e)[N],
                                             const uint32_t (&idx)[N],
-                                            const Row& r) {
+                                            const Row& r, int32_t (&qv)[N]) {
   uint32_t mask[N];
 #pragma unroll
   for (int k = 0; k < N; ++k)
@@ -253,6 +260,7 @@ __device__ __forceinline__ void quant_fault(T (&e)[N],
       f = fminf(fmaxf(f, r.lo), r.hi);
       int32_t q = static_cast<int32_t>(f);
       if (HASH) q = afp::apply_mask<MODEL>(q, static_cast<int32_t>(mask[k]));
+      qv[k] = q;
       e[k] = from_f32<T>(__fmul_rn(static_cast<float>(q), r.scale));
       continue;
     }
@@ -266,16 +274,20 @@ __device__ __forceinline__ void quant_fault(T (&e)[N],
     uint32_t bits = __float_as_uint(u);
     if (HASH)
       bits = afp::apply_mask<MODEL>(bits, static_cast<int32_t>(mask[k]));
+    // the floats of [2^23, 2^24) step by one a unit of their bits
+    qv[k] = static_cast<int32_t>(bits - __float_as_uint(kMagic));
     e[k] = from_f32<T>(
         __fmul_rn(__fsub_rn(__uint_as_float(bits), kMagic), r.scale));
   }
 }
 
-// Elements [lo, hi) of one row, kElems at a time a thread.
+// Elements [lo, hi) of one row, kElems at a time a thread; their q' into
+// qo (the row's, element i at qo[i]) unless qo is null.
 template <typename T, int MODEL, int FB, bool HASH, bool MAGIC>
 __device__ __forceinline__ void flip_chunk(const T* __restrict__ xr,
-                                           T* __restrict__ o, int64_t lo,
-                                           int64_t hi, bool vec,
+                                           T* __restrict__ o,
+                                           int32_t* __restrict__ qo,
+                                           int64_t lo, int64_t hi, bool vec,
                                            const Row& r) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int U = kElems / VEC;      // 16-byte vectors a step
@@ -283,10 +295,12 @@ __device__ __forceinline__ void flip_chunk(const T* __restrict__ xr,
   if (vec) {
     const int4* xv = reinterpret_cast<const int4*>(xr);
     int4* ov = reinterpret_cast<int4*>(o);
+    int4* qw = reinterpret_cast<int4*>(qo);
     const int64_t v_lo = lo / VEC, v_hi = hi / VEC;
     for (int64_t i = v_lo + threadIdx.x; i < v_hi; i += kThreads * U) {
       alignas(16) T e[kElems];
       uint32_t idx[kElems];
+      alignas(16) int32_t qv[kElems];
 #pragma unroll
       for (int u = 0; u < U; ++u)
         if (i + u * kThreads < v_hi)
@@ -295,39 +309,50 @@ __device__ __forceinline__ void flip_chunk(const T* __restrict__ xr,
       for (int k = 0; k < kElems; ++k)
         idx[k] = static_cast<uint32_t>((i + k / VEC * kThreads) * VEC +
                                        k % VEC);
-      quant_fault<T, MODEL, FB, HASH, MAGIC>(e, idx, r);
+      quant_fault<T, MODEL, FB, HASH, MAGIC>(e, idx, r, qv);
 #pragma unroll
       for (int u = 0; u < U; ++u)
-        if (i + u * kThreads < v_hi)
+        if (i + u * kThreads < v_hi) {
           ov[i + u * kThreads] = reinterpret_cast<const int4*>(e)[u];
+          if (qo != nullptr) {      // VEC q' are VEC / 4 int4 at qw
+#pragma unroll
+            for (int c = 0; c < VEC / 4; ++c)
+              qw[(i + u * kThreads) * (VEC / 4) + c] =
+                  reinterpret_cast<const int4*>(qv + u * VEC)[c];
+          }
+        }
     }
     tail = v_hi * VEC;
   }
   for (int64_t i = tail + threadIdx.x; i < hi; i += kThreads) {
     T e[1] = {xr[i]};
     const uint32_t idx[1] = {static_cast<uint32_t>(i)};
-    quant_fault<T, MODEL, FB, HASH, MAGIC>(e, idx, r);
+    int32_t qv[1];
+    quant_fault<T, MODEL, FB, HASH, MAGIC>(e, idx, r, qv);
     o[i] = e[0];
+    if (qo != nullptr) qo[i] = qv[0];
   }
 }
 
 template <typename T, int MODEL, int FB, bool MAGIC>
-__device__ __forceinline__ void flip_block(const Entry& en, int64_t row,
-                                           int64_t lo, int64_t hi,
-                                           const Row& r) {
+__device__ __forceinline__ void flip_block(const Entry& en, int32_t* q,
+                                           int64_t row, int64_t lo,
+                                           int64_t hi, const Row& r) {
   const T* xr = static_cast<const T*>(en.x) + row * en.row_stride;
   T* o = static_cast<T*>(en.out) + row * en.n;
+  int32_t* qo = q == nullptr ? nullptr : q + row * en.n;
   if (r.fb > 0 && r.limit != 0u)      // limit 0: a row at rate 0
-    flip_chunk<T, MODEL, FB, true, MAGIC>(xr, o, lo, hi, en.vec_ok, r);
+    flip_chunk<T, MODEL, FB, true, MAGIC>(xr, o, qo, lo, hi, en.vec_ok, r);
   else
-    flip_chunk<T, MODEL, FB, false, MAGIC>(xr, o, lo, hi, en.vec_ok, r);
+    flip_chunk<T, MODEL, FB, false, MAGIC>(xr, o, qo, lo, hi, en.vec_ok, r);
 }
 
 template <int MODEL, int FB, bool MAGIC>
 __global__ void __launch_bounds__(kThreads, 4)
     quant_bitflip_kernel(const __grid_constant__ Params p) {
   const int64_t b = blockIdx.x;
-  const Entry& en = p.e[find_entry(p, b)];
+  const int ei = find_entry(p, b);
+  const Entry& en = p.e[ei];
   const int64_t local = b - en.first_block;
   const int64_t row = local / en.chunks;
   const int64_t lo = (local - row * en.chunks) * en.chunk;
@@ -350,9 +375,9 @@ __global__ void __launch_bounds__(kThreads, 4)
   r.fb = FB > 0 ? FB : p.faulty_bits;
   r.mbu_width = p.mbu_width;
   if (en.is_bf16)
-    flip_block<__nv_bfloat16, MODEL, FB, MAGIC>(en, row, lo, hi, r);
+    flip_block<__nv_bfloat16, MODEL, FB, MAGIC>(en, p.q[ei], row, lo, hi, r);
   else
-    flip_block<float, MODEL, FB, MAGIC>(en, row, lo, hi, r);
+    flip_block<float, MODEL, FB, MAGIC>(en, p.q[ei], row, lo, hi, r);
 }
 
 }  // namespace qbf
@@ -370,16 +395,20 @@ __global__ void __launch_bounds__(kThreads, 4)
 // entries: `count` qbf::Entry records in host memory (vec_ok ignored),
 // their first_block the running sum of rows * chunks from 0, which ends at
 // total_blocks; partials: total_blocks float32 on the device, written
-// before they are read (no initialisation needed).  Launches the two
+// before they are read (no initialisation needed).  q_ptrs: null, or
+// `count` device pointers in host memory, entry e's q' buffer of rows * n
+// int32, 16-byte aligned.  Launches the two
 // passes on `stream`; returns the cudaError_t of the launches.
 extern "C" int afp_quant_bitflip_group(const qbf::Entry* entries, int count,
                                        float* partials, int64_t total_blocks,
                                        int model, int qmin, int qmax,
                                        int faulty_bits, int mbu_width,
+                                       int32_t* const* q_ptrs,
                                        void* stream) {
   if (count < 1 || count > qbf::kMaxEntries || total_blocks < 1 ||
       total_blocks > 0x7FFFFFFF || faulty_bits < 0 || faulty_bits > 31)
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool qout = q_ptrs != nullptr;
   qbf::Params p;
   p.partials = partials;
   p.count = count;
@@ -397,6 +426,10 @@ extern "C" int afp_quant_bitflip_group(const qbf::Entry* entries, int count,
         e.chunks > qbf::kMaxChunks || e.first_block != next)
       return static_cast<int>(cudaErrorInvalidValue);
     next += static_cast<int64_t>(e.rows) * e.chunks;
+    p.q[i] = qout ? q_ptrs[i] : nullptr;
+    if (qout && (p.q[i] == nullptr ||
+                 reinterpret_cast<uintptr_t>(p.q[i]) % 16 != 0))
+      return static_cast<int>(cudaErrorInvalidValue);
     e.vec_ok = reinterpret_cast<uintptr_t>(e.x) % 16 == 0 &&
                reinterpret_cast<uintptr_t>(e.out) % 16 == 0 &&
                (e.rows == 1 || ((e.n * es) % 16 == 0 &&

@@ -21,6 +21,11 @@ the kernels of ``fault_weight_tiles`` and ``matmul_tiles``, once each a
 row group, and they count there; on float32 x with a bf16 weight dtype
 (the encoder-decoder's encoder) those of ``fault_weight_tiles`` and
 ``matmul_tiles_f32`` the same way.
+
+Under autograd (grad enabled and an input that requires grad)
+``quant_bitflip_group`` is differentiable, with the reference's gradient
+(``ref.quant_bitflip_grad_ref``); the other wrappers have no backward and
+raise there rather than cut the graph.
 """
 from __future__ import annotations
 
@@ -50,7 +55,7 @@ _SIGNATURES = {
                                 _I32, _I32, _I32, _P]),
     "afp_quant_bitflip_group": ("quant_bitflip", [ctypes.c_char_p, _I32, _P,
                                                   _I64, _I32, _I32, _I32, _I32,
-                                                  _I32, _P]),
+                                                  _I32, ctypes.c_char_p, _P]),
     "afp_fault_matmul": ("fault_matmul", [_P, _P, _P, _P, _P, _P, _I64, _I64,
                                           _I64, _I64, _I32, _I32, _I32, _U32,
                                           _I32, _I32, _P]),
@@ -98,6 +103,17 @@ def _is_cuda(t: torch.Tensor) -> bool:
 def _check(cond: bool, msg: str):
     if not cond:
         raise ValueError(msg)
+
+
+def _no_grad(name: str, *ts):
+    """Raise where autograd would need a backward of kernel ``name``,
+    which has none: the reference trains through ``quant_bitflip`` alone
+    (a training param is a float, never a ``QTensor``)."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in ts):
+        raise RuntimeError(
+            f"{name} has no backward: call it under torch.no_grad(), or "
+            "with inputs that do not require grad")
 
 
 def _model_id(fault_model: str, faulty_bits: int) -> int:
@@ -189,6 +205,7 @@ def bitflip(q: torch.Tensor, seed, rate, faulty_bits: int, *,
     same pass and returns ``dtype`` (float32 or bfloat16): ``float(q') *
     scale`` in float32, rounded once to ``dtype``, the reference's
     ``(q'.astype(f32) * scale).astype(dtype)``."""
+    _no_grad("bitflip", scale)
     if not _is_cuda(q):
         return _ref.bitflip_ref(q, seed, rate, faulty_bits,
                                 fault_model=fault_model, mbu_width=mbu_width,
@@ -264,29 +281,88 @@ def quant_bitflip_group(xs, seeds, rates, faulty_bits: int,
     contiguous, of its input's shape and dtype.  On the card one launch
     pair (an amax pass and the flip) corrupts up to 32 tensors, whose rows
     may be strided (a leaf ``expand``-ed over the rows is read in place);
-    on the CPU, ``ref.quant_bitflip_group_ref``."""
+    on the CPU, ``ref.quant_bitflip_group_ref``.
+
+    With grad enabled and an input that requires grad, the call is one
+    ``_QuantBitflipGroup`` node: the same outputs, bitwise, and in the
+    backward the gradient ``jax.grad`` takes through the reference's
+    ``quant_bitflip_ref`` (``ref.quant_bitflip_grad_ref``)."""
     if not xs:
         return []
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        return list(_QuantBitflipGroup.apply(
+            (seeds, rates, faulty_bits, spec, fault_model, mbu_width), *xs))
+    return _qb_forward(xs, seeds, rates, faulty_bits, spec, fault_model,
+                       mbu_width)[0]
+
+
+def _qb_forward(xs, seeds, rates, faulty_bits, spec, fault_model,
+                mbu_width, keep_q: bool = False):
+    """``(outputs, q's)``: the group's outputs and, where ``keep_q``, each
+    tensor's q' (``[R, n]`` int32; else None)."""
     if not _is_cuda(xs[0]):
-        return _ref.quant_bitflip_group_ref(xs, seeds, rates, faulty_bits,
-                                            spec, fault_model=fault_model,
-                                            mbu_width=mbu_width)
+        if not keep_q:
+            return _ref.quant_bitflip_group_ref(
+                xs, seeds, rates, faulty_bits, spec, fault_model=fault_model,
+                mbu_width=mbu_width), None
+        pairs = [_ref.quant_bitflip_q_ref(x, s, r, faulty_bits, spec,
+                                          fault_model=fault_model,
+                                          mbu_width=mbu_width)
+                 for x, s, r in zip(xs, seeds, rates)]
+        return [y for y, _ in pairs], [q for _, q in pairs]
     _check(len(seeds) == len(xs) == len(rates),
            "quant_bitflip_group takes a seed and a rate per tensor")
     model_id = _model_id(fault_model, faulty_bits)
-    outs = []
+    outs, qs = [], ([] if keep_q else None)
     for g in range(0, len(xs), _QB_MAX_ENTRIES):
-        outs += _qb_launch(xs[g:g + _QB_MAX_ENTRIES],
-                           seeds[g:g + _QB_MAX_ENTRIES],
-                           rates[g:g + _QB_MAX_ENTRIES], faulty_bits, spec,
-                           model_id, mbu_width)
-    return outs
+        o, q = _qb_launch(xs[g:g + _QB_MAX_ENTRIES],
+                          seeds[g:g + _QB_MAX_ENTRIES],
+                          rates[g:g + _QB_MAX_ENTRIES], faulty_bits, spec,
+                          model_id, mbu_width, keep_q)
+        outs += o
+        if keep_q:
+            qs += q
+    return outs, qs
 
 
-def _qb_launch(xs, seeds, rates, faulty_bits, spec, model_id, mbu_width):
-    """One launch pair over at most ``_QB_MAX_ENTRIES`` tensors."""
+class _QuantBitflipGroup(torch.autograd.Function):
+    """``quant_bitflip_group`` as one autograd node.  The forward is the
+    kernel's launch pair (the plain version on the CPU) with q' kept; the
+    backward is ``ref.quant_bitflip_grad_ref`` of each tensor, in plain
+    PyTorch: the reference differentiates a plain function, whose gradient
+    reaches x through the row scale alone (``round``'s is 0).  Under
+    ``torch.utils.checkpoint`` the forward runs again in the backward pass
+    and gives the same bits and the same q'."""
+
+    @staticmethod
+    def forward(ctx, meta, *xs):
+        seeds, rates, faulty_bits, spec, fault_model, mbu_width = meta
+        ys, qs = _qb_forward(xs, seeds, rates, faulty_bits, spec,
+                             fault_model, mbu_width, keep_q=True)
+        ctx.spec = spec
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(*xs, *qs)
+        return tuple(ys)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        saved = ctx.saved_tensors
+        n = len(gs)
+        return (None, *(
+            _ref.quant_bitflip_grad_ref(x, q, g, ctx.spec)
+            if need and g is not None else None
+            for x, q, g, need in zip(saved[:n], saved[n:], gs,
+                                     ctx.needs_input_grad[1:])))
+
+
+def _qb_launch(xs, seeds, rates, faulty_bits, spec, model_id, mbu_width,
+               keep_q=False):
+    """One launch pair over at most ``_QB_MAX_ENTRIES`` tensors: their
+    outputs and, where ``keep_q``, their q' ``[R, n]`` int32 (else
+    None)."""
     dev = xs[0].device
     table, keep, outs, blocks, row_rates = [], [], [], 0, {}
+    qs, q_ptrs = ([] if keep_q else None), []
     # the checks format their messages only on failure: this loop is the
     # host's cost of a decode layer's corruption
     for x, seed, rate in zip(xs, seeds, rates):
@@ -303,8 +379,12 @@ def _qb_launch(xs, seeds, rates, faulty_bits, spec, model_id, mbu_width):
         out = torch.empty_like(x, memory_format=torch.contiguous_format)
         outs.append(out)
         n = x.numel() // R if R else 0
+        if qs is not None:
+            qs.append(torch.empty((R, n), dtype=torch.int32, device=dev))
         if n == 0:
             continue
+        if qs is not None:
+            q_ptrs.append(qs[-1].data_ptr())
         x, stride = _qb_rows(x, R)
         chunk = _qb_chunk(n)
         chunks = -(-n // chunk)
@@ -317,9 +397,11 @@ def _qb_launch(xs, seeds, rates, faulty_bits, spec, model_id, mbu_width):
         partials = torch.empty(blocks, dtype=torch.float32, device=dev)
         _launch("afp_quant_bitflip_group", dev, b"".join(table), len(table),
                 partials.data_ptr(), blocks, model_id, spec.qmin, spec.qmax,
-                faulty_bits, mbu_width)
+                faulty_bits, mbu_width,
+                None if qs is None else struct.pack(f"<{len(q_ptrs)}Q",
+                                                    *q_ptrs))
         launches["quant_bitflip"] += 2
-    return outs
+    return outs, qs
 
 
 def _hash_launch(qw, out, scale_t, rates, seed, faulty_bits, model_id,
@@ -363,6 +445,7 @@ def fault_weight_tiles(qw: torch.Tensor, scale, seed, rate,
     of ``rate`` in one launch; each weight's draws are computed once and
     shared by the rows.  ``out`` is an optional ``[>= R, tile_elems]``
     buffer to write into."""
+    _no_grad("fault_weight_tiles", scale)
     if not _is_cuda(qw):
         return _ref.fault_weight_tiles_ref(qw, scale, seed, rate, faulty_bits,
                                            fault_model=fault_model,
@@ -418,6 +501,7 @@ def matmul_tiles(x: torch.Tensor, tiles: torch.Tensor, K: int,
     """The bf16 route's product: ``x [R, ..., K]`` bf16 times row r's W'
     (``tiles [R, tile_elems(K, N)]``, the hash pass's output), summed in
     fp32 and rounded once: ``[R, ..., N]`` bf16."""
+    _no_grad("matmul_tiles", x, tiles)
     if not _is_cuda(x):
         return _ref.matmul_tiles_ref(x, tiles, K, N)
     _check(x.dtype == torch.bfloat16,
@@ -432,6 +516,7 @@ def matmul_tiles_f32(x: torch.Tensor, tiles: torch.Tensor, K: int,
     ``[R, ..., N]`` float32.  On the card x is split exactly into three
     bf16 parts, each multiplied exactly by W' on the tensor cores into one
     fp32 sum (``csrc/fault_matmul.cu``, ``fwp``)."""
+    _no_grad("matmul_tiles_f32", x, tiles)
     if not _is_cuda(x):
         return _ref.matmul_tiles_f32_ref(x, tiles, K, N)
     _check(x.dtype == torch.float32,
@@ -460,6 +545,7 @@ def fault_matmul(x: torch.Tensor, qw: torch.Tensor, scale, seed, rate,
     ``matmul_tiles_f32``'s on float32 x), each counted under its own name;
     float32 x on float32 weights runs one kernel a launch, counted under
     ``"fault_matmul"``."""
+    _no_grad("fault_matmul", x, scale)
     if not _is_cuda(x):
         return _ref.fault_matmul_ref(x, qw, scale, seed, rate, faulty_bits,
                                      fault_model=fault_model,

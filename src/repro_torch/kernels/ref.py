@@ -42,6 +42,7 @@ from repro_torch.kernels.faultmodel import apply_fault
 from repro_torch.quant.fixedpoint import TINY, QuantSpec
 
 __all__ = ["row_rates", "matmul", "bitflip_ref", "quant_bitflip_ref",
+           "quant_bitflip_q_ref", "quant_bitflip_grad_ref",
            "quant_bitflip_group_ref",
            "fault_matmul_ref", "XLA_K_BLOCK", "TILE_K", "TILE_N", "tile_elems", "pack_tiles",
            "unpack_tiles", "fault_weight_tiles_ref", "matmul_tiles_ref",
@@ -113,6 +114,17 @@ def quant_bitflip_ref(x: torch.Tensor, seed, rate, faulty_bits: int,
                       spec: QuantSpec = QuantSpec(), fault_model: str = "flip",
                       mbu_width: int = 2) -> torch.Tensor:
     """Quantize (per-row scale) -> corrupt -> dequantize, in x's dtype."""
+    return quant_bitflip_q_ref(x, seed, rate, faulty_bits, spec,
+                               fault_model=fault_model,
+                               mbu_width=mbu_width)[0]
+
+
+def quant_bitflip_q_ref(x: torch.Tensor, seed, rate, faulty_bits: int,
+                        spec: QuantSpec = QuantSpec(),
+                        fault_model: str = "flip", mbu_width: int = 2
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``quant_bitflip_ref``'s output and its corrupted integers q' as
+    ``[R, n]`` int32 (R the rate's rows)."""
     rates, per_row = row_rates(rate, x.device)
     R = rates.numel()
     if per_row and (x.ndim == 0 or x.shape[0] != R):
@@ -125,7 +137,40 @@ def quant_bitflip_ref(x: torch.Tensor, seed, rate, faulty_bits: int,
     idx = torch.arange(xr.shape[1], dtype=torch.int64, device=x.device)
     q = apply_fault(q, idx, seed, rates[:, None], faulty_bits,
                     fault_model=fault_model, mbu_width=mbu_width)
-    return (q.to(torch.float32) * scale).to(x.dtype).reshape(x.shape)
+    return (q.to(torch.float32) * scale).to(x.dtype).reshape(x.shape), q
+
+
+def quant_bitflip_grad_ref(x: torch.Tensor, q: torch.Tensor, g: torch.Tensor,
+                           spec: QuantSpec = QuantSpec()) -> torch.Tensor:
+    """The gradient ``jax.grad`` takes through the reference's
+    ``quant_bitflip_ref`` (one row) or its ``vmap`` (``[R]`` rows): the
+    cotangent ``g`` of the output, pulled back to ``x``, given the
+    forward's q' (``[R, n]``, any integer type).
+
+    ``round`` has a zero derivative, so the gradient reaches x only
+    through the row's scale ``s = max(amax, tiny) / qmax`` (``amax =
+    max|x_r|`` in x's dtype): ``d s = sum_j f32(g_j) f32(q'_j)``, ``d
+    amax = d s / qmax`` (times the constant's float32 reciprocal, as XLA
+    computes it; halved where ``amax == tiny``, 0 below it, as
+    ``maximum``'s rule gives), cast to x's dtype, shared equally among the
+    entries where ``|x_j| == amax`` (``reduce_max``'s rule, divided in x's
+    dtype), with ``abs``'s sign (+ where ``x_j >= 0``); every other entry
+    gets 0.  No straight-through estimator."""
+    R = q.shape[0]
+    xr = x.reshape(R, -1)
+    ds = (g.reshape(R, -1).to(torch.float32)
+          * q.to(torch.float32)).sum(dim=1, keepdim=True)
+    a = xr.abs()
+    amax = a.amax(dim=1, keepdim=True)
+    af = amax.to(torch.float32)
+    # the constants stay Python scalars: a tensor made from a host value
+    # on the card would make the host wait
+    share = torch.where(af > TINY, 1.0, torch.where(af == TINY, 0.5, 0.0))
+    hit = a == amax
+    d = (ds * spec.inv_qmax * share).to(x.dtype) / hit.sum(
+        dim=1, keepdim=True).to(x.dtype)
+    return torch.where(hit, torch.where(xr >= 0, d, -d), 0.0).reshape(
+        x.shape)
 
 
 def quant_bitflip_group_ref(xs, seeds, rates, faulty_bits: int,

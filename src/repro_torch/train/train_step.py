@@ -6,6 +6,13 @@
 (gradient accumulation in fp32) and remat keep a large config's
 activations within the card's memory.  The step makes the host wait on
 the card nowhere: its metrics are 0-d tensors the caller reads.
+
+With ``fault=(w_rates, a_rates, seed)`` every block's params and input are
+corrupted in the forward as the reference's ``forward(fault=...)`` does,
+through the ``quant_bitflip`` kernel on the card, and the backward takes
+the reference's gradient through them (``kernels.ops.quant_bitflip_group``
+under autograd): it reaches a corrupted tensor through its row scale
+alone, at the entries of its largest magnitude.
 """
 from __future__ import annotations
 
@@ -47,12 +54,11 @@ def make_loss_fn(cfg: ArchConfig, remat: bool = True, fault=None,
                  ) -> Callable:
     """``loss_fn(params, batch)``: the forward's cross entropy against
     ``batch["labels"]``.  ``unroll`` (a scan option in the reference) has
-    no effect on a Python loop."""
-    if fault is not None:
-        raise NotImplementedError(
-            "training with fault injection is ROADMAP item 13b: the "
-            "reference's gradient flows through the quantization's row "
-            "scale only, and the port's fault kernels have no backward")
+    no effect on a Python loop.
+
+    ``fault``: None, or the reference's ``(w_rates, a_rates, seed)``, the
+    rates ``[L]`` float32 tensors by layer (encoder layers first) on the
+    batch's device, the seed a host int."""
     if seq_axis is not None:
         raise NotImplementedError(
             f"seq_axis={seq_axis!r}: the reference's GSPMD layout hint for "
@@ -61,6 +67,7 @@ def make_loss_fn(cfg: ArchConfig, remat: bool = True, fault=None,
     def loss_fn(params, batch):
         logits = forward(params, cfg,
                          {k: v for k, v in batch.items() if k != "labels"},
+                         fault=fault,
                          kv_chunk=kv_chunk, ssd_chunk=ssd_chunk, remat=remat)
         return cross_entropy_loss(logits, batch["labels"])
     return loss_fn
@@ -91,7 +98,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
     The global batch is split into ``microbatches`` chunks along axis 0;
     grads are accumulated in fp32 and averaged, the losses summed in fp32
     and divided, then one AdamW update is applied: the reference's
-    ``lax.scan`` over the chunks, as a loop.  Float32 sums run in IEEE
+    ``lax.scan`` over the chunks, as a loop, every chunk under the same
+    ``fault`` triple (see ``make_loss_fn``).  Float32 sums run in IEEE
     fp32 (``fp32_exact``), as the evaluators' do."""
     loss_fn = make_loss_fn(cfg, remat=remat, fault=fault, unroll=unroll,
                            kv_chunk=kv_chunk, ssd_chunk=ssd_chunk,

@@ -923,6 +923,205 @@ def test_trainer_restart_is_bit_identical_on_card(dev, tmp_path):
 
 
 # --------------------------------------------------------------------------
+# training through quant_bitflip: its q' store and its backward
+# --------------------------------------------------------------------------
+def _q_group(dev, gen):
+    """33 tensors (two launch pairs): bf16 [3] rows, a float32 leaf
+    expanded over 3 rows (stride 0), bf16 rows off a 16-byte boundary,
+    olmo-1b's [2048, 2048] bf16, 7 elements (the scalar tail) and 28
+    float32 tensors of 129; their rates and seeds."""
+    w = torch.randn(64, 96, device=dev, generator=gen)
+    base = torch.randn(1 + 3 * 1000, device=dev, generator=gen).to(
+        torch.bfloat16)
+    xs = [torch.randn(3, 31, 33, device=dev, generator=gen).to(
+              torch.bfloat16), w.expand(3, 64, 96), base[1:].view(3, 1000),
+          (torch.randn(2048, 2048, device=dev, generator=gen) * 0.02).to(
+              torch.bfloat16), torch.randn(7, device=dev, generator=gen)] \
+        + [torch.randn(129, device=dev, generator=gen) for _ in range(28)]
+    rates = [torch.tensor([0.2, 0.0, 0.5], device=dev)] * 3 \
+        + [torch.tensor(0.2, device=dev)] * 30
+    return xs, list(range(33)), rates
+
+
+@pytest.mark.parametrize("model", FAULT_MODELS)
+@pytest.mark.parametrize("bits,fb", [(16, 4), (8, 6), (20, 4), (24, 5),
+                                     (16, 16), (8, 16)])
+def test_quant_bitflip_q_store_bitwise(dev, model, bits, fb):
+    """The flip pass's q' store (the forward of a gradient): the outputs
+    bitwise the call without it, each q' (int32) equal to the plain
+    version's integers, where a 16-bit fault window takes q' beyond the
+    16-bit format (24 bits: the path without kMagic); two launch pairs
+    for the 33 tensors either way."""
+    xs, seeds, rates = _q_group(dev, torch.Generator(device=dev)
+                                .manual_seed(5))
+    spec = QuantSpec(bits)
+    ops.reset_launches()
+    plain = ops.quant_bitflip_group(xs, seeds, rates, fb, spec,
+                                    fault_model=model)
+    got, qs = ops._qb_forward(xs, seeds, rates, fb, spec, model, 2,
+                              keep_q=True)
+    assert ops.launches["quant_bitflip"] == 8
+    for k, p, q, x, s, r in zip(got, plain, qs, xs, seeds, rates):
+        assert _same_bits(k, p)
+        want_y, want_q = ref.quant_bitflip_q_ref(x, s, r, fb, spec,
+                                                 fault_model=model)
+        assert _same_bits(k, want_y)
+        assert q.dtype == torch.int32 and torch.equal(q, want_q)
+
+
+def _grad_bound(x, q, g, spec):
+    """Per row of ``x``: 2^-20 sum_j |g_j q'_j| / qmax, the room another
+    summation order of d scale takes, in x's rows' shape."""
+    R = q.shape[0]
+    s = (g.reshape(R, -1).float().abs() * q.float().abs()).sum(1) \
+        * spec.inv_qmax
+    return (2.0 ** -20 * s)[:, None].expand(R, x.numel() // R).reshape(
+        x.shape)
+
+
+@pytest.mark.parametrize("bits,fb", [(16, 4), (8, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_bitflip_backward_on_card(dev, dtype, bits, fb):
+    """The gradient through the kernel (``quant_bitflip_group`` under
+    autograd) against autograd through the plain version on the card and
+    against the same call on the CPU: the same nonzero entries (each row's
+    largest |x|, two tied in one row), each within ``_grad_bound`` plus
+    half an ulp of x's dtype; the forward bitwise the plain version's,
+    one launch pair for the group, none in the backward.  At 8 bits with
+    16 faulty, q' leaves the format's range."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    w = torch.randn(64, 96, device=dev, generator=gen).to(dtype)
+    tied = torch.randn(2, 1000, device=dev, generator=gen).to(dtype)
+    tied[0, 10], tied[0, 500] = 9.0, -9.0
+    big = (torch.randn(1, 2048, 8192, device=dev, generator=gen)
+           * 0.02).to(dtype)
+    leaves = [w, tied, big]
+    rates = [torch.tensor([0.2, 0.0, 0.5], device=dev),
+             torch.tensor([0.3, 0.2], device=dev),
+             torch.tensor([0.2], device=dev)]
+    spec, seeds = QuantSpec(bits), [3, 4, 5]
+    gs = [torch.randn((3, 64, 96), device=dev, generator=gen).to(dtype),
+          torch.randn(tied.shape, device=dev, generator=gen).to(dtype),
+          torch.randn(big.shape, device=dev, generator=gen).to(dtype)]
+
+    def grads(fn, device):
+        ps = [t.detach().to(device).requires_grad_(True) for t in leaves]
+        xs = [ps[0].expand(3, 64, 96), ps[1], ps[2]]
+        ys = fn(xs, seeds, [r.to(device) for r in rates])
+        torch.autograd.backward(ys, [g.to(device) for g in gs])
+        return ys, [p.grad for p in ps]
+
+    ops.reset_launches()
+    ys, got = grads(lambda xs, s, r: ops.quant_bitflip_group(
+        xs, s, r, fb, spec), dev)
+    torch.cuda.synchronize()
+    assert ops.launches["quant_bitflip"] == 2
+    yp, plain = grads(lambda xs, s, r: ref.quant_bitflip_group_ref(
+        xs, s, r, fb, spec), dev)
+    _, cpu = grads(lambda xs, s, r: ops.quant_bitflip_group(
+        xs, s, r, fb, spec), torch.device("cpu"))
+    for a, b in zip(ys, yp):
+        assert _same_bits(a.detach(), b.detach())
+    xs = [w.expand(3, 64, 96), tied, big]
+    for i, (x, g) in enumerate(zip(xs, gs)):
+        _, q = ref.quant_bitflip_q_ref(x, seeds[i], rates[i], fb, spec)
+        tol = _grad_bound(x, q, g, spec)
+        if i == 0:
+            tol = tol.sum(0)             # the expanded leaf sums its rows
+        tol = tol + got[i].float().abs() * 2.0 ** -(
+            8 if dtype == torch.bfloat16 else 24)
+        for other in (plain[i], cpu[i].to(dev)):
+            assert torch.equal(got[i] != 0, other != 0)
+            assert bool(((got[i].float() - other.float()).abs()
+                         <= tol).all())
+    assert int((got[1][0] != 0).sum()) == 2     # the tied row
+    assert int((got[2] != 0).sum()) == 1
+
+
+def test_kernels_without_backward_refuse_grad_on_card(dev):
+    """``bitflip`` and ``fault_matmul`` with grad enabled and an input
+    that requires grad raise; under ``no_grad`` they run."""
+    qw = torch.randint(-100, 100, (64, 32), dtype=torch.int8, device=dev)
+    scale = torch.tensor(0.01, device=dev, requires_grad=True)
+    x = torch.randn(4, 64, device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.bitflip(qw, 1, 0.2, 4, scale=scale)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.fault_matmul(x, qw, 0.01, 1, 0.2, 4)
+    with torch.no_grad():
+        ops.bitflip(qw, 1, 0.2, 4, scale=scale)
+        ops.fault_matmul(x, qw, 0.01, 1, 0.2, 4)
+
+
+def test_faulted_train_step_on_card(dev):
+    """``make_loss_fn(fault=...)`` on reduced olmo-1b (float32, 0.2 on
+    every layer, 16 bits with 4 faulty) on the card: ``remat=True``
+    bitwise ``remat=False`` (the recomputed launch gives the same bits
+    and q'), four ``quant_bitflip`` launches a layer in the forward (a
+    pair for the leaves, one for the input) and four more with remat, no
+    ``bitflip`` or ``fault_matmul``; the loss and every gradient bitwise
+    the same call through the plain version on the card; against the CPU
+    the loss within 1e-4 and each leaf's nonzero entries equal, values
+    within 1e-3 of the leaf's largest plus 1e-3 of their room
+    (``testing.grad_room``: the CPU tests' bounds against the reference,
+    another summation order); a two-microbatch faulted step waits on the
+    card nowhere."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.testing.grad_room import scale_grad_room
+    from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_step import _value_and_grad, make_loss_fn
+    cfg, cp, cb, gp, gb = _train_fixture(dev, seed=2)
+    L = cfg.n_layers
+    fault_c = (torch.full((L,), 0.2), torch.full((L,), 0.2), 5)
+    fault_g = tuple(t.to(dev) for t in fault_c[:2]) + (5,)
+    ops.reset_launches()
+    lg, gg = _value_and_grad(make_loss_fn(cfg, remat=False, fault=fault_g),
+                             gp, gb)
+    torch.cuda.synchronize()
+    assert ops.launches["quant_bitflip"] == 4 * L
+    assert ops.launches["bitflip"] == ops.launches["fault_matmul"] == 0
+    ops.reset_launches()
+    lr_, gr = _value_and_grad(make_loss_fn(cfg, remat=True, fault=fault_g),
+                              gp, gb)
+    torch.cuda.synchronize()
+    assert ops.launches["quant_bitflip"] == 8 * L
+    assert _same_bits(lg, lr_)
+    for a, b in zip(tree_leaves(gg), tree_leaves(gr)):
+        assert _same_bits(a, b)
+    kernel_group = ops.quant_bitflip_group
+    ops.quant_bitflip_group = lambda xs, s, r, fb, spec, **kw: \
+        ref.quant_bitflip_group_ref(xs, s, r, fb, spec, **kw)
+    try:
+        lp, gp_ = _value_and_grad(make_loss_fn(cfg, remat=False,
+                                               fault=fault_g), gp, gb)
+    finally:
+        ops.quant_bitflip_group = kernel_group
+    assert _same_bits(lg, lp)
+    for a, b in zip(tree_leaves(gg), tree_leaves(gp_)):
+        assert _same_bits(a, b)
+    loss_c = make_loss_fn(cfg, remat=False, fault=fault_c)
+    lc, gc_ = _value_and_grad(loss_c, cp, cb)
+    room = scale_grad_room(lambda p: _value_and_grad(loss_c, p, cb)[1], cp)
+    assert abs(float(lc) - float(lg)) <= 1e-4
+    for a, b, r in zip(tree_leaves(gc_), tree_leaves(gg), tree_leaves(room)):
+        b = b.cpu()
+        assert torch.equal(a != 0, b != 0)
+        assert bool(((a - b).abs() <= 1e-3 * (a.abs().max() + r)).all())
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=2),
+                           microbatches=2, fault=fault_g)
+    st = adamw_init(gp)
+    step(gp, st, gb)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, m = step(gp, st, gb)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.isfinite(float(m["loss"]))
+
+
+# --------------------------------------------------------------------------
 # the kernels on any card, and a pool of slots on one card
 # --------------------------------------------------------------------------
 def test_kernels_on_a_second_card_while_the_first_is_current(dev):

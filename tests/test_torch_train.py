@@ -304,11 +304,18 @@ def test_train_step_matches_reference():
 
 
 def test_fault_and_seq_axis_are_refused():
+    """Only ``seq_axis`` is refused now (ROADMAP item 14b); ``fault`` is
+    accepted (``tests/test_torch_train_fault.py`` holds it against the
+    reference), with or beside ``unroll``."""
     cfg = get_config("olmo-1b").reduced()
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        TS.make_train_step(cfg, TO.AdamWConfig(), fault=(None, None, 0))
-    with pytest.raises(NotImplementedError, match="item 14"):
+    L = cfg.n_layers
+    with pytest.raises(NotImplementedError, match="item 14b"):
         TS.make_loss_fn(cfg, seq_axis="seq")
+    with pytest.raises(NotImplementedError, match="item 14b"):
+        TS.make_train_step(cfg, TO.AdamWConfig(), seq_axis="seq",
+                           fault=(torch.zeros(L), torch.zeros(L), 0))
+    TS.make_train_step(cfg, TO.AdamWConfig(),
+                       fault=(np.zeros(L, np.float32), None, 0))
     TS.make_loss_fn(cfg, unroll=True)         # accepted, and no effect
 
 
