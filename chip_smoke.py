@@ -245,7 +245,7 @@ Phases (any failure raises, and the process exits nonzero):
      slot are bitwise the one-slot run's and every row within 1/n_eval.
      d: with two cards or more, b's searches on ``devices="auto"``;
      otherwise one line says the host has one card.
- 16. The launch stack (``repro_torch.launch``), run last.  a: olmo-1b at
+ 16. The launch stack (``repro_torch.launch``), run before 18.  a: olmo-1b at
      its published widths and depth (bf16) through
      ``steps.abstract_pp_train_step`` on a ``(pod=4, data=1, model=1)``
      mesh of four slots of the card, the pipeline cut by phase 9's
@@ -311,6 +311,34 @@ Phases (any failure raises, and the process exits nonzero):
      step's busy time and idle share.  c: ``repro_torch.
      serve_fault_resilient.main(["--device", "cuda"])``, the online-phase
      entry point, once: its plan, reconfiguration events and swaps.
+ 18. FSDP x tensor parallelism (``launch/collectives.py``, the
+     ``layers.Sharded`` blocks), run after phase 16, olmo-1b at its
+     published widths and depth in bf16 on slots of the card, params and
+     AdamW state laid out by ``param_specs`` / ``opt_state_specs``
+     (``shardings.place_params``).  a: ``abstract_train_step`` on
+     ``(data=2, model=2)``, phase 14's first batch (8 x 256, vocab 4096),
+     ``TP_STEPS`` steps with remat: the first loss beside the unsharded
+     ``make_train_step(microbatches=2)``'s (limit 2^-8 of it: the
+     row-parallel sums round once a slot before their fp32 sum) and the
+     updated params beside its update (limit 2 lr + 2^-6 max(|p|, |p'|)
+     an element: AdamW's first step moves a param by about lr·sign(g), and
+     bf16 rounds both results), the losses, step walls, host waits a step (limit 1, sync
+     debug mode), the allocator's peak and the collective bytes a step
+     (``collectives.BYTES``).  b: prefill (8 prompts of 64) and
+     ``SHARD_STEPS`` faulted decode steps (phase 16b's regime) on ``(1,
+     4)`` and on ``(2, 2)``, beside the unsharded steps fed the same tokens:
+     the logits' largest difference, the share of argmax tokens that agree
+     (it fails below ``TP_AGREE``) and the ``quant_bitflip`` kernels a
+     step and a computing row (each corrupts its layers whole, one grouped
+     pair a layer: it fails unless ``2 n_layers`` a row).  On ``(2, 2)``
+     the batch splits over the data rows, so each row's activation grid
+     is its own half batch's.  c: a ``seq_axis="model"`` train step on
+     ``(1, 4)``: its loss beside a's unsharded one (limit 2^-8).  d: the
+     pipeline's two stages on ``(1, 1, 2)`` sub-meshes (a ``(2, 1, 2)``
+     mesh) cut by phase 9's plan, ``TP_STEPS`` steps: the first loss
+     beside ``make_loss_fn``'s (limit 2^-8), no port kernel.  e: the dry
+     run (``launch/dryrun.py``) of olmo-1b x train_4k on a 16x16 mesh of
+     meta devices: its wall and per-device bytes.
 The lines before the last are the ``{"kernels": [...]}`` record, one
 entry a kernel wrapper, each counting its own launches (``ops.launches``):
 ``launches`` are those of the kernel's main path, the CNN staged search of
@@ -336,7 +364,8 @@ and runs no port kernel), ``shard_decode_launches`` phase 16b's sharded
 decode steps
 (counted over those steps alone, not the unsharded ones beside them);
 ``fault_train_launches`` phase 17b's faulted training step's (a step's
-mean over its steps); ``train_shapes`` phase 17a's rows for
+mean over its steps); ``tp_decode_launches`` phase 18b's tensor-parallel
+decode steps on both meshes; ``train_shapes`` phase 17a's rows for
 ``quant_bitflip`` (``ms`` with the q' store, ``nostore_ms`` without,
 ``backward_ms`` the plain PyTorch backward); ``lm_shapes`` the LM shapes of
 phase 3 and ``decode_shapes`` phase 13's, its last row one decode layer
@@ -684,7 +713,7 @@ RECORD_KEYS = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
                "seamless_candidate_launches", "reconfig_launches",
                "decode_shapes", "serve_launches", "train_probe_launches",
                "pool_launches", "pp_launches", "shard_decode_launches",
-               "train_shapes", "fault_train_launches")
+               "train_shapes", "fault_train_launches", "tp_decode_launches")
 
 
 # fault_matmul on bf16 x at olmo-1b's projections, M = B S = 2048:
@@ -3905,6 +3934,317 @@ def launch_phase(dev, records, partition, cfg=None, B=TRAIN_B, S=TRAIN_S,
                              f"did not fall: {r.stderr[-2000:]}")
 
 
+# --------------------------------------------------------------------------
+# phase 18: FSDP x tensor parallelism
+# --------------------------------------------------------------------------
+TP_STEPS, TP_AGREE = 3, 0.75
+
+
+def _bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    return t.float().abs() * 2.0 ** -7
+
+
+def tp_train_stage(dev, cfg, B, S, vocab, steps):
+    """Phase 18a (and c): olmo-1b's FSDP x TP train step on (2, 2) slots
+    of the card against the unsharded step, then a ``seq_axis`` step on
+    (1, 4).  Returns the unsharded first loss."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import collectives as C
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import abstract_train_step
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train import AdamWConfig
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    on_card = dev.type == "cuda"
+    shape = ShapeSpec("tp", seq_len=S, global_batch=B, kind="train")
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=steps)
+    data = next(TokenStream(vocab=vocab, seq_len=S, batch=B, seed=0))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    params = init_lm(cfg, seed=0, device=dev)
+    want, wstate, wm = make_train_step(cfg, opt, microbatches=2)(
+        params, init_train_state(cfg, params, opt), batch)
+    ref_loss = float(wm["loss"])
+    del wstate
+    mesh = make_test_mesh((2, 2), pool=[dev] * 4)
+    fn, (params_s, _, _) = abstract_train_step(cfg, mesh, shape, opt,
+                                               microbatches=1)
+    placed = SH.place_params(params, mesh)
+    state = SH.place_opt_state(init_train_state(cfg, params, opt), params,
+                               mesh)
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    hist, walls, waits, coll = [], [], [], []
+    worst, n_el = 0.0, 0
+    for i in range(steps):
+        C.reset_bytes()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if on_card and i:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                placed, state, m = fn(placed, state, batch)
+                loss = m["loss"].item()
+                walls.append(time.perf_counter() - t0)
+            finally:
+                if on_card:
+                    torch.cuda.set_sync_debug_mode("default")
+        coll.append(dict(C.BYTES))
+        if i:
+            waits.append(sum("called a synchronizing" in str(w.message)
+                             for w in caught))
+        hist.append(loss)
+        if i == 0:                   # the update against the unsharded one
+            got = SH.gather_params(placed, params_s, mesh)
+            for a, b in zip(tree_leaves(got), tree_leaves(want)):
+                # both results rounded to bf16: half a spacing each
+                bound = 2 * TRAIN_LR + 2 * _bf16_ulp(torch.maximum(
+                    a.float().abs(), b.float().abs()))
+                worst = max(worst, float(((a.float() - b.float()).abs()
+                                          / bound).max()))
+                n_el += b.numel()
+            del got
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    del want
+    diff = abs(hist[0] - ref_loss)
+    log(f"phase18a {cfg.name} FSDP x TP train step on (data=2, model=2) "
+        f"slots of {dev}, {B}x{S} tokens: first loss {hist[0]:.6f} against "
+        f"the unsharded make_train_step(microbatches=2)'s {ref_loss:.6f} "
+        f"(|diff| {diff:.6f}, limit 2^-8 = {2 ** -8 * abs(ref_loss):.6f}); "
+        f"updated params over {n_el} elements: max |diff| / (2 lr + 2^-6 "
+        f"max(|p|, |p'|)) = {worst:.4f} (limit 1); losses {[round(x, 5) for x in hist]}; "
+        f"step walls {[round(1e3 * w, 3) for w in walls]} ms; host waits a "
+        f"step {waits}; max_memory_allocated {peak}; collective bytes a "
+        f"step {coll[-1]} (total {sum(coll[-1].values())})")
+    problems = []
+    if not np.isfinite(hist).all():
+        problems.append("a non-finite loss")
+    if diff > 2 ** -8 * abs(ref_loss):
+        problems.append(f"first loss off by {diff}")
+    if worst > 1:
+        problems.append(f"updated params off by {worst} x the bound")
+    if on_card and any(w > 1 for w in waits):
+        problems.append(f"host waits a step {waits}")
+    if problems:
+        raise AssertionError("phase18a: " + "; ".join(problems))
+    del placed, state
+    gc.collect()
+    # 18c: seq_axis="model" on (1, 4)
+    mesh = make_test_mesh((1, 4), pool=[dev] * 4)
+    fn, _ = abstract_train_step(cfg, mesh, shape, opt, microbatches=2,
+                                seq_axis="model")
+    placed = SH.place_params(params, mesh)
+    state = SH.place_opt_state(init_train_state(cfg, params, opt), params,
+                               mesh)
+    del params
+    gc.collect()
+    t0 = time.perf_counter()
+    _, _, m = fn(placed, state, batch)
+    loss = m["loss"].item()
+    wall = time.perf_counter() - t0
+    log(f"phase18c seq_axis='model' train step on (data=1, model=4): loss "
+        f"{loss:.6f} against the unsharded {ref_loss:.6f} (|diff| "
+        f"{abs(loss - ref_loss):.6f}, limit {2 ** -8 * abs(ref_loss):.6f}); "
+        f"wall {1e3 * wall:.3f} ms (the first step)")
+    if not abs(loss - ref_loss) <= 2 ** -8 * abs(ref_loss):
+        raise AssertionError(f"phase18c: loss {loss} against {ref_loss}")
+    del placed, state
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+
+def tp_decode_stage(dev, records, partition, cfg, B, prompt, steps,
+                    max_len):
+    """Phase 18b: prefill and faulted decode with placed params on (1, 4)
+    and (2, 2) slots against the unsharded steps fed the same tokens."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core import POD_TIERS_4
+    from repro_torch.kernels import ops
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import (abstract_serve_decode,
+                                          abstract_serve_prefill)
+    from repro_torch.models.transformer import decode_step, init_lm, prefill
+
+    on_card = dev.type == "cuda"
+    params = init_lm(cfg, seed=0, device=dev)
+    toks = np.random.default_rng(7).integers(0, cfg.vocab, (B, prompt))
+    batch = {"tokens": torch.from_numpy(toks.astype(np.int32)).to(dev)}
+    scale = np.array([d.fault_scale for d in POD_TIERS_4], np.float32)
+    w = torch.from_numpy(0.2 * scale[np.asarray(partition)]).to(dev)
+    per_row = 2 * cfg.n_layers
+    totals = {name: 0 for name in records}
+    for shp in ((1, 4), (2, 2)):
+        mesh = make_test_mesh(shp, pool=[dev] * 4)
+        pfn, _ = abstract_serve_prefill(cfg, mesh, ShapeSpec(
+            "p", seq_len=max_len, global_batch=B, kind="prefill"))
+        dfn, _ = abstract_serve_decode(cfg, mesh, ShapeSpec(
+            "d", seq_len=max_len, global_batch=B, kind="decode"))
+        rows = dfn.n_rows
+        placed = SH.place_params(params, mesh)
+        with torch.no_grad():
+            last, shards = pfn(placed, batch)
+            logits, cache = prefill(params, cfg, batch, max_len)
+        top = logits[:, -1].float().abs().max().item()
+        pdiff = (last.float() - logits[:, -1].float()).abs().max().item()
+        tok = logits[:, -1].argmax(-1).to(torch.int32)
+        diffs, agree, launched, walls = [], [], [], []
+        for i in range(steps):
+            pos = torch.full((B,), prompt + i, dtype=torch.int32, device=dev)
+            fault = (w, w, 1000 + i)
+            if on_card:
+                torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                ls, shards = dfn(placed, shards, {"tokens": tok,
+                                                  "positions": pos},
+                                 fault=fault)
+            if on_card:
+                torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            launched.append(launch_counts())
+            with torch.no_grad():
+                lu, cache = decode_step(params, cfg, cache, tok, pos,
+                                        fault=fault)
+            diffs.append((ls.float() - lu.float()).abs().max().item())
+            agree.append((ls.argmax(-1) == lu.argmax(-1)).float().mean()
+                         .item())
+            top = max(top, lu.float().abs().max().item())
+            tok = lu.argmax(-1).to(torch.int32)
+        qb = [c["quant_bitflip"] for c in launched]
+        share = float(np.mean(agree))
+        log(f"phase18b {cfg.name} prefill ({B} prompts of {prompt}) and "
+            f"{steps} faulted decode steps on (data={shp[0]}, "
+            f"model={shp[1]}) slots of {dev}, placed params, {rows} "
+            f"computing rows: prefill logits max |diff| {pdiff:.5f}; decode "
+            f"logits max |diff| {max(diffs):.5f} (largest logit {top:.3f}); "
+            f"argmax agreement a step {[round(a, 3) for a in agree]} (mean "
+            f"{share:.4f}, limit {TP_AGREE}); quant_bitflip kernels a step "
+            f"{qb} ({[q // rows for q in qb]} a row, unsharded "
+            f"{per_row}); step walls {[round(1e3 * x, 3) for x in walls]} "
+            f"ms")
+        if not np.isfinite(diffs).all() or share < TP_AGREE:
+            raise AssertionError(f"phase18b {shp}: argmax agreement {share}")
+        if on_card and any(q != per_row * rows for q in qb):
+            raise AssertionError(f"phase18b {shp}: quant_bitflip kernels a "
+                                 f"step {qb}, expected {per_row} a row")
+        for name in records:
+            totals[name] += sum(c[name] for c in launched)
+        del placed, shards, cache
+        gc.collect()
+    for name, r in records.items():
+        r["tp_decode_launches"] = totals[name]
+    del params
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+
+def tp_pipeline_stage(dev, partition, cfg, B, S, vocab, steps):
+    """Phase 18d: two pipeline stages over (1, 2) sub-meshes of the card."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import pipeline as pp
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import abstract_pp_train_step
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train import AdamWConfig
+    from repro_torch.train.train_step import init_train_state, make_loss_fn
+
+    mesh = make_test_mesh((2, 1, 2), ("pod", "data", "model"),
+                          pool=[dev] * 4)
+    shape = ShapeSpec("pp", seq_len=S, global_batch=B, kind="train")
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=steps)
+    fn, _ = abstract_pp_train_step(cfg, mesh, shape, opt, n_micro=2,
+                                   partition=partition)
+    data = next(TokenStream(vocab=vocab, seq_len=S, batch=B, seed=0))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    params = init_lm(cfg, seed=0, device=dev)
+    with torch.no_grad():
+        ref = make_loss_fn(cfg, remat=False)(params, batch).item()
+    placed = pp.place_pp_params(pp.to_pp(params, fn.cuts), mesh)
+    del params
+    gc.collect()
+    state = init_train_state(cfg, placed, opt)
+    hist, walls = [], []
+    ops.reset_launches()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        placed, state, m = fn(placed, state, batch)
+        hist.append(m["loss"].item())
+        walls.append(time.perf_counter() - t0)
+    launched = launch_counts()
+    diff = abs(hist[0] - ref)
+    log(f"phase18d {cfg.name} pipelined over two (data=1, model=2) stages "
+        f"of {dev}, group cuts {fn.cuts}: first loss {hist[0]:.6f} against "
+        f"make_loss_fn's {ref:.6f} (|diff| {diff:.6f}, limit "
+        f"{2 ** -8 * abs(ref):.6f}); losses {[round(x, 5) for x in hist]}; "
+        f"step walls {[round(1e3 * w, 3) for w in walls]} ms; port kernel "
+        f"launches {launched}")
+    if diff > 2 ** -8 * abs(ref) or any(launched.values()):
+        raise AssertionError(f"phase18d: loss {hist[0]} against {ref}, "
+                             f"launches {launched}")
+    del placed, state
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def tp_dryrun_stage():
+    """Phase 18e: the dry run of olmo-1b x train_4k on 16x16 meta
+    slots."""
+    from repro_torch.launch.dryrun import run_cell
+
+    t0 = time.perf_counter()
+    rec = run_cell("olmo-1b", "train_4k", out_dir=os.path.join(
+        HERE, "chiprun_out", "torch_dryrun"))
+    wall = time.perf_counter() - t0
+    mem, r = rec["memory"], rec["roofline"]
+    log(f"phase18e dry run olmo-1b x train_4k on 16x16 meta slots: wall "
+        f"{wall:.2f} s (probes {rec['probe_compile_s']} s); per device "
+        f"argument {mem['argument_bytes']} B, output {mem['output_bytes']} "
+        f"B, temp {mem['temp_bytes']} B, peak {mem['peak_bytes']} B; step "
+        f"flops {rec['flops']:.4e}, bytes {rec['bytes_accessed']:.4e}, "
+        f"collective bytes {rec['collective_bytes']:.4e}; roofline "
+        f"bottleneck {r['bottleneck']}, lower bound "
+        f"{r['step_time_lower_bound_s']:.4f} s; model_flops / flops "
+        f"{rec['useful_flop_ratio']:.4f}")
+    if rec["status"] != "ok" or not rec["flops"] > 0:
+        raise AssertionError(f"phase18e: {rec}")
+
+
+def tp_phase(dev, records, partition, cfg=None, B=TRAIN_B, S=TRAIN_S,
+             vocab=TRAIN_VOCAB, steps=TP_STEPS, serve_B=SERVE_BATCH,
+             prompt=SHARD_PROMPT, dsteps=SHARD_STEPS, max_len=SHARD_LEN,
+             dry=True):
+    """Phase 18 (see the docstring).  The arguments other than ``dev``,
+    ``records`` and ``partition`` let a rehearsal on the CPU run it at a
+    small size."""
+    from repro_torch.configs import get_config
+
+    cfg = cfg or get_config("olmo-1b")
+    t0 = time.perf_counter()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    tp_train_stage(dev, cfg, B, S, vocab, steps)
+    tp_decode_stage(dev, records, partition, cfg, serve_B, prompt, dsteps,
+                    max_len)
+    tp_pipeline_stage(dev, partition, cfg, B, S, vocab, steps)
+    if dry:
+        tp_dryrun_stage()
+    log(f"phase18 wall {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4112,6 +4452,10 @@ def main() -> int:
 
     # phase 16: the launch stack (phase 9's plan cuts the pipeline)
     launch_phase(dev, records, lm_partition)
+    torch.cuda.empty_cache()
+
+    # phase 18: FSDP x tensor parallelism
+    tp_phase(dev, records, lm_partition)
 
     kernels = [dict(name=name, **{k: r[k] for k in RECORD_KEYS if k in r})
                for name, r in records.items()]

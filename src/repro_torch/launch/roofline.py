@@ -15,10 +15,12 @@ Terms (seconds a step, aggregate over chips):
   memory     = bytes_accessed / (chips x hbm_bw)
   collective = collective_bytes / (chips x link_bw)
 
-The reference's ``collective_bytes_from_hlo`` parses the collectives out
-of XLA's compiled HLO text; PyTorch compiles no HLO, so it has no
-counterpart here, and a record's ``collective_bytes`` comes from its
-caller.
+A record's ``collective_bytes`` comes from the port's collectives'
+counter (``launch/collectives.py``'s ``BYTES``, by the reference's
+conventions: an all-gather its output bytes, an all-reduce 2x its input,
+the others their input), the counterpart of the reference's
+``collective_bytes_from_hlo``, which parses them out of XLA's HLO text;
+``launch/dryrun.py`` fills the record.
 """
 from __future__ import annotations
 

@@ -23,8 +23,13 @@ equal, as a tuple, to the reference's ``PartitionSpec``.
 :func:`shard_tree` puts each mesh slot's local slice of every leaf on that
 slot's device, :func:`gather_tree` puts the slices back together.  The
 steps (``launch/steps.py``) place batches and caches with them, and the
-pipeline its stage stacks; params are not laid out over ``"data"`` and
-``"model"`` (FSDP, tensor parallelism: ROADMAP item 14b).
+pipeline its stage stacks.  :func:`place_params` / :func:`place_opt_state`
+lay params and AdamW state out by :func:`param_specs` /
+:func:`opt_state_specs` (FSDP x tensor parallelism; :func:`gather_params`
+and :func:`gather_opt_state` undo it), :func:`row_params` shows one data
+row the params as ``layers.Sharded`` leaves over its model slots, and
+:func:`owned` marks the slots that hold a distinct shard of each leaf
+(the ones a global norm counts).
 """
 from __future__ import annotations
 
@@ -37,9 +42,13 @@ import torch
 from repro_torch._tree import (tree_flatten, tree_flatten_with_path,
                                tree_unflatten)
 from repro_torch.configs.base import ArchConfig, ShapeSpec
+from repro_torch.models.layers import Sharded
 
 __all__ = ["P", "param_specs", "batch_specs", "cache_pspecs",
-           "opt_state_specs", "logical_name", "shard_tree", "gather_tree"]
+           "opt_state_specs", "logical_name", "shard_tree", "gather_tree",
+           "place_params", "gather_params", "place_opt_state",
+           "gather_opt_state", "row_params", "owned", "slot_index",
+           "local_bytes", "spec_axes"]
 
 _COL = ("wq", "wk", "wv", "w1", "w3", "in_x", "in_g", "in_proj")
 _ROW = ("wo", "w2", "out", "out_proj")
@@ -86,6 +95,11 @@ def _leaf_spec(name: str, ndim: int) -> P:
 
 def _axes(ax) -> tuple[str, ...]:
     return () if ax is None else (ax if isinstance(ax, tuple) else (ax,))
+
+
+def spec_axes(spec: P) -> set:
+    """Every axis ``spec`` splits some dimension over."""
+    return {a for ax in spec for a in _axes(ax)}
 
 
 def _divisible(spec: P, shape, mesh) -> P:
@@ -253,7 +267,7 @@ def gather_tree(placed: list, specs, mesh, device=None):
     leaves, treedef = _leaves(placed[0], specs)
     full = []
     for j, (_, leaf, spec) in enumerate(leaves):
-        used = {a for ax in spec for a in _axes(ax)}
+        used = spec_axes(spec)
         shape = list(leaf.shape)
         for d, ax in enumerate(spec):
             shape[d] *= math.prod(mesh.shape[a] for a in _axes(ax))
@@ -268,3 +282,95 @@ def gather_tree(placed: list, specs, mesh, device=None):
             view.copy_(per_slot[i][j])
         full.append(out)
     return tree_unflatten(treedef, full)
+
+
+# --------------------------------------------------------------------------
+# params and optimizer state laid out by their specs
+# --------------------------------------------------------------------------
+def place_params(params, mesh) -> list:
+    """One tree a mesh slot: every leaf's local slice by
+    :func:`param_specs` (``shard_tree``)."""
+    return shard_tree(params, param_specs(params, mesh), mesh)
+
+
+def gather_params(placed: list, like, mesh, device=None):
+    """The inverse of :func:`place_params`; ``like`` is the whole tree or
+    its stand-in (``steps.abstract_params``), whose shapes give the
+    specs."""
+    return gather_tree(placed, param_specs(like, mesh), mesh, device)
+
+
+def place_opt_state(state: dict, like, mesh) -> list:
+    """AdamW state ``{"m", "v", "step"}`` laid out by
+    :func:`opt_state_specs`: one ``{"m", "v", "step"}`` a slot."""
+    return shard_tree(state, opt_state_specs(param_specs(like, mesh)), mesh)
+
+
+def gather_opt_state(placed: list, like, mesh, device=None) -> dict:
+    """The inverse of :func:`place_opt_state`."""
+    return gather_tree(placed, opt_state_specs(param_specs(like, mesh)),
+                       mesh, device)
+
+
+def slot_index(mesh, coords: dict) -> int:
+    """The row-major flat index of the slot at ``coords``."""
+    return int(np.ravel_multi_index(
+        tuple(coords[a] for a in mesh.axis_names), mesh.devices.shape))
+
+
+def _dim_of(spec: P, axis: str):
+    """The dimension of ``spec`` split over ``axis`` (None: none)."""
+    for d, ax in enumerate(spec):
+        if axis in _axes(ax):
+            return d
+    return None
+
+
+def row_params(placed: list, specs, mesh, row: dict):
+    """The param tree as the data row at ``row`` (the coordinates of every
+    axis but ``"model"``) sees it: each leaf a ``layers.Sharded`` over the
+    row's model slots, each slot holding its pieces along ``"data"`` (all
+    its model column's data slots' when the leaf is split over ``"data"``,
+    else its own).  Specs name ``"data"`` and ``"model"`` only."""
+    leaves, treedef = _leaves(placed[0], specs)
+    nm, nd = mesh.shape["model"], mesh.shape["data"]
+    flat = [tree_flatten(t)[0] for t in placed]
+    cols = [dict(row, model=m) for m in range(nm)]
+    devs = tuple(mesh.devices.flat[slot_index(mesh, c)] for c in cols)
+    out = []
+    for j, (_, _, spec) in enumerate(leaves):
+        ddim, mdim = _dim_of(spec, "data"), _dim_of(spec, "model")
+        datas = range(nd) if ddim is not None else [row["data"]]
+        parts = tuple(tuple(flat[slot_index(mesh, dict(c, data=d))][j]
+                            for d in datas) for c in cols)
+        out.append(Sharded(parts, devs, ddim, mdim))
+    return tree_unflatten(treedef, out)
+
+
+def owned(tree, specs, mesh) -> list:
+    """One tree of bools a slot, over ``tree``'s structure: whether the
+    slot's slice of each leaf is the first copy of its shard (every
+    coordinate along an axis the leaf is not split over is 0), the slices
+    :func:`gather_tree` reads."""
+    leaves, treedef = _leaves(tree, specs)
+    out = []
+    for _, _, coords in _slots(mesh):
+        out.append(tree_unflatten(treedef, [
+            not any(coords[a] for a in mesh.axis_names
+                    if a not in spec_axes(spec))
+            for _, _, spec in leaves]))
+    return out
+
+
+def local_bytes(tree, specs, mesh) -> int:
+    """Bytes of one slot's local slices of ``tree`` (stand-ins will do)
+    laid out by ``specs``: every dimension divided by the size of the axes
+    it is split over."""
+    leaves, _ = _leaves(tree, specs)
+    total = 0
+    for _, leaf, spec in leaves:
+        n = leaf.numel()
+        for ax in spec:
+            n //= math.prod(mesh.shape[a] for a in _axes(ax))
+        total += n * leaf.element_size()
+    return total

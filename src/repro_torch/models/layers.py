@@ -7,6 +7,21 @@ scan) and the Mamba2 SSD block (chunked scan), and decode attention: the
 prefill that also returns K/V, one token against the cache, and the
 combine of its partials.
 
+Tensor parallelism (the reference's GSPMD layout of ``param_specs``, made
+explicit): a weight laid out over one data row's model slots is a
+:class:`Sharded` leaf.  The attention's ``wq``/``wk``/``wv`` are
+column-parallel and ``wo`` row-parallel, the dense MLP's ``w1``/``w3``
+column-parallel and ``w2`` row-parallel: each model slot computes its
+slice and one ``all_reduce`` (fp32, slot order) follows each row-parallel
+product.  Where every slot holds whole heads (both head counts divide the
+slots) a slot attends over its own heads; where a shard boundary falls
+inside a head, or with ``seq_axis`` (each slot attends for its share of
+the queries), q/k/v are all-gathered over the slots first.  The MoE,
+RG-LRU and SSD blocks and the norms gather their weights whole on the
+row's first slot and compute there (:func:`tp_block`).  Activations
+between the blocks are replicated: the driver keeps one copy, on the
+row's first slot.
+
 Row convention: a rate is ``None`` (the float path: no quantization at
 all), or a float32 tensor ``[R]`` of per-row rates, one row per candidate
 of the population (rate 0 is fake-quantization).  Corrupting a float
@@ -42,6 +57,7 @@ from repro_torch._tree import tree_flatten, tree_map, tree_unflatten
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.faultmodel import FAULT_MODELS
+from repro_torch.launch import collectives as C
 from repro_torch.quant.fixedpoint import QuantSpec, quantize
 
 __all__ = ["QTensor", "FaultedQ", "quantize_leaf", "quantize_params",
@@ -52,7 +68,9 @@ __all__ = ["QTensor", "FaultedQ", "quantize_leaf", "quantize_params",
            "flash_attention", "attention_fwd", "attention_prefill",
            "decode_attention", "lse_combine", "init_mlp", "mlp_fwd",
            "init_moe", "moe_fwd", "causal_conv1d", "init_rglru",
-           "rglru_core", "rglru_fwd", "init_ssd", "ssd_fwd"]
+           "rglru_core", "rglru_fwd", "init_ssd", "ssd_fwd", "Sharded",
+           "whole_tree", "first_leaf", "tp_block", "split_like", "project",
+           "row_product"]
 
 # Fixed-point width of the transformer-path fault model (the paper's
 # 16-bit / 4-LSB example); the CNNs pass their INT8-class widths
@@ -120,6 +138,149 @@ class FaultedQ:
     faulty_bits: int
     fault_model: str = "flip"
     mbu_width: int = 2
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Sharded:
+    """A weight leaf laid out over one data row's model slots: slot ``m``
+    (on ``devices[m]``) holds ``parts[m]``, its pieces along ``"data"`` in
+    data order (one piece when the leaf is not split over ``"data"``);
+    ``data_dim`` / ``model_dim`` are the dimensions split over each axis
+    (None: whole).  A leaf not split over ``"model"`` is used from slot 0,
+    the row's first.  :meth:`local` all-gathers a slot's pieces over
+    ``"data"`` before use (ZeRO-3), :meth:`whole` also over ``"model"``."""
+
+    parts: tuple
+    devices: tuple
+    data_dim: int | None = None
+    model_dim: int | None = None
+
+    @property
+    def nm(self) -> int:
+        return len(self.devices)
+
+    @property
+    def split(self) -> bool:
+        """Split over more than one model slot?"""
+        return self.model_dim is not None and self.nm > 1
+
+    def _drop(self, d):
+        return None if d is None else d - 1
+
+    def __getitem__(self, g: int) -> "Sharded":
+        """Index ``g`` of the leading (never split) axis."""
+        return Sharded(tuple(tuple(t[g] for t in ps) for ps in self.parts),
+                       self.devices, self._drop(self.data_dim),
+                       self._drop(self.model_dim))
+
+    def unbind(self, dim: int = 0) -> list:
+        """The leading axis cut once a piece (``_unstack``'s ``unbind``)."""
+        cols = [[t.unbind(0) for t in ps] for ps in self.parts]
+        return [Sharded(tuple(tuple(c[g] for c in ps) for ps in cols),
+                        self.devices, self._drop(self.data_dim),
+                        self._drop(self.model_dim))
+                for g in range(len(cols[0][0]))]
+
+    def local(self, m: int) -> torch.Tensor:
+        """Model slot ``m``'s slice, whole along ``"data"``, on its
+        device."""
+        ps, dev = self.parts[m], self.devices[m]
+        if self.data_dim is None:
+            return ps[0].to(dev, non_blocking=True)
+        return C.all_gather(list(ps), self.data_dim, [dev])[0]
+
+    def whole(self) -> torch.Tensor:
+        """The whole leaf on the row's first slot."""
+        if not self.split:
+            return self.local(0)
+        return C.all_gather([self.local(m) for m in range(self.nm)],
+                            self.model_dim, [self.devices[0]])[0]
+
+
+def whole_tree(tree):
+    """Every :class:`Sharded` leaf of ``tree`` made whole on its row's first
+    slot; other leaves stay."""
+    return tree_map(lambda t: t.whole() if isinstance(t, Sharded) else t,
+                    tree)
+
+
+_TP_KEYS = ("attn", "xattn", "mlp", "dense_mlp")
+
+
+def first_leaf(tree):
+    """The first leaf of ``tree`` in depth-first order (None: no leaf); a
+    param tree's leaves are all :class:`Sharded` or none are."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for t in tree:
+            leaf = first_leaf(t)
+            if leaf is not None:
+                return leaf
+        return None
+    return tree
+
+
+def tp_block(p: dict) -> dict:
+    """A block's params for its forward: as they are without a
+    :class:`Sharded` leaf; whole (gathered over ``"data"``) on one model
+    slot; else the attention and dense MLP sub-trees stay sharded (their
+    forwards split over the slots) and the rest (norms, MoE, RG-LRU, SSD)
+    is gathered whole on the row's first slot."""
+    leaf = first_leaf(p)
+    if not isinstance(leaf, Sharded):
+        return p
+    if leaf.nm == 1:
+        return whole_tree(p)
+    return {k: v if k in _TP_KEYS else whole_tree(v) for k, v in p.items()}
+
+
+def split_like(t: torch.Tensor, like: Sharded) -> Sharded:
+    """A whole leaf on the row's first slot split over the model slots as
+    ``like`` is (already whole along ``"data"``): the pieces are
+    ``t.chunk`` slices, bitwise ``t``'s."""
+    if not like.split:
+        return Sharded(((t,),) * like.nm, like.devices, None, None)
+    pieces = C.scatter(t, like.model_dim, list(like.devices))
+    return Sharded(tuple((p,) for p in pieces), like.devices, None,
+                   like.model_dim)
+
+
+def project(x: torch.Tensor, w, devices=None, mm=None) -> torch.Tensor:
+    """``x @ w`` of a replicated ``x`` (on the row's first slot) whole, on
+    each of ``devices`` (default: the first slot only; a list of one
+    tensor a device): a column-parallel ``w`` computes each slot's columns
+    and all-gathers them; a plain or unsplit ``w`` multiplies whole.
+    ``mm`` is the product (default ``ref.matmul``)."""
+    mm = kref.matmul if mm is None else mm
+    if not isinstance(w, Sharded):
+        return mm(x, w)
+    devs = [w.devices[0]] if devices is None else devices
+    if not w.split:
+        y = mm(x, w.whole())
+        out = [y.to(d, non_blocking=True) for d in devs]
+    else:
+        xs = C.broadcast(x, w.devices)
+        out = C.all_gather([mm(xs[m], w.local(m)) for m in range(w.nm)],
+                           -1, devs)
+    return out[0] if devices is None else out
+
+
+def row_product(o: torch.Tensor, w, mm=None) -> torch.Tensor:
+    """``o @ w`` of a replicated ``o`` whose rows ``w`` splits over the
+    model slots (row-parallel): each slot multiplies its columns of ``o``
+    by its rows of ``w``, and an ``all_reduce`` sums them on the row's
+    first slot.  A plain or unsplit ``w`` multiplies whole."""
+    mm = kref.matmul if mm is None else mm
+    if not isinstance(w, Sharded):
+        return mm(o, w)
+    if not w.split:
+        return mm(o, w.whole())
+    os_ = C.broadcast(o, w.devices)
+    width = o.shape[-1] // w.nm
+    return C.all_reduce([mm(os_[m][..., m * width:(m + 1) * width],
+                            w.local(m)) for m in range(w.nm)],
+                        [w.devices[0]])[0]
 
 
 def quantize_leaf(x: torch.Tensor, bits: int, *, matmul: bool = False) -> QTensor:
@@ -403,7 +564,8 @@ def attention_fwd(p: dict, x: torch.Tensor, positions: torch.Tensor, *,
                   n_heads: int, n_kv: int, head_dim: int, rope_theta: float,
                   window: int | None = None, softcap: float = 0.0,
                   kv_chunk: int = 1024, memory: torch.Tensor | None = None,
-                  memory_pos: torch.Tensor | None = None) -> torch.Tensor:
+                  memory_pos: torch.Tensor | None = None,
+                  seq_axis: str | None = None) -> torch.Tensor:
     """Causal self-attention of ``x [R, B, S, D]``, or, with ``memory [R,
     B, Sk, D]`` given, attention to the memory: K and V projected from it,
     no rope on either side, not causal (the encoder's bidirectional
@@ -411,27 +573,39 @@ def attention_fwd(p: dict, x: torch.Tensor, positions: torch.Tensor, *,
     :func:`fault_dense`; the attention itself runs one row at a time, so
     its einsums see the same shapes whatever the row count (a batched
     einsum may pick another algorithm, and so another summation order, for
-    another R)."""
+    another R).  ``seq_axis`` splits the queries over the model slots of
+    :class:`Sharded` weights (the reference's layout hint; no effect on
+    plain ones)."""
     return _attend(p, x, positions, n_heads=n_heads, n_kv=n_kv,
                    head_dim=head_dim, rope_theta=rope_theta, window=window,
                    softcap=softcap, kv_chunk=kv_chunk, memory=memory,
-                   memory_pos=memory_pos)[0]
+                   memory_pos=memory_pos, seq_axis=seq_axis,
+                   need_kv=False)[0]
 
 
 def attention_prefill(p: dict, x: torch.Tensor, positions: torch.Tensor, *,
                       n_heads: int, n_kv: int, head_dim: int,
                       rope_theta: float, window: int | None = None,
-                      softcap: float = 0.0, kv_chunk: int = 1024):
+                      softcap: float = 0.0, kv_chunk: int = 1024,
+                      seq_axis: str | None = None):
     """Causal self-attention as :func:`attention_fwd`, also returning the
-    roped K and V, ``[R, B, S, Hkv, Dh]`` each, that the cache is built
-    from: ``(out, k, v)``."""
+    roped K and V, ``[R, B, S, Hkv, Dh]`` each (whole, on the row's first
+    slot under tensor parallelism), that the cache is built from: ``(out,
+    k, v)``."""
     return _attend(p, x, positions, n_heads=n_heads, n_kv=n_kv,
                    head_dim=head_dim, rope_theta=rope_theta, window=window,
-                   softcap=softcap, kv_chunk=kv_chunk)
+                   softcap=softcap, kv_chunk=kv_chunk, seq_axis=seq_axis)
 
 
 def _attend(p, x, positions, *, n_heads, n_kv, head_dim, rope_theta, window,
-            softcap, kv_chunk, memory=None, memory_pos=None):
+            softcap, kv_chunk, memory=None, memory_pos=None, seq_axis=None,
+            need_kv=True):
+    if isinstance(p["wo"], Sharded):
+        return _attend_tp(p, x, positions, n_heads=n_heads, n_kv=n_kv,
+                          head_dim=head_dim, rope_theta=rope_theta,
+                          window=window, softcap=softcap, kv_chunk=kv_chunk,
+                          memory=memory, memory_pos=memory_pos,
+                          seq_axis=seq_axis, need_kv=need_kv)
     R, B, S, _ = x.shape
     src = x if memory is None else memory
     Sk = src.shape[2]
@@ -451,6 +625,91 @@ def _attend(p, x, positions, *, n_heads, n_kv, head_dim, rope_theta, window,
                                      kv_chunk=kv_chunk, causal=causal)
                      for r in range(R)])
     return fault_dense(o.reshape(R, B, S, n_heads * head_dim), p["wo"]), k, v
+
+
+def _attend_tp(p, x, positions, *, n_heads, n_kv, head_dim, rope_theta,
+               window, softcap, kv_chunk, memory, memory_pos, seq_axis,
+               need_kv):
+    """:func:`_attend` with :class:`Sharded` projections (see the module
+    docstring): ``wq``/``wk``/``wv`` column-parallel, ``wo`` row-parallel.
+    With whole heads on every slot each slot attends over its own heads;
+    else q, k and v are all-gathered (a shard boundary may fall inside a
+    head) and the heads attend on the row's first slot, or, with
+    ``seq_axis``, each slot attends for its share of the queries over the
+    gathered K/V.  K and V come back whole on the first slot."""
+    wq, wk, wv, wo = (p[k] for k in ("wq", "wk", "wv", "wo"))
+    if not wo.split:                 # the head columns do not split
+        return _attend(whole_tree(p), x, positions, n_heads=n_heads,
+                       n_kv=n_kv, head_dim=head_dim, rope_theta=rope_theta,
+                       window=window, softcap=softcap, kv_chunk=kv_chunk,
+                       memory=memory, memory_pos=memory_pos)
+    devs, nm = list(wo.devices), wo.nm
+    home = devs[0]
+    R, B, S, _ = x.shape
+    src = x if memory is None else memory
+    Sk = src.shape[2]
+    if memory is None:
+        pos_k, causal = positions, True
+    else:
+        pos_k = memory_pos if memory_pos is not None else torch.arange(
+            Sk, dtype=torch.int32, device=x.device)
+        causal = False
+    kw = dict(window=window, softcap=softcap, kv_chunk=kv_chunk,
+              causal=causal)
+    split_q = seq_axis is not None and S % nm == 0
+    if (not split_q and n_heads % nm == 0 and n_kv % nm == 0
+            and wq.split and wk.split and wv.split):
+        xs = C.broadcast(x, devs)
+        ss = xs if memory is None else C.broadcast(memory, devs)
+        outs, ks, vs = [], [], []
+        for m, dev in enumerate(devs):
+            q = fault_dense(xs[m], wq.local(m)).reshape(
+                R, B, S, n_heads // nm, head_dim)
+            k = fault_dense(ss[m], wk.local(m)).reshape(
+                R, B, Sk, n_kv // nm, head_dim)
+            v = fault_dense(ss[m], wv.local(m)).reshape(
+                R, B, Sk, n_kv // nm, head_dim)
+            pq, pk = positions.to(dev), pos_k.to(dev)
+            if memory is None:
+                q, k = rope(q, pq, rope_theta), rope(k, pq, rope_theta)
+            o = torch.stack([flash_attention(q[r], k[r], v[r], pq, pk, **kw)
+                             for r in range(R)])
+            outs.append(fault_dense(o.reshape(R, B, S, -1), wo.local(m)))
+            ks.append(k)
+            vs.append(v)
+        out = C.all_reduce(outs, [home])[0]
+        if not need_kv:
+            return out, None, None
+        return (out, C.all_gather(ks, 3, [home])[0],
+                C.all_gather(vs, 3, [home])[0])
+    kv_devs = devs if split_q else None
+    q = project(x, wq, mm=fault_dense).reshape(R, B, S, n_heads, head_dim)
+    k = project(src, wk, kv_devs, mm=fault_dense)
+    v = project(src, wv, kv_devs, mm=fault_dense)
+    if not split_q:
+        k, v = [k], [v]
+    k = [t.reshape(R, B, Sk, n_kv, head_dim) for t in k]
+    v = [t.reshape(R, B, Sk, n_kv, head_dim) for t in v]
+    if memory is None:
+        q = rope(q, positions, rope_theta)
+        k = [rope(t, positions.to(t.device), rope_theta) for t in k]
+    if split_q:                      # each slot its share of the queries
+        rows = S // nm
+        qs = C.broadcast(q, devs)
+        parts = []
+        for m, dev in enumerate(devs):
+            sl = slice(m * rows, (m + 1) * rows)
+            pq = positions[sl].to(dev)
+            parts.append(torch.stack([flash_attention(
+                qs[m][r][:, sl], k[m][r], v[m][r], pq, pos_k.to(dev), **kw)
+                for r in range(R)]))
+        o = C.all_gather(parts, 2, [home])[0]
+    else:
+        o = torch.stack([flash_attention(q[r], k[0][r], v[0][r], positions,
+                                         pos_k, **kw) for r in range(R)])
+    out = row_product(o.reshape(R, B, S, n_heads * head_dim), wo,
+                      mm=fault_dense)
+    return out, k[0].to(home), v[0].to(home)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -536,10 +795,31 @@ def _act(x: torch.Tensor, act: str) -> torch.Tensor:
 
 
 def mlp_fwd(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    """The gated or plain MLP; with :class:`Sharded` weights ``w1``/``w3``
+    are column-parallel and ``w2`` row-parallel, each model slot computing
+    its slice of ``d_ff`` and one ``all_reduce`` summing the slots'
+    outputs."""
+    if isinstance(p["w1"], Sharded):
+        return _mlp_tp(p, x, act)
     h = _act(fault_dense(x, p["w1"]), act)
     if act.endswith("_glu"):
         h = h * fault_dense(x, p["w3"])
     return fault_dense(h, p["w2"])
+
+
+def _mlp_tp(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    w = [p[k] for k in ("w1", "w2", "w3") if k in p]
+    if not all(t.split for t in w):
+        return mlp_fwd(whole_tree(p), x, act)
+    devs = list(p["w1"].devices)
+    xs = C.broadcast(x, devs)
+    outs = []
+    for m in range(len(devs)):
+        h = _act(fault_dense(xs[m], p["w1"].local(m)), act)
+        if act.endswith("_glu"):
+            h = h * fault_dense(xs[m], p["w3"].local(m))
+        outs.append(fault_dense(h, p["w2"].local(m)))
+    return C.all_reduce(outs, [devs[0]])[0]
 
 
 # --------------------------------------------------------------------------
@@ -631,7 +911,9 @@ def moe_fwd(p: dict, x: torch.Tensor, *, top_k: int, act: str,
     order; here each token's ``top_k`` contributions are added from 0 in
     k order.  For ``top_k <= 2`` the two agree exactly (``0 + a + b ==
     0 + b + a`` in IEEE arithmetic) and no atomic is needed; a larger
-    ``top_k`` would make the sum order-dependent, and raises."""
+    ``top_k`` would make the sum order-dependent, and raises.  Under
+    tensor parallelism the experts and router are gathered whole on the
+    row's first slot (``tp_block``) and the block computes there."""
     if top_k > 2:
         raise NotImplementedError(
             f"moe_fwd sums a token's experts in a fixed order, exact only "
@@ -759,7 +1041,9 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, state=None):
 
 def rglru_fwd(p: dict, x: torch.Tensor, state: dict | None = None):
     """The Griffin recurrent block of one row: in-projections, causal conv,
-    RG-LRU, gated out-projection.  Returns ``(out, {"conv", "h"})``."""
+    RG-LRU, gated out-projection.  Returns ``(out, {"conv", "h"})``.  Under
+    tensor parallelism its weights are gathered whole on the row's first
+    slot (``tp_block``) and it computes there."""
     u = kref.matmul(x, p["in_x"])
     g = kref.matmul(x, p["in_g"])
     u, new_conv = causal_conv1d(u, p["conv"],
@@ -844,7 +1128,10 @@ def ssd_fwd(p: dict, x: torch.Tensor, *, expand: int, head_dim: int,
             state: int, chunk: int = 128, cache: dict | None = None):
     """The Mamba2 block of one row, ``x [B, S, D]``: in-projection, the
     causal conv over (x, B, C), the chunked scan, the skip ``D``, the gated
-    RMSNorm and the out-projection.  Returns ``(out, {"conv", "h"})``."""
+    RMSNorm and the out-projection.  Returns ``(out, {"conv", "h"})``.
+    Under tensor parallelism its weights are gathered whole on the row's
+    first slot (``tp_block``) and it computes there: the fused
+    ``in_proj``'s columns (z, x, B, C, dt) do not align with its heads."""
     B, S, D = x.shape
     d_in = expand * D
     nh = d_in // head_dim

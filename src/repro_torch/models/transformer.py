@@ -52,6 +52,19 @@ shards in ``serve.kvcache.cache_specs(seq_shards=n)``'s layout, each on
 its own device, shard ``i`` holding global slots ``[i Sc_loc, (i + 1)
 Sc_loc)`` of every attention cache; each shard's partials are computed on
 its device and folded by ``layers.lse_combine``.
+
+Tensor parallelism: params whose leaves are ``layers.Sharded`` (one data
+row's view of a tree laid out by ``launch.shardings.param_specs``) run
+the same functions over the row's model slots.  The embedding is
+vocab-parallel (each slot looks up its vocab range, an ``all_reduce``
+joins them), the head gives one logits slice a slot (a list: the cross
+entropy combines the slots' logsumexps), the blocks split as
+``layers.tp_block`` says, and the activations stay on the row's first
+slot.  A vocab the slots do not divide stays whole.  A tensor-parallel
+forward or prefill takes no faults (the reference's launch steps take
+none); a decode step corrupts each layer's leaves whole on the row's
+first slot, in the one grouped call a layer, then splits them.
+:func:`prefill` and :func:`decode_step` return whole logits.
 """
 from __future__ import annotations
 
@@ -64,10 +77,12 @@ from repro_torch._tree import (tree_flatten, tree_leaves, tree_map,
                                tree_unflatten)
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ref as kref
+from repro_torch.launch import collectives as C
 from repro_torch.models import layers as L
 
 __all__ = ["init_lm", "forward", "embed_tokens", "unembed", "LMStepModel",
-           "init_cache", "prefill", "decode_step", "encode"]
+           "init_cache", "prefill", "decode_step", "encode", "whole_logits",
+           "corrupt_block"]
 
 _ATTN_KINDS = ("attn", "local", "global")
 
@@ -206,6 +221,11 @@ def _inject(p: dict, x: torch.Tensor, fault_rates, fault_bits,
     weight rates (leaf ``j`` at ``seed + 977 j``; dequantized without), its
     input at the activation rates (``seed + 1``)."""
     wr, ar, seed = fault_rates if fault_rates is not None else (None,) * 3
+    if (wr is not None or ar is not None) and isinstance(
+            L.first_leaf(p), L.Sharded):
+        raise ValueError("a tensor-parallel forward takes no faults (the "
+                         "reference's launch steps take none); decode_step "
+                         "corrupts whole leaves")
     bits, lsbs = fault_bits if fault_bits is not None else (None, None)
     fm, mw = fault_model if fault_model is not None else (None, None)
     if wr is not None:
@@ -229,7 +249,8 @@ def _window(cfg: ArchConfig, kind: str) -> int | None:
 def _block_fwd(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor,
                positions: torch.Tensor, *, fault_rates=None, fault_bits=None,
                fault_model=None, build_cache: bool = False,
-               kv_chunk: int = 1024, ssd_chunk: int = 256):
+               kv_chunk: int = 1024, ssd_chunk: int = 256,
+               seq_axis: str | None = None):
     """One block of ``kind`` on ``x [R, B, S, D]``.  ``fault_bits`` is an
     optional (bits, faulty_bits) override of the corruption width,
     ``fault_model`` an optional (model, mbu_width) override; None takes the
@@ -240,13 +261,14 @@ def _block_fwd(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor,
     (``{"k", "v"}``, ``[R, B, S, Hkv, Dh]`` each) or the RG-LRU's or SSD's
     final state (``{"conv", "h"}``, with the row axis)."""
     p, x = _inject(p, x, fault_rates, fault_bits, fault_model)
+    p = L.tp_block(p)
     cache = None
     if kind in _ATTN_KINDS:
         h = L.norm_fwd(p["ln1"], x, cfg.norm_kind)
         kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
                   head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta,
                   window=_window(cfg, kind), softcap=cfg.logit_softcap or 0.0,
-                  kv_chunk=kv_chunk)
+                  kv_chunk=kv_chunk, seq_axis=seq_axis)
         if build_cache:
             a, k, v = L.attention_prefill(p["attn"], h, positions, **kw)
             cache = {"k": k, "v": v}
@@ -287,16 +309,18 @@ def _block_fwd(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor,
 
 def _enc_block_fwd(cfg: ArchConfig, p: dict, x: torch.Tensor,
                    positions: torch.Tensor, *, fault_rates=None,
-                   fault_bits=None, fault_model=None) -> torch.Tensor:
+                   fault_bits=None, fault_model=None,
+                   seq_axis: str | None = None) -> torch.Tensor:
     """One encoder block of ``x [R, B, Se, D]``: bidirectional
     self-attention (attention to the memory ``h`` itself, no rope, not
     causal) and the MLP."""
     p, x = _inject(p, x, fault_rates, fault_bits, fault_model)
+    p = L.tp_block(p)
     h = L.norm_fwd(p["ln1"], x, cfg.norm_kind)
     x = x + L.attention_fwd(p["attn"], h, positions, n_heads=cfg.n_heads,
                             n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim_,
                             rope_theta=cfg.rope_theta, memory=h,
-                            memory_pos=positions)
+                            memory_pos=positions, seq_axis=seq_axis)
     h = L.norm_fwd(p["ln2"], x, cfg.norm_kind)
     return x + L.mlp_fwd(p["mlp"], h, cfg.act_fn)
 
@@ -305,23 +329,27 @@ def _dec_block_fwd(cfg: ArchConfig, p: dict, x: torch.Tensor,
                    positions: torch.Tensor, memory: torch.Tensor,
                    mem_pos: torch.Tensor, *, fault_rates=None,
                    fault_bits=None, fault_model=None, build_cache=False,
-                   kv_chunk: int = 1024):
+                   kv_chunk: int = 1024, seq_axis: str | None = None):
     """One decoder block of the encoder-decoder on ``x [R, B, S, D]``:
     causal self-attention, cross-attention to ``memory [R, B, Se, D]``,
     the MLP.  Only ``x`` is corrupted at the activation rate.  With
     ``build_cache`` returns ``(x, {"k", "v"})``, the self-attention's roped
     K and V."""
     p, x = _inject(p, x, fault_rates, fault_bits, fault_model)
+    p = L.tp_block(p)
     h = L.norm_fwd(p["ln1"], x, cfg.norm_kind)
-    a, k, v = L.attention_prefill(p["attn"], h, positions, n_heads=cfg.n_heads,
-                                  n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim_,
-                                  rope_theta=cfg.rope_theta, kv_chunk=kv_chunk)
+    kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+              head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta,
+              seq_axis=seq_axis)
+    if build_cache:
+        a, k, v = L.attention_prefill(p["attn"], h, positions,
+                                      kv_chunk=kv_chunk, **kw)
+    else:
+        a = L.attention_fwd(p["attn"], h, positions, kv_chunk=kv_chunk, **kw)
     x = x + a
     h = L.norm_fwd(p["ln_x"], x, cfg.norm_kind)
-    x = x + L.attention_fwd(p["xattn"], h, positions, n_heads=cfg.n_heads,
-                            n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim_,
-                            rope_theta=cfg.rope_theta, memory=memory,
-                            memory_pos=mem_pos)
+    x = x + L.attention_fwd(p["xattn"], h, positions, memory=memory,
+                            memory_pos=mem_pos, **kw)
     h = L.norm_fwd(p["ln2"], x, cfg.norm_kind)
     x = x + L.mlp_fwd(p["mlp"], h, cfg.act_fn)
     return (x, {"k": k, "v": v}) if build_cache else x
@@ -336,12 +364,31 @@ def _arange(n: int, like: torch.Tensor) -> torch.Tensor:
 # ==========================================================================
 def _embed(cfg: ArchConfig, embed: torch.Tensor, tokens: torch.Tensor):
     """``tokens [R, B, S]`` through the table ``[V, D]`` (or one table a
-    row, ``[R, V, D]``), times sqrt(d) in the table's dtype."""
-    if embed.ndim == 3:
+    row, ``[R, V, D]``), times sqrt(d) in the table's dtype.  A
+    vocab-parallel ``layers.Sharded`` table: each model slot looks up the
+    tokens of its vocab range (zeros elsewhere), and an ``all_reduce``
+    adds the slots' rows (one of them nonzero: exact)."""
+    if isinstance(embed, L.Sharded):
+        e = _embed_tp(embed, tokens)
+    elif embed.ndim == 3:
         e = torch.stack([embed[r][tokens[r]] for r in range(tokens.shape[0])])
     else:
         e = embed[tokens]
     return e * torch.tensor(np.sqrt(cfg.d_model), dtype=e.dtype)
+
+
+def _embed_tp(embed, tokens: torch.Tensor) -> torch.Tensor:
+    if not embed.split:
+        return embed.whole()[tokens]
+    parts = []
+    for m, dev in enumerate(embed.devices):
+        t = embed.local(m)
+        n = t.shape[0]
+        idx = tokens.to(dev, non_blocking=True) - m * n
+        inr = (idx >= 0) & (idx < n)
+        parts.append(torch.where(inr[..., None], t[idx.clamp(0, n - 1)],
+                                 0.0))
+    return C.all_reduce(parts, [embed.devices[0]])[0]
 
 
 def _embed_batch(cfg: ArchConfig, embed: torch.Tensor, batch: dict):
@@ -357,9 +404,22 @@ def _unembed_unit(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     """Final norm + head of ``x [R, B, S, D]`` -> logits ``[R, B, S, V]``;
     ``p["head"]`` is the embedding table when embeddings are tied.  The
     head matmul runs one row at a time (its shapes then never depend on
-    R), through ``ref.matmul`` (XLA's order on the CPU)."""
-    x = L.norm_fwd(p["final_norm"], x, cfg.norm_kind)
+    R), through ``ref.matmul`` (XLA's order on the CPU).  A vocab-split
+    ``layers.Sharded`` head gives a list, one slot's logits slice a model
+    slot."""
+    x = L.norm_fwd(L.whole_tree(p["final_norm"]), x, cfg.norm_kind)
     head = p["head"]
+    if isinstance(head, L.Sharded):
+        if not head.split:
+            head = head.whole()
+        else:
+            xs = C.broadcast(x, head.devices)
+            return [_unembed_rows(cfg, head.local(m), xs[m])
+                    for m in range(head.nm)]
+    return _unembed_rows(cfg, head, x)
+
+
+def _unembed_rows(cfg: ArchConfig, head: torch.Tensor, x: torch.Tensor):
     per_row = head.ndim == 3
     out = None
     for r in range(x.shape[0]):
@@ -379,11 +439,25 @@ def embed_tokens(cfg: ArchConfig, params: dict, tokens: torch.Tensor):
     return _embed(cfg, params["embed"], tokens[None])[0]
 
 
+def _row0(logits):
+    """Row 0 of logits, or of each vocab slice of a list."""
+    return [t[0] for t in logits] if isinstance(logits, list) else logits[0]
+
+
+def whole_logits(logits) -> torch.Tensor:
+    """Vocab-sliced logits (a list, one a model slot) all-gathered on the
+    first slot; a tensor as it is."""
+    if not isinstance(logits, list):
+        return logits
+    return C.all_gather(logits, -1, [logits[0].device])[0]
+
+
 def unembed(cfg: ArchConfig, params: dict, x: torch.Tensor):
-    """``x [B, S, D]`` -> logits ``[B, S, V]``."""
+    """``x [B, S, D]`` -> logits ``[B, S, V]`` (under tensor parallelism a
+    list of vocab slices, one a model slot)."""
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return _unembed_unit(cfg, {"final_norm": params["final_norm"],
-                               "head": head}, x[None])[0]
+    return _row0(_unembed_unit(cfg, {"final_norm": params["final_norm"],
+                                     "head": head}, x[None]))
 
 
 def _rows(batch: dict, R: int) -> dict:
@@ -408,14 +482,15 @@ def _fault_rows(fault):
     return (lambda i: _unit_rates(wr, ar, fault[2], i)), single, wr.shape[0]
 
 
-def _encode(cfg: ArchConfig, params: dict, mem: torch.Tensor, rates
-            ) -> torch.Tensor:
+def _encode(cfg: ArchConfig, params: dict, mem: torch.Tensor, rates,
+            seq_axis: str | None = None) -> torch.Tensor:
     """The encoder stack on ``mem [R, B, Se, D]`` (unit ``i`` at
     ``rates(i)``) and its final norm: the memory."""
     enc_pos = _arange(mem.shape[2], mem)
     for i, p in enumerate(_unstack(params["enc_groups"])[:cfg.n_enc_layers]):
-        mem = _enc_block_fwd(cfg, p, mem, enc_pos, fault_rates=rates(i))
-    return L.norm_fwd(params["enc_norm"], mem, cfg.norm_kind)
+        mem = _enc_block_fwd(cfg, p, mem, enc_pos, fault_rates=rates(i),
+                             seq_axis=seq_axis)
+    return L.norm_fwd(L.whole_tree(params["enc_norm"]), mem, cfg.norm_kind)
 
 
 def _unstack(tree: dict) -> list[dict]:
@@ -429,19 +504,81 @@ def _unstack(tree: dict) -> list[dict]:
     return [tree_unflatten(spec, [c[g] for c in cols]) for g in range(n)]
 
 
-def _maybe_remat(body, remat: bool):
+def _maybe_remat(body, remat: bool, tp: bool = False):
     """``body`` as is, or recomputed in the backward pass from its inputs
     (``remat``: the reference's ``jax.checkpoint`` of a scanned group);
-    the values are the same either way."""
+    the values are the same either way.  Tensor-parallel params (``tp``)
+    recompute in one autograd node (:class:`_Remat`): a group's saved
+    tensors then lie on several cards, and the autograd engine's per-card
+    threads could start the non-reentrant checkpoint's recomputation of one
+    group twice at once (it takes no lock), interleaving the tensors it
+    records."""
     if not remat:
         return body
+    if tp:
+        return lambda *args: _Remat.run(body, args)
     return lambda *args: torch.utils.checkpoint.checkpoint(
         body, *args, use_reentrant=False)
 
 
+def _gather_tensors(obj, out: list):
+    """Append every tensor of ``obj`` (tensors, ``layers.Sharded``, dicts,
+    lists, tuples; anything else kept) to ``out``; returns the function
+    rebuilding ``obj`` from such a list."""
+    if isinstance(obj, torch.Tensor):
+        i = len(out)
+        out.append(obj)
+        return lambda ts: ts[i]
+    if isinstance(obj, L.Sharded):
+        sub = [[_gather_tensors(t, out) for t in ps] for ps in obj.parts]
+        return lambda ts: L.Sharded(tuple(tuple(f(ts) for f in ps)
+                                          for ps in sub), obj.devices,
+                                    obj.data_dim, obj.model_dim)
+    if isinstance(obj, dict):
+        sub = {k: _gather_tensors(v, out) for k, v in obj.items()}
+        return lambda ts: {k: f(ts) for k, f in sub.items()}
+    if isinstance(obj, (list, tuple)):
+        sub = [_gather_tensors(v, out) for v in obj]
+        return lambda ts: type(obj)(f(ts) for f in sub)
+    return lambda ts: obj
+
+
+class _Remat(torch.autograd.Function):
+    """``body(*args)`` run without a graph, recomputed in the backward
+    (with a graph) and differentiated there with respect to every tensor of
+    ``args`` that requires grad: one node, one thread, whatever devices
+    the tensors lie on."""
+
+    @staticmethod
+    def run(body, args):
+        ts = []
+        rebuild = _gather_tensors(args, ts)
+        return _Remat.apply(body, rebuild, *ts)
+
+    @staticmethod
+    def forward(ctx, body, rebuild, *ts):
+        ctx.body, ctx.rebuild = body, rebuild
+        ctx.save_for_backward(*ts)
+        return body(*rebuild(ts))
+
+    @staticmethod
+    def backward(ctx, grad):
+        ts = [t.detach().requires_grad_(t.requires_grad)
+              for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = ctx.body(*ctx.rebuild(ts))
+        need = [i for i, t in enumerate(ts) if t.requires_grad]
+        grads = torch.autograd.grad(out, [ts[i] for i in need], grad,
+                                    allow_unused=True)
+        full = [None] * len(ts)
+        for i, g in zip(need, grads):
+            full[i] = g
+        return (None, None, *full)
+
+
 def forward(params: dict, cfg: ArchConfig, batch: dict, *, fault=None,
             kv_chunk: int = 1024, ssd_chunk: int = 256,
-            remat: bool = False) -> torch.Tensor:
+            remat: bool = False, seq_axis: str | None = None):
     """Full-sequence logits, the groups as a loop.
 
     batch: ``{"tokens": [B, S]}`` or ``{"embeds": [B, S, D]}``, and for
@@ -452,20 +589,27 @@ def forward(params: dict, cfg: ArchConfig, batch: dict, *, fault=None,
     remat: recompute each group (each decoder layer of the
     encoder-decoder) in the backward pass instead of keeping its
     activations, as the reference's ``jax.checkpoint`` of its scan body.
+    seq_axis: the reference's sequence-parallel attention hint; it splits
+    each attention's queries over the model slots of tensor-parallel
+    params (``layers.Sharded`` leaves) and changes no value.  Tensor-
+    parallel params give a list of vocab slices (see the module
+    docstring).
     """
     rates, single, R = _fault_rows(fault)
     rows = _rows(batch, R)
     x = _embed_batch(cfg, params["embed"], rows)
     positions = _arange(x.shape[2], x)
+    tp = isinstance(L.first_leaf(params["groups"]), L.Sharded)
     if cfg.is_encdec:
         ne = cfg.n_enc_layers
-        mem = _encode(cfg, params, rows["enc_embeds"], rates)
+        mem = _encode(cfg, params, rows["enc_embeds"], rates, seq_axis)
         enc_pos = _arange(mem.shape[2], mem)
         for g, p in enumerate(_unstack(params["groups"])[:cfg.n_layers]):
             body = _maybe_remat(
                 lambda x, mem, p, g=g: _dec_block_fwd(
                     cfg, p, x, positions, mem, enc_pos,
-                    fault_rates=rates(ne + g), kv_chunk=kv_chunk), remat)
+                    fault_rates=rates(ne + g), kv_chunk=kv_chunk,
+                    seq_axis=seq_axis), remat, tp)
             x = body(x, mem, p)
     else:
         P = len(cfg.block_pattern)
@@ -477,16 +621,17 @@ def forward(params: dict, cfg: ArchConfig, batch: dict, *, fault=None,
                 if lidx < cfg.n_layers:
                     x = _block_fwd(cfg, kind, ps[s], x, positions,
                                    fault_rates=rates(lidx), kv_chunk=kv_chunk,
-                                   ssd_chunk=ssd_chunk)
+                                   ssd_chunk=ssd_chunk, seq_axis=seq_axis)
             return x
 
         for g in range(cfg.n_groups):
-            body = _maybe_remat(lambda x, ps, g=g: group(x, ps, g), remat)
+            body = _maybe_remat(lambda x, ps, g=g: group(x, ps, g), remat,
+                                tp)
             x = body(x, [slot[g] for slot in slots])
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     logits = _unembed_unit(cfg, {"final_norm": params["final_norm"],
                                  "head": head}, x)
-    return logits[0] if single else logits
+    return _row0(logits) if single else logits
 
 
 # ==========================================================================
@@ -814,7 +959,8 @@ def _stack_groups(entries: list[dict]) -> dict:
 
 @fp32_exact()
 def prefill(params: dict, cfg: ArchConfig, batch: dict, max_len: int, *,
-            kv_chunk: int = 1024, ssd_chunk: int = 256, fault=None):
+            kv_chunk: int = 1024, ssd_chunk: int = 256, fault=None,
+            seq_axis: str | None = None):
     """Full-sequence prefill: ``(logits [B, S, V], cache)``.
 
     ``max_len`` is the capacity of the global attention caches (the
@@ -823,7 +969,7 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict, max_len: int, *,
     encoder-decoder corrupts only its encoder here, as the reference
     does.  A slot past ``n_layers`` runs on the last layer's output at its
     rates and its cache is kept, as in the reference; the hidden state
-    skips it."""
+    skips it.  ``seq_axis`` as :func:`forward`'s."""
     rates, single, _ = _fault_rows(fault)
     if not single:
         raise ValueError("prefill takes one row of rates, [L]")
@@ -837,12 +983,13 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict, max_len: int, *,
 
     entries = []
     if cfg.is_encdec:
-        mem = _encode(cfg, params, rows["enc_embeds"], rates)
+        mem = _encode(cfg, params, rows["enc_embeds"], rates, seq_axis)
         mem_pos = _arange(mem.shape[2], mem)
         for g in range(cfg.n_layers):
             p = tree_map(lambda t: t[g], params["groups"])
             x, kv = _dec_block_fwd(cfg, p, x, positions, mem, mem_pos,
-                                   build_cache=True, kv_chunk=kv_chunk)
+                                   build_cache=True, kv_chunk=kv_chunk,
+                                   seq_axis=seq_axis)
             kv = first_row(kv)
             entries.append({"b0": _ring_pack(kv["k"], kv["v"], positions,
                                              max_len)})
@@ -856,7 +1003,8 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict, max_len: int, *,
                 x_new, c = _block_fwd(
                     cfg, kind, p, x, positions,
                     fault_rates=rates(min(lidx, cfg.n_layers - 1)),
-                    build_cache=True, kv_chunk=kv_chunk, ssd_chunk=ssd_chunk)
+                    build_cache=True, kv_chunk=kv_chunk, ssd_chunk=ssd_chunk,
+                    seq_axis=seq_axis)
                 c = first_row(c)
                 if kind in _ATTN_KINDS:
                     c = _ring_pack(c["k"], c["v"], positions,
@@ -865,7 +1013,7 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict, max_len: int, *,
                     x = x_new
                 entry[f"b{s}"] = c
             entries.append(entry)
-    return unembed(cfg, params, x[0]), _stack_groups(entries)
+    return whole_logits(unembed(cfg, params, x[0])), _stack_groups(entries)
 
 
 @fp32_exact()
@@ -926,7 +1074,7 @@ def decode_step(params: dict, cfg: ArchConfig, cache,
             c = _group_entry(cache, f"b{s}", g)
             x = _decode_block(cfg, kind, p, c, x, pos,
                               _layer_fault(fault, lidx))
-    return unembed(cfg, params, x)[:, 0], cache
+    return whole_logits(unembed(cfg, params, x))[:, 0], cache
 
 
 def _decode_attention(cfg: ArchConfig, p: dict, c: dict, h: torch.Tensor,
@@ -939,14 +1087,14 @@ def _decode_attention(cfg: ArchConfig, p: dict, c: dict, h: torch.Tensor,
     sequence shard: global slot ``pos % (n Sc_loc)`` is written in its
     owner shard only, and the shards' partials are combined."""
     B, Dh = h.shape[0], cfg.head_dim_
-    q = kref.matmul(h, p["wq"]).reshape(B, 1, cfg.n_heads, Dh)
-    k = kref.matmul(h, p["wk"]).reshape(B, 1, cfg.n_kv_heads, Dh)
-    v = kref.matmul(h, p["wv"]).reshape(B, 1, cfg.n_kv_heads, Dh)
+    q = L.project(h, p["wq"]).reshape(B, 1, cfg.n_heads, Dh)
+    k = L.project(h, p["wk"]).reshape(B, 1, cfg.n_kv_heads, Dh)
+    v = L.project(h, p["wv"]).reshape(B, 1, cfg.n_kv_heads, Dh)
     q = L.rope(q, pos[:, None], cfg.rope_theta)[:, 0]       # [B, Hq, Dh]
     k = L.rope(k, pos[:, None], cfg.rope_theta)[:, 0]
     if isinstance(c, list):
         o = _sharded_attention(c, q, k, v[:, 0], pos, window, softcap)
-        return kref.matmul(o.reshape(B, 1, -1).to(h.dtype), p["wo"])
+        return L.row_product(o.reshape(B, 1, -1).to(h.dtype), p["wo"])
     slot = (pos % c["k"].shape[1]).long()
     bidx = torch.arange(B, device=pos.device)
     c["k"][bidx, slot] = k.to(c["k"].dtype)
@@ -955,7 +1103,7 @@ def _decode_attention(cfg: ArchConfig, p: dict, c: dict, h: torch.Tensor,
     num, m, den = L.decode_attention(q, c["k"], c["v"], c["pos"], pos,
                                      window=window, softcap=softcap)
     o = L.lse_combine(num, m, den)                            # [B, Hq, Dh]
-    return kref.matmul(o.reshape(B, 1, -1).to(h.dtype), p["wo"])
+    return L.row_product(o.reshape(B, 1, -1).to(h.dtype), p["wo"])
 
 
 def _sharded_attention(shards: list, q, k, v, pos, window, softcap):
@@ -995,13 +1143,8 @@ def _decode_block(cfg: ArchConfig, kind: str, p: dict, c,
     ``quant_bitflip`` call.  There is no row axis here, so not through
     ``_inject``."""
     if fault_rates is not None:
-        wr, ar, seed = fault_rates
-        leaves, treedef = tree_flatten(p)
-        n = len(leaves)
-        out = L.corrupt_leaves(leaves + [x], [wr] * n + [ar],
-                               [seed + 977 * j for j in range(n)]
-                               + [seed + 1])
-        p, x = tree_unflatten(treedef, out[:n]), out[n]
+        p, x = corrupt_block(p, x, fault_rates)
+    p = L.tp_block(p)
     if kind in _ATTN_KINDS:
         h = L.norm_fwd(p["ln1"], x, cfg.norm_kind)
         x = x + _decode_attention(cfg, p["attn"], c, h, pos,
@@ -1037,6 +1180,24 @@ def _decode_block(cfg: ArchConfig, kind: str, p: dict, c,
     return x
 
 
+def corrupt_block(p: dict, x: torch.Tensor, fault_rates):
+    """A decode block's fault injection: its leaves at the 0-d weight rate
+    (leaf ``j`` at ``seed + 977 j``) and ``x`` at the activation rate
+    (``seed + 1``), in one grouped ``quant_bitflip`` call.  A
+    ``layers.Sharded`` leaf is made whole on its row's first slot first and
+    split again after (``layers.split_like``), so its corrupted pieces are
+    bitwise the corrupted whole leaf's slices."""
+    wr, ar, seed = fault_rates
+    leaves, treedef = tree_flatten(p)
+    n = len(leaves)
+    whole = [t.whole() if isinstance(t, L.Sharded) else t for t in leaves]
+    out = L.corrupt_leaves(whole + [x], [wr] * n + [ar],
+                           [seed + 977 * j for j in range(n)] + [seed + 1])
+    out[:n] = [L.split_like(o, t) if isinstance(t, L.Sharded) else o
+               for o, t in zip(out[:n], leaves)]
+    return tree_unflatten(treedef, out[:n]), out[n]
+
+
 def _decode_step_encdec(params: dict, cfg: ArchConfig, cache: dict,
                         x: torch.Tensor, pos: torch.Tensor,
                         enc_memory: torch.Tensor):
@@ -1049,7 +1210,7 @@ def _decode_step_encdec(params: dict, cfg: ArchConfig, cache: dict,
     kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
               head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta)
     for g in range(cfg.n_layers):
-        p = tree_map(lambda t: t[g], params["groups"])
+        p = L.tp_block(tree_map(lambda t: t[g], params["groups"]))
         c = _group_entry(cache, "b0", g)
         h = L.norm_fwd(p["ln1"], x, cfg.norm_kind)
         x = x + _decode_attention(cfg, p["attn"], c, h, pos)
@@ -1058,4 +1219,4 @@ def _decode_step_encdec(params: dict, cfg: ArchConfig, cache: dict,
                                 memory_pos=mem_pos, **kw)[0]
         h = L.norm_fwd(p["ln2"], x, cfg.norm_kind)
         x = x + L.mlp_fwd(p["mlp"], h, cfg.act_fn)
-    return unembed(cfg, params, x)[:, 0], cache
+    return whole_logits(unembed(cfg, params, x))[:, 0], cache

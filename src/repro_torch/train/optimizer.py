@@ -8,6 +8,16 @@ from ``step``, as the reference computes them in float32: a Python double
 would differ in the last bits of ``lr``, ``b1c`` and ``b2c``, and reading
 ``step`` to the host would make every step wait on the card.  Clipping
 stays on the card for the same reason.
+
+Sharded params and state (``launch/steps.py``: one tree a mesh slot, laid
+out by ``param_specs`` / ``opt_state_specs``) update shard by shard; the
+global norm then counts each distinct shard once (``counted``, from
+``launch.shardings.owned``), summing the shards' squared sums.  A leaf's
+squared sum is then split into up to (data x model) shard sums added in
+slot order, so the norm differs from the whole-leaf norm by rounding: at
+most about (k + 1) fp32 ulps of each leaf's squared sum for k extra
+additions, a relative difference of a few 1e-7 (the clip scale follows
+it; below the clip threshold the scale is exactly 1).
 """
 from __future__ import annotations
 
@@ -55,19 +65,22 @@ def warmup_cosine(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, counted=None) -> torch.Tensor:
     """The norm over every leaf, on the first leaf's device (the leaves of
-    a pipeline's params lie on several)."""
+    a pipeline's params lie on several); ``counted`` (a tree of bools
+    like ``tree``) leaves out the copies of a sharded tree's shards."""
     flat = tree_flatten(tree)[0]
+    keep = [True] * len(flat) if counted is None \
+        else tree_flatten(counted)[0]
     leaves = [torch.sum(torch.square(x.to(torch.float32))).to(flat[0].device)
-              for x in flat]
+              for x, k in zip(flat, keep) if k]
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, counted=None):
     """``(grads scaled to a global norm of at most max_norm, the norm)``;
     each leaf scaled in float32 and cast back to its dtype."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, counted)
     # a Python scalar over a tensor is its reciprocal times the scalar in
     # PyTorch (``Tensor.__rtruediv__``): divide as the reference does
     scale = torch.clamp(torch.full_like(norm, max_norm)
@@ -93,10 +106,11 @@ def adamw_init(params, cfg: AdamWConfig | None = None) -> dict:
 
 @torch.no_grad()
 @record_function("adamw_update")           # a range for the profiler
-def adamw_update(cfg: AdamWConfig, params, grads, state):
+def adamw_update(cfg: AdamWConfig, params, grads, state, counted=None):
     """Returns ``(new_params, new_state, metrics)``; ``metrics`` holds the
-    0-d tensors ``grad_norm`` (before clipping) and ``lr``."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    0-d tensors ``grad_norm`` (before clipping) and ``lr``.  ``counted``:
+    see :func:`global_norm`."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, counted)
     step = state["step"] + 1
     lr = warmup_cosine(cfg, step)
     stepf = step.to(torch.float32)

@@ -13,6 +13,11 @@ through the ``quant_bitflip`` kernel on the card, and the backward takes
 the reference's gradient through them (``kernels.ops.quant_bitflip_group``
 under autograd): it reaches a corrupted tensor through its row scale
 alone, at the entries of its largest magnitude.
+
+Params whose leaves are ``layers.Sharded`` (a data row's view of params
+laid out over a mesh, ``launch/steps.py``) run the tensor-parallel
+forward; its vocab-sliced logits (a list) take the cross entropy with the
+slots' logsumexps combined.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import torch
 from repro_torch._device import fp32_exact
 from repro_torch._tree import tree_flatten, tree_unflatten
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch import collectives as C
 from repro_torch.models.transformer import forward
 from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
 
@@ -36,7 +42,13 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor
 
     The gold logit is read by one index a token into the flattened
     logits: its backward writes each gradient once, where a gather's
-    backward adds them with atomics on the card."""
+    backward adds them with atomics on the card.  ``logits`` may be a list
+    of vocab slices, one a model slot (in vocab order): each slot takes
+    its logsumexp and its gold logits (zero outside its range), the
+    logsumexps are all-gathered and combined by one more logsumexp, the
+    gold logits all-reduced (one nonzero: exact)."""
+    if isinstance(logits, list):
+        return _cross_entropy_sliced(logits, labels)
     logits = logits.to(torch.float32)
     V = logits.shape[-1]
     logz = torch.logsumexp(logits, dim=-1)
@@ -45,6 +57,26 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor
     gold = logits.reshape(-1)[flat].reshape(labels.shape)
     nll = logz - gold
     mask = (labels >= 0).to(torch.float32)
+    return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+def _cross_entropy_sliced(parts: list, labels: torch.Tensor) -> torch.Tensor:
+    home = parts[0].device
+    lse, gold, off = [], [], 0
+    for t in parts:
+        t = t.to(torch.float32)
+        V, dev = t.shape[-1], t.device
+        lab = labels.to(dev, non_blocking=True) - off
+        inr = (lab >= 0) & (lab < V)
+        flat = (torch.arange(lab.numel(), device=dev) * V
+                + lab.reshape(-1).clamp(0, V - 1))
+        gold.append(torch.where(inr, t.reshape(-1)[flat].reshape(lab.shape),
+                                0.0))
+        lse.append(torch.logsumexp(t, dim=-1)[None])
+        off += V
+    logz = torch.logsumexp(C.all_gather(lse, 0, [home])[0], dim=0)
+    nll = logz - C.all_reduce(gold, [home])[0]
+    mask = (labels.to(home) >= 0).to(torch.float32)
     return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
 
 
@@ -58,17 +90,18 @@ def make_loss_fn(cfg: ArchConfig, remat: bool = True, fault=None,
 
     ``fault``: None, or the reference's ``(w_rates, a_rates, seed)``, the
     rates ``[L]`` float32 tensors by layer (encoder layers first) on the
-    batch's device, the seed a host int."""
-    if seq_axis is not None:
-        raise NotImplementedError(
-            f"seq_axis={seq_axis!r}: the reference's GSPMD layout hint for "
-            "sequence-sharded activations, ROADMAP item 14b")
+    batch's device, the seed a host int.
+
+    ``seq_axis``: the reference's sequence-parallel attention hint, passed
+    to ``forward``: on tensor-parallel params it splits each attention's
+    queries over the model slots; on whole params (no mesh) it does
+    nothing.  It changes no value."""
 
     def loss_fn(params, batch):
         logits = forward(params, cfg,
                          {k: v for k, v in batch.items() if k != "labels"},
-                         fault=fault,
-                         kv_chunk=kv_chunk, ssd_chunk=ssd_chunk, remat=remat)
+                         fault=fault, kv_chunk=kv_chunk, ssd_chunk=ssd_chunk,
+                         remat=remat, seq_axis=seq_axis)
         return cross_entropy_loss(logits, batch["labels"])
     return loss_fn
 

@@ -1244,3 +1244,75 @@ def test_pipeline_and_sharded_decode_on_two_slots(dev):
         torch.cuda.set_sync_debug_mode("default")
     assert float((got - want).abs().max()) <= 1e-5
     assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+def test_tensor_parallel_train_and_faulted_decode_on_slots(dev):
+    """FSDP x tensor parallelism on ``[cuda:0] * 4``: the (2, 2) train
+    step's loss and gradients against the same step on the CPU (within
+    1e-5 and 2e-5 of each leaf's largest), waiting on the card nowhere;
+    a faulted decode step with params laid out over (1, 2): one grouped
+    ``quant_bitflip`` pair a layer, the logits within 1e-3 of the
+    unsharded faulted step on the card and the greedy tokens equal."""
+    import dataclasses
+
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import (abstract_serve_decode,
+                                          abstract_serve_prefill,
+                                          abstract_train_step)
+    from repro_torch.models.transformer import decode_step, init_lm, prefill
+
+    cfg = dataclasses.replace(get_config("olmo-1b").reduced(), n_layers=4)
+    cpu = torch.device("cpu")
+    params = init_lm(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (4, 16))
+                                 .astype(np.int32)) for k in ("tokens",
+                                                              "labels")}
+    shape = ShapeSpec("t", seq_len=16, global_batch=4, kind="train")
+    out = []
+    for d in (cpu, dev):
+        mesh = make_test_mesh((2, 2), pool=[d] * 4)
+        fn, (params_s, _, _) = abstract_train_step(cfg, mesh, shape,
+                                                   microbatches=1)
+        placed = SH.place_params(tree_map(lambda t: t.to(d), params), mesh)
+        b = {k: v.to(d) for k, v in batch.items()}
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss, grads = fn.value_and_grad(placed, b)
+        finally:
+            if d.type == "cuda":
+                torch.cuda.set_sync_debug_mode("default")
+        out.append((float(loss), SH.gather_params(grads, params_s, mesh,
+                                                  cpu)))
+    assert abs(out[0][0] - out[1][0]) <= 1e-5
+    for a, b in zip(tree_leaves(out[0][1]), tree_leaves(out[1][1])):
+        assert float((a - b).abs().max()) <= 2e-5 * float(a.abs().max())
+
+    gp = tree_map(lambda t: t.to(dev), params)
+    mesh = make_test_mesh((1, 2), pool=[dev] * 2)
+    pfn, _ = abstract_serve_prefill(cfg, mesh, ShapeSpec(
+        "p", seq_len=32, global_batch=4, kind="prefill"))
+    dfn, _ = abstract_serve_decode(cfg, mesh, ShapeSpec(
+        "d", seq_len=32, global_batch=4, kind="decode"))
+    placed = SH.place_params(gp, mesh)
+    toks = batch["tokens"].to(dev)
+    w = torch.full((cfg.n_layers,), 0.2, device=dev)
+    with torch.no_grad():
+        _, shards = pfn(placed, {"tokens": toks})
+        logits, cache = prefill(gp, cfg, {"tokens": toks}, 32)
+        tok = logits[:, -1].argmax(-1).to(torch.int32)
+        pos = torch.full((4,), 16, dtype=torch.int32, device=dev)
+        ops.reset_launches()
+        got, _ = dfn(placed, shards, {"tokens": tok, "positions": pos},
+                     fault=(w, w, 3))
+        assert ops.launches["quant_bitflip"] == 2 * cfg.n_layers
+        want, _ = decode_step(gp, cfg, cache, tok, pos, fault=(w, w, 3))
+    assert float((got - want).abs().max()) <= 1e-3
+    assert torch.equal(got.argmax(-1), want.argmax(-1))

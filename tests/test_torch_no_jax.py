@@ -12,7 +12,8 @@ torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py", ROOT / "host_cost.py", ROOT / "quant_cost.py"]
+    [ROOT / "chip_smoke.py", ROOT / "host_cost.py", ROOT / "quant_cost.py",
+     ROOT / "tp_cards.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -46,7 +47,8 @@ def test_scan_sees_every_kernel_source_module():
             "kvcache.py", "monitor.py", "quant_cost.py", "optimizer.py",
             "train_step.py", "trainer.py", "compression.py", "ckpt.py",
             "train_lm.py", "mesh.py", "pipeline.py", "shardings.py",
-            "steps.py", "roofline.py", "train.py"} <= names
+            "steps.py", "roofline.py", "train.py", "collectives.py",
+            "dryrun.py", "tp_cards.py"} <= names
     assert (ROOT / "src" / "repro_torch" / "launch" / "__init__.py") \
         in PORT_FILES
 

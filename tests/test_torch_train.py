@@ -304,19 +304,28 @@ def test_train_step_matches_reference():
 
 
 def test_fault_and_seq_axis_are_refused():
-    """Only ``seq_axis`` is refused now (ROADMAP item 14b); ``fault`` is
-    accepted (``tests/test_torch_train_fault.py`` holds it against the
-    reference), with or beside ``unroll``."""
-    cfg = get_config("olmo-1b").reduced()
-    L = cfg.n_layers
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        TS.make_loss_fn(cfg, seq_axis="seq")
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        TS.make_train_step(cfg, TO.AdamWConfig(), seq_axis="seq",
-                           fault=(torch.zeros(L), torch.zeros(L), 0))
-    TS.make_train_step(cfg, TO.AdamWConfig(),
-                       fault=(np.zeros(L, np.float32), None, 0))
-    TS.make_loss_fn(cfg, unroll=True)         # accepted, and no effect
+    """Nothing is refused now: ``seq_axis`` (the reference's sequence-
+    parallel hint) is accepted and, on whole params (no mesh), changes no
+    value: the loss equals the reference's ``make_loss_fn`` (which takes
+    the same hint) within 1e-5 and the port's own ``seq_axis=None`` loss
+    bitwise; with ``fault`` it steps bitwise the fault-only step
+    (``tests/test_torch_launch_tp.py`` holds ``seq_axis`` on a mesh).
+    ``unroll`` is accepted and has no effect."""
+    jc, tc, jp, tp, jb, tb = _both("olmo-1b")
+    L = tc.n_layers
+    jl = jax.jit(JS.make_loss_fn(jc, remat=False))(jp, jb)
+    got = TS.make_loss_fn(tc, remat=False, seq_axis="seq")(tp, tb)
+    assert abs(float(jl) - float(got)) <= 1e-5
+    assert _same_bits(got, TS.make_loss_fn(tc, remat=False)(tp, tb))
+    fault = (torch.full((L,), 0.2), torch.full((L,), 0.2), 0)
+    opt = TO.AdamWConfig()
+    a = TS.make_train_step(tc, opt, seq_axis="seq", fault=fault)(
+        tp, TS.init_train_state(tc, tp), tb)
+    b = TS.make_train_step(tc, opt, fault=fault)(
+        tp, TS.init_train_state(tc, tp), tb)
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        assert _same_bits(x, y)
+    TS.make_loss_fn(tc, unroll=True)         # accepted, and no effect
 
 
 # --------------------------------------------------------------------------
