@@ -1,0 +1,8 @@
+"""The allocator's peak over the window (``max_memory_allocated`` after a
+reset at its start), in GB."""
+
+
+def read(ctx):
+    if not ctx.peak_bytes:
+        return None
+    return ctx.peak_bytes / 1e9

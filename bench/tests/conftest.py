@@ -1,0 +1,10 @@
+"""The benchmark's tests: run from the repository's root as
+``python -m pytest bench/tests``.  Those marked ``cuda`` need a card and
+skip without one."""
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (ROOT / "src", ROOT):
+    if str(p) not in sys.path:
+        sys.path.insert(0, str(p))
