@@ -1,0 +1,9 @@
+"""The share of the traced sub-window in which the device is idle while
+the host's innermost program span is a ``forward.`` span (a segment, a
+unit step, a whole forward: PyTorch's operations and their launches), in
+percent (``program_spans.py``)."""
+from bench.program_spans import idle_share
+
+
+def read(ctx):
+    return idle_share(ctx, "forward")

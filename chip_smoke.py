@@ -201,8 +201,8 @@ Phases (any failure raises, and the process exits nonzero):
      grad norm, the step's dt median and range, tokens a second, the
      allocator's peak and the host waits by Python line (sync debug mode),
      and one profiled step's busy time by kernel group, the optimizer's
-     kernels (inside its ``adamw_update`` range) apart, and its idle share
-     against the median step.  It fails on a non-finite loss, a last-5
+     kernels (inside its ``train.adamw_update`` span) apart, and its idle
+     share against the median step.  It fails on a non-finite loss, a last-5
      mean not below the first-5 mean, or more than one host wait a step.
      c: the trained model's self-labels on the held-out
      ``TokenStream(seed=1)`` batch of 8 x 256, their spread and the share
@@ -1581,7 +1581,8 @@ def staged_phase(dev, params, labels, spec, layers, cfg, full_plan, full_rows,
         t_walk = (time.perf_counter() - t0) * 1e3
     del e
     torch.cuda.empty_cache()
-    kern = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
+    kern = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA
+            and not a.key.startswith(RANGE_PREFIX)]
     if not kern:
         raise AssertionError("the profiler recorded no device kernel")
     busy = sum(a.self_device_time_total for a in kern) / 1e3
@@ -1788,7 +1789,10 @@ def _lm_search(tag, dev, cfg, fixture, nsga, tokens, faulty_bits,
 
 
 # profiler ranges the port opens around its scans (``models/layers.py``)
-SCAN_RANGES = ("rglru_scan", "ssd_chunk_scan")
+# the port's spans (repro_torch.trace) show on the device timeline as
+# annotations named "afp:<span>": ranges, not kernels
+RANGE_PREFIX = "afp:"
+SCAN_RANGES = ("afp:forward.rglru_scan", "afp:forward.ssd_chunk_scan")
 
 
 def _host_waits(ev, row) -> int:
@@ -1831,10 +1835,11 @@ def _profiled_split(fn, on_card, iters):
         fn()
         sync()
     launched = {k: v - before.get(k, 0) for k, v in ops.launches.items()}
-    # a range opened by record_function shows on the device timeline as
-    # an annotation (a span, not a kernel): kept out of the kernels
+    # the port's spans show on the device timeline as annotations (ranges,
+    # not kernels): kept out of the kernels
     kern = [a for a in prof.key_averages()
-            if a.device_type == DeviceType.CUDA and a.key not in SCAN_RANGES]
+            if a.device_type == DeviceType.CUDA
+            and not a.key.startswith(RANGE_PREFIX)]
     if on_card and not kern:
         raise AssertionError("the profiler recorded no device kernel")
     busy = sum(a.self_device_time_total for a in kern) / 1e3
@@ -1865,7 +1870,8 @@ def _profile_candidate(tag, dev, cfg, f_ev, row, B, S):
         f"{[round(w, 3) for w in walls]} ms (median {t_row:.3f}); the "
         f"forward waits on the card {_host_waits(f_ev, row)} times")
     dev_ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    k_ev = [e.time_range for e in dev_ev if e.name not in SCAN_RANGES]
+    k_ev = [e.time_range for e in dev_ev
+            if not e.name.startswith(RANGE_PREFIX)]
     scans = {}
     for name in SCAN_RANGES:
         spans = [e.time_range for e in dev_ev if e.name == name]
@@ -2756,7 +2762,7 @@ def _label_spread(cfg, params, batch):
 
 def _train_profile(trainer, on_card):
     """One more step under torch.profiler: device time by kernel group, the
-    optimizer's kernels (those inside the ``adamw_update`` range's spans)
+    optimizer's kernels (those inside the ``train.adamw_update`` spans)
     apart from the rest, the kernels launched.  Returns (busy ms, groups,
     kernels, dt)."""
     from torch.autograd import DeviceType
@@ -2769,11 +2775,12 @@ def _train_profile(trainer, on_card):
     if not on_card:
         return 0.0, {}, 0, dt
     dev_ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = [e.time_range for e in dev_ev if e.name == "adamw_update"]
+    spans = [e.time_range for e in dev_ev
+             if e.name == RANGE_PREFIX + "train.adamw_update"]
     groups = {}
     n = 0
     for e in dev_ev:
-        if e.name == "adamw_update":
+        if e.name.startswith(RANGE_PREFIX):
             continue
         r = e.time_range
         g = kernel_group(e.name, "cuBLAS matmul")
@@ -4388,7 +4395,8 @@ def main() -> int:
         ev._dispatch(row)
         torch.cuda.synchronize()
     kernels_ = [a for a in prof.key_averages()
-                if a.device_type == DeviceType.CUDA]
+                if a.device_type == DeviceType.CUDA
+                and not a.key.startswith(RANGE_PREFIX)]
     if not kernels_:
         raise AssertionError("the profiler recorded no device kernel")
     busy = sum(a.self_device_time_total for a in kernels_) / 1e3

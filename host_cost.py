@@ -171,7 +171,9 @@ def main(argv=None) -> int:
                              ProfilerActivity.CUDA]) as prof:
         ev._dispatch(row)
         torch.cuda.synchronize()
-    kern = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
+    # the port's spans show on the device timeline as "afp:" annotations
+    kern = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA
+            and not a.key.startswith("afp:")]
     # where the forward waits on the card: PyTorch warns at each
     # synchronizing call, from the Python line that made it
     torch.cuda.set_sync_debug_mode("warn")

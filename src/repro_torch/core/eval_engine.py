@@ -59,6 +59,7 @@ import torch
 
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.launch.mesh import local_devices, make_eval_mesh
+from repro_torch.trace import span, spanned
 
 __all__ = ["PopulationEvalEngine", "PrefixEvalEngine", "ActivationStore",
            "DeviceScheduler", "PrefixRef", "StackedView", "chunked_rows",
@@ -411,6 +412,9 @@ class PrefixEvalEngine:
     Cost accounting: ``unit_runs`` counts unit executions (recompute
     fallbacks included); ``rows_evaluated * n_units`` is what the
     full-forward path would run, so ``unit_runs_avoided`` is the win.
+    ``rows_requested`` and ``rows_cached`` count the rows handed to
+    ``evaluate`` and those the row cache answered; ``stats()`` leaves them
+    out and stays the reference's.
     """
 
     def __init__(self, unit_fns: Sequence[Callable], n_units: int,
@@ -443,6 +447,8 @@ class PrefixEvalEngine:
         self.fused_segments = 0    # ladder segments dispatched
         self.branch_nodes = 0      # trie nodes with >= 2 children seen
         self.max_chain = 0         # longest chain planned (pre-ladder)
+        self.rows_requested = 0    # rows handed to evaluate
+        self.rows_cached = 0       # of those, rows the row cache answered
 
     # -- derived stats -------------------------------------------------------
     @property
@@ -501,11 +507,17 @@ class PrefixEvalEngine:
         """P: [N, L] int device rows -> [N] cached final-depth values."""
         P = np.asarray(P)
         assert P.ndim == 2 and P.shape[1] == self.n_units, P.shape
-        keys = [self.key(row) for row in P]
-        fresh: dict[tuple, None] = {}
-        for k in keys:
-            if k not in self._cache and k not in fresh:
-                fresh[k] = None
+        with span("engine.plan"):
+            keys = [self.key(row) for row in P]
+            fresh: dict[tuple, None] = {}
+            cached = 0
+            for k in keys:
+                if k in self._cache:
+                    cached += 1
+                elif k not in fresh:
+                    fresh[k] = None
+        self.rows_requested += len(keys)
+        self.rows_cached += cached
         if fresh:
             self._run_rows(np.array(list(fresh), dtype=P.dtype))
         return np.array([self._cache[k] for k in keys])
@@ -544,27 +556,29 @@ class PrefixEvalEngine:
         pending: list[tuple[list, list]] = []   # (prefixes, result chunks)
         for i in range(L):
             last = i == L - 1
-            todo: dict[tuple, None] = {}
-            seen: set[tuple] = set()
-            for row in R:
-                p = self.key(row[:i + 1])
-                if p in seen:               # in-round sharing: counted via
-                    continue                # unit_runs_avoided, not as a hit
-                seen.add(p)
-                if not last and p in self.store:
-                    self.prefix_hits += 1   # one hit per unique prefix
+            with span("engine.plan"):
+                todo: dict[tuple, None] = {}
+                seen: set[tuple] = set()
+                for row in R:
+                    p = self.key(row[:i + 1])
+                    if p in seen:           # in-round sharing: counted via
+                        continue            # unit_runs_avoided, not a hit
+                    seen.add(p)
+                    if not last and p in self.store:
+                        self.prefix_hits += 1   # one hit per unique prefix
+                    else:
+                        todo[p] = None
+                prefixes = list(todo)
+                if sched is None:
+                    groups = [(None, prefixes)]
                 else:
-                    todo[p] = None
+                    by_dev: dict[int, list] = {}
+                    for p in prefixes:
+                        by_dev.setdefault(self._device_index(p),
+                                          []).append(p)
+                    groups = [(d, by_dev[d]) for d in sorted(by_dev)]
             if not todo:
                 continue
-            prefixes = list(todo)
-            if sched is None:
-                groups = [(None, prefixes)]
-            else:
-                by_dev: dict[int, list] = {}
-                for p in prefixes:
-                    by_dev.setdefault(self._device_index(p), []).append(p)
-                groups = [(d, by_dev[d]) for d in sorted(by_dev)]
             pin = set(prefixes)
             for dev_idx, group in groups:
                 parents = None if i == 0 else \
@@ -620,6 +634,7 @@ class PrefixEvalEngine:
             self.fused_segments += len(segs)
         self._gather_final(pending)
 
+    @spanned("engine.plan")
     def _plan_segments(self, rows: list) -> list:
         """Plan the fused walk: ``[(start, length, parent_prefix, genes)]``
         covering every unit run the fresh ``rows`` need.
@@ -702,6 +717,7 @@ class PrefixEvalEngine:
         with ``shared_fields`` keep eager per-row entries."""
         return not self.shared_fields
 
+    @spanned("engine.store")
     def _store_group(self, keys: list, chunks: list, pin: set,
                      slot: int | None):
         """Store one dispatch group's outputs on its slot: per-row
@@ -722,6 +738,7 @@ class PrefixEvalEngine:
                                    slot=slot)
             j += n
 
+    @spanned("engine.gather")
     def _gather_final(self, pending: list):
         """The once-per-call gather: every chunk's results in one host
         copy (:func:`gather_host`)."""
@@ -786,6 +803,7 @@ class PrefixEvalEngine:
         """Resolved standalone activation for ``prefix`` on ``slot``."""
         return self._materialize(self._parent_for(prefix, slot), slot)
 
+    @spanned("engine.recompute")
     def _recompute(self, prefix: tuple):
         """The eviction fallback: re-run unit ``len(prefix)-1`` for one
         prefix on its slot (recursing up the chain as needed) and re-store
@@ -806,6 +824,7 @@ class PrefixEvalEngine:
                        slot=dev_idx)
         return act
 
+    @spanned("engine.stack")
     def _stack_chunk(self, parents: list, slot: int | None):
         """One chunk's stacked parent activations: a single
         ``index_select`` when every parent is a view into ONE batch, else
@@ -841,11 +860,12 @@ class PrefixEvalEngine:
             else self.scheduler.devices[dev_idx]
         outs: list = []
         for start, stop, _ in chunked_rows(len(genes), self.eval_batch_size):
-            g = genes[start:stop]
-            g_t = to_device_index(g if unit_axis else g[:, 0], device)
-            acts = None if parents is None else \
-                self._stack_chunk(parents[start:stop], dev_idx)
-            out = fn(acts, g_t)
+            with span("engine.dispatch"):
+                g = genes[start:stop]
+                g_t = to_device_index(g if unit_axis else g[:, 0], device)
+                acts = None if parents is None else \
+                    self._stack_chunk(parents[start:stop], dev_idx)
+                out = fn(acts, g_t)
             self.dispatches += 1
             if dev_idx is not None:
                 self.device_dispatches[dev_idx] = \
@@ -877,6 +897,8 @@ class PopulationEvalEngine:
         self._cache: dict[tuple, float] = {}
         self.dispatches = 0          # batch_fn calls
         self.rows_evaluated = 0      # unique rows actually computed
+        self.rows_requested = 0      # rows handed to evaluate
+        self.rows_cached = 0         # of those, rows the row cache answered
 
     @staticmethod
     def key(row: Sequence) -> tuple:
@@ -885,11 +907,17 @@ class PopulationEvalEngine:
     def evaluate(self, P: np.ndarray) -> np.ndarray:
         """``P [N, L]`` integer rows -> ``[N]`` cached ``batch_fn`` values."""
         P = np.asarray(P)
-        keys = [self.key(row) for row in P]
-        fresh: dict[tuple, int] = {}
-        for i, k in enumerate(keys):
-            if k not in self._cache and k not in fresh:
-                fresh[k] = i
+        with span("engine.plan"):
+            keys = [self.key(row) for row in P]
+            fresh: dict[tuple, int] = {}
+            cached = 0
+            for i, k in enumerate(keys):
+                if k in self._cache:
+                    cached += 1
+                elif k not in fresh:
+                    fresh[k] = i
+        self.rows_requested += len(keys)
+        self.rows_cached += cached
         if fresh:
             rows = P[list(fresh.values())]
             fresh_keys = list(fresh)
@@ -902,18 +930,21 @@ class PopulationEvalEngine:
             pending = []
             for ci, (start, stop, padded) in enumerate(
                     chunked_rows(len(rows), ebs)):
-                chunk = pad_rows(rows[start:stop], padded)
-                if sched is not None:
-                    val = self.batch_fn(chunk, device=sched.device_for(ci))
-                else:
-                    val = self.batch_fn(chunk)
+                with span("engine.dispatch"):
+                    chunk = pad_rows(rows[start:stop], padded)
+                    if sched is not None:
+                        val = self.batch_fn(chunk,
+                                            device=sched.device_for(ci))
+                    else:
+                        val = self.batch_fn(chunk)
                 self.dispatches += 1
                 self.rows_evaluated += stop - start
                 pending.append((fresh_keys[start:stop], val, stop - start))
-            vals = gather_host([val for _, val, _ in pending])
-            for (chunk_keys, _, n), v in zip(pending, vals):
-                for k, x in zip(chunk_keys, v[:n]):
-                    self._cache[k] = float(x)
+            with span("engine.gather"):
+                vals = gather_host([val for _, val, _ in pending])
+                for (chunk_keys, _, n), v in zip(pending, vals):
+                    for k, x in zip(chunk_keys, v[:n]):
+                        self._cache[k] = float(x)
         return np.array([self._cache[k] for k in keys])
 
 

@@ -18,6 +18,8 @@ from typing import Callable
 
 import numpy as np
 
+from repro_torch.trace import span
+
 __all__ = ["NSGA2Config", "NSGA2Result", "nsga2", "nsga2_steps",
            "fast_non_dominated_sort", "crowding_distance", "pareto_mask"]
 
@@ -177,17 +179,14 @@ def nsga2_steps(eval_fn: Callable[[np.ndarray], np.ndarray],
     per decode step, interleaved with the in-flight decode dispatch.
     :func:`nsga2` drains this generator to completion, so the two entry
     points share one code path and are bit-identical for a given config.
+
+    The work each ``next()`` runs, from resumption to the ``yield``, is
+    one ``search.generation`` span, closed before the ``yield``: the
+    first also scores the initial population, and the front's extraction
+    after the last generation is one too.
     """
     rng = np.random.default_rng(config.seed)
     N = config.population
-    if initial_pop is not None:
-        pop = np.asarray(initial_pop, dtype=np.int64)
-        if pop.shape[0] < N:   # top up with random individuals
-            extra = rng.integers(0, n_devices, size=(N - pop.shape[0], n_genes))
-            pop = np.concatenate([pop, extra], axis=0)
-        pop = pop[:N]
-    else:
-        pop = rng.integers(0, n_devices, size=(N, n_genes))
 
     def _eval(P):
         objs = np.asarray(eval_fn(P), dtype=np.float64)
@@ -197,12 +196,21 @@ def nsga2_steps(eval_fn: Callable[[np.ndarray], np.ndarray],
                 f"one call; got {objs.shape} for N={P.shape[0]}")
         return objs
 
-    objs = _eval(pop)
-    viol = violation_fn(pop) if violation_fn is not None else None
-    evaluations = N
-    history = []
+    def _initial():
+        if initial_pop is not None:
+            pop = np.asarray(initial_pop, dtype=np.int64)
+            if pop.shape[0] < N:   # top up with random individuals
+                extra = rng.integers(0, n_devices,
+                                     size=(N - pop.shape[0], n_genes))
+                pop = np.concatenate([pop, extra], axis=0)
+            pop = pop[:N]
+        else:
+            pop = rng.integers(0, n_devices, size=(N, n_genes))
+        objs = _eval(pop)
+        viol = violation_fn(pop) if violation_fn is not None else None
+        return pop, objs, viol
 
-    for g in range(config.generations):
+    def _generation(pop, objs, viol):
         ranks = fast_non_dominated_sort(objs, viol)
         crowd = crowding_distance(objs, ranks)
         pa = _tournament(rng, ranks, crowd, config.tournament_k, N)
@@ -211,8 +219,8 @@ def nsga2_steps(eval_fn: Callable[[np.ndarray], np.ndarray],
         children = _mutate(rng, children, n_devices, config.mutation_rate)
 
         child_objs = _eval(children)
-        child_viol = violation_fn(children) if violation_fn is not None else None
-        evaluations += N
+        child_viol = violation_fn(children) if violation_fn is not None \
+            else None
 
         # (mu + lambda) elitist environmental selection
         allpop = np.concatenate([pop, children], axis=0)
@@ -223,18 +231,29 @@ def nsga2_steps(eval_fn: Callable[[np.ndarray], np.ndarray],
         acrowd = crowding_distance(allobjs, aranks)
         order = np.lexsort((-acrowd, aranks))
         keep = order[:N]
-        pop, objs = allpop[keep], allobjs[keep]
         viol = allviol[keep] if allviol is not None else None
-        history.append(objs.min(axis=0))
+        return allpop[keep], allobjs[keep], viol
+
+    pop = None
+    history = []
+    for g in range(config.generations):
+        with span("search.generation"):
+            if pop is None:
+                pop, objs, viol = _initial()
+            pop, objs, viol = _generation(pop, objs, viol)
+            history.append(objs.min(axis=0))
         yield g, pop, objs
 
-    ranks = fast_non_dominated_sort(objs, viol)
-    front = ranks == 0
-    # deduplicate identical chromosomes on the front
-    fpop, fidx = np.unique(pop[front], axis=0, return_index=True)
-    fobjs = objs[front][fidx]
-    return NSGA2Result(pareto_pop=fpop, pareto_objs=fobjs,
-                       history=history, evaluations=evaluations)
+    with span("search.generation"):
+        if pop is None:
+            pop, objs, viol = _initial()
+        ranks = fast_non_dominated_sort(objs, viol)
+        front = ranks == 0
+        # deduplicate identical chromosomes on the front
+        fpop, fidx = np.unique(pop[front], axis=0, return_index=True)
+        fobjs = objs[front][fidx]
+    return NSGA2Result(pareto_pop=fpop, pareto_objs=fobjs, history=history,
+                       evaluations=N * (config.generations + 1))
 
 
 def nsga2(eval_fn: Callable[[np.ndarray], np.ndarray],

@@ -66,6 +66,7 @@ from repro_torch.core.eval_engine import (DeviceScheduler,
                                           peak_memory_bytes)
 from repro_torch.core.fault import FaultSpec
 from repro_torch.launch.mesh import indexed_device, local_devices
+from repro_torch.trace import span, spanned
 
 __all__ = ["InferenceAccuracyEvaluator", "SurrogateAccuracyEvaluator",
            "ObjectiveFn", "profile_layer_sensitivity",
@@ -165,17 +166,20 @@ def _compose(step, start: int, length: int, params, tables, x0, labels,
     @torch.no_grad()
     @fp32_exact()
     def fn(acts, genes):
-        w_dev, a_dev, base = env()
-        x = _row_input(x0, genes.shape[0]) if acts is None else acts
-        for k in range(length):
-            i, d = start + k, genes[:, k]
-            if tables is not None:
-                p = tree_map(lambda t: t.index_select(0, d), tables[i])
-                wr = None
-            else:
-                p, wr = params[i], w_dev[d]
-            x = step(i, p, x, wr, a_dev[d], base + 7919 * i)
-        return _accuracy(x, labels) if final else x
+        with span("forward.segment"):
+            w_dev, a_dev, base = env()
+            x = _row_input(x0, genes.shape[0]) if acts is None else acts
+            for k in range(length):
+                with span("forward.unit"):
+                    i, d = start + k, genes[:, k]
+                    if tables is not None:
+                        p = tree_map(lambda t: t.index_select(0, d),
+                                     tables[i])
+                        wr = None
+                    else:
+                        p, wr = params[i], w_dev[d]
+                    x = step(i, p, x, wr, a_dev[d], base + 7919 * i)
+            return _accuracy(x, labels) if final else x
 
     return fn
 
@@ -571,10 +575,16 @@ class InferenceAccuracyEvaluator:
                         rep.x, rep.labels, self._generic_env(rep))
 
     def staged_stats(self) -> dict:
-        """Prefix-reuse accounting (unit runs, hits, evictions, ...)."""
+        """Prefix-reuse accounting (unit runs, hits, evictions, ...), the
+        staged engine's ``stats()``, and the row cache's: ``rows_requested``
+        (rows handed to either engine) and ``rows_cached`` (of those, rows
+        already in the cache when their call began)."""
         if self._prefix_engine is None:
             return {}
-        return self._prefix_engine.stats()
+        engines = (self._engine, self._prefix_engine)
+        return {**self._prefix_engine.stats(),
+                **{k: sum(getattr(e, k) for e in engines)
+                   for k in ("rows_requested", "rows_cached")}}
 
     # -- memory probe ---------------------------------------------------------
     def _auto_eval_batch_size(self) -> int | None:
@@ -656,12 +666,14 @@ class InferenceAccuracyEvaluator:
             idx = put(rows, dev)
             gathered = [tree_map(lambda t, i=i: t[idx[:, i]], table)
                         for i, table in enumerate(rep.tables)]
-            logits = self._apply_fn(gathered, rep.x, None, AR, seed)
+            with span("forward.apply"):
+                logits = self._apply_fn(gathered, rep.x, None, AR, seed)
         else:
             WR = put(self.w_rates_by_device[rows], dev)
             params = rep.qparams if self._fault_backend == "kernel" \
                 else rep.params
-            logits = self._apply_fn(params, rep.x, WR, AR, seed)
+            with span("forward.apply"):
+                logits = self._apply_fn(params, rep.x, WR, AR, seed)
         return _accuracy(logits, rep.labels)
 
     @torch.no_grad()
@@ -669,8 +681,9 @@ class InferenceAccuracyEvaluator:
     def _clean_for(self, n: int) -> float:
         if self._clean is None:
             z = torch.zeros((1, n), dtype=torch.float32, device=self.device)
-            logits = self._apply_fn(self._params, self._x, z, z,
-                                    int(self.base_seed))
+            with span("forward.apply"):
+                logits = self._apply_fn(self._params, self._x, z, z,
+                                        int(self.base_seed))
             self._clean = float(_accuracy(logits, self.labels)[0])
         return self._clean
 
@@ -697,6 +710,7 @@ class InferenceAccuracyEvaluator:
                 "n_units= (or per-unit list params)")
         return self._clean_for(n)
 
+    @spanned("engine.delta_acc")
     def delta_acc(self, P: np.ndarray) -> np.ndarray:
         """``P [N, L]`` device ids -> ΔAcc per candidate (bitwise the same
         under either strategy)."""
@@ -845,12 +859,14 @@ class ObjectiveFn:
         return 2 if self.acc_evaluator is None else 3
 
     def __call__(self, P: np.ndarray) -> np.ndarray:
-        lat = self.cost_model.latency(P) * self.latency_weight
-        en = self.cost_model.energy_of(P) * self.energy_weight
-        if self.acc_evaluator is None:
-            return np.stack([lat, en], axis=1)
-        dacc = self.acc_evaluator.delta_acc(P)
-        return np.stack([lat, en, dacc], axis=1)
+        with span("search.objective"):
+            with span("search.cost_model"):
+                lat = self.cost_model.latency(P) * self.latency_weight
+                en = self.cost_model.energy_of(P) * self.energy_weight
+            if self.acc_evaluator is None:
+                return np.stack([lat, en], axis=1)
+            dacc = self.acc_evaluator.delta_acc(P)
+            return np.stack([lat, en, dacc], axis=1)
 
     def violation(self, P: np.ndarray) -> np.ndarray:
         return self.cost_model.violation(P)

@@ -22,6 +22,9 @@ row group, and they count there; on float32 x with a bf16 weight dtype
 (the encoder-decoder's encoder) those of ``fault_weight_tiles`` and
 ``matmul_tiles_f32`` the same way.
 
+Each public wrapper runs inside a ``kernel.`` span (``repro_torch.trace``;
+``quant_bitflip_group`` and ``quant_bitflip`` under ``kernel.quant_bitflip``).
+
 Under autograd (grad enabled and an input that requires grad)
 ``quant_bitflip_group`` is differentiable, with the reference's gradient
 (``ref.quant_bitflip_grad_ref``); the other wrappers have no backward and
@@ -39,6 +42,7 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels._build import library
 from repro_torch.kernels.faultmodel import FAULT_MODELS, seed_u32
 from repro_torch.quant.fixedpoint import QuantSpec
+from repro_torch.trace import spanned
 
 __all__ = ["bitflip", "quant_bitflip", "quant_bitflip_group", "fault_matmul",
            "fault_weight_tiles", "matmul_tiles", "matmul_tiles_f32",
@@ -196,6 +200,7 @@ def row_groups(R: int, K: int, N: int, splits: int = 1) -> list[tuple[int, int]]
     return [(r0, min(G, R - r0)) for r0 in range(0, R, G)]
 
 
+@spanned("kernel.bitflip")
 def bitflip(q: torch.Tensor, seed, rate, faulty_bits: int, *,
             fault_model: str = "flip", mbu_width: int = 2,
             scale=None, dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -271,6 +276,7 @@ def _qb_rows(x: torch.Tensor, R: int) -> tuple[torch.Tensor, int]:
     return x, x.stride(0)
 
 
+@spanned("kernel.quant_bitflip")
 def quant_bitflip_group(xs, seeds, rates, faulty_bits: int,
                         spec: QuantSpec = QuantSpec(), *,
                         fault_model: str = "flip",
@@ -435,6 +441,7 @@ def _product_f32_launch(x_ptr, tiles, out_ptr, rows, M, K, N, splits,
     launches["matmul_tiles_f32"] += 1
 
 
+@spanned("kernel.fault_weight_tiles")
 def fault_weight_tiles(qw: torch.Tensor, scale, seed, rate,
                        faulty_bits: int, *, fault_model: str = "flip",
                        mbu_width: int = 2,
@@ -496,6 +503,7 @@ def _tiles_product(x: torch.Tensor, tiles: torch.Tensor, K: int,
     return out
 
 
+@spanned("kernel.matmul_tiles")
 def matmul_tiles(x: torch.Tensor, tiles: torch.Tensor, K: int,
                  N: int) -> torch.Tensor:
     """The bf16 route's product: ``x [R, ..., K]`` bf16 times row r's W'
@@ -509,6 +517,7 @@ def matmul_tiles(x: torch.Tensor, tiles: torch.Tensor, K: int,
     return _tiles_product(x, tiles, K, N)
 
 
+@spanned("kernel.matmul_tiles_f32")
 def matmul_tiles_f32(x: torch.Tensor, tiles: torch.Tensor, K: int,
                      N: int) -> torch.Tensor:
     """The product of the float32-x, bf16-weight route: ``x [R, ..., K]``
@@ -524,6 +533,7 @@ def matmul_tiles_f32(x: torch.Tensor, tiles: torch.Tensor, K: int,
     return _tiles_product(x, tiles, K, N)
 
 
+@spanned("kernel.fault_matmul")
 def fault_matmul(x: torch.Tensor, qw: torch.Tensor, scale, seed, rate,
                  faulty_bits: int, *, fault_model: str = "flip",
                  mbu_width: int = 2,

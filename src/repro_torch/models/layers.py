@@ -51,7 +51,6 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from repro_torch._tree import tree_flatten, tree_map, tree_unflatten
 from repro_torch.kernels import ops as kops
@@ -59,6 +58,7 @@ from repro_torch.kernels import ref as kref
 from repro_torch.kernels.faultmodel import FAULT_MODELS
 from repro_torch.launch import collectives as C
 from repro_torch.quant.fixedpoint import QuantSpec, quantize
+from repro_torch.trace import span
 
 __all__ = ["QTensor", "FaultedQ", "quantize_leaf", "quantize_params",
            "dequantize_params", "maybe_corrupt", "corrupt_leaves",
@@ -1022,7 +1022,7 @@ def rglru_core(p: dict, u: torch.Tensor, h0=None):
     gated = i * uf
     b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) \
         * gated
-    with record_function("rglru_scan"):      # a range for the profiler
+    with span("forward.rglru_scan"):
         h = _rglru_scan(a, b, h0)
     return h.to(u.dtype), h[:, -1]
 
@@ -1144,7 +1144,7 @@ def ssd_fwd(p: dict, x: torch.Tensor, *, expand: int, head_dim: int,
     dt = _softplus(dt_raw.to(torch.float32) + p["dt_bias"][None, None, :])
     xh = xs.reshape(B, S, nh, head_dim)
     A = torch.exp(p["A_log"])
-    with record_function("ssd_chunk_scan"):  # a range for the profiler
+    with span("forward.ssd_chunk_scan"):
         y, h_last = _ssd_chunk_scan(xh, dt, A, Bm, Cm, chunk,
                                     cache["h"] if cache else None)
     y = y + xh.to(torch.float32) * p["D"][None, None, :, None]

@@ -25,9 +25,9 @@ import dataclasses
 import math
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch._tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.trace import spanned
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "warmup_cosine",
            "clip_by_global_norm", "global_norm"]
@@ -105,7 +105,7 @@ def adamw_init(params, cfg: AdamWConfig | None = None) -> dict:
 
 
 @torch.no_grad()
-@record_function("adamw_update")           # a range for the profiler
+@spanned("train.adamw_update")
 def adamw_update(cfg: AdamWConfig, params, grads, state, counted=None):
     """Returns ``(new_params, new_state, metrics)``; ``metrics`` holds the
     0-d tensors ``grad_norm`` (before clipping) and ``lr``.  ``counted``:
