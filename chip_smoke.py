@@ -71,6 +71,16 @@ Phases (any failure raises, and the process exits nonzero):
      decoder's shapes (M = 2048) as at olmo-1b's; ``quant_bitflip``
      bitwise at [1, 8, 32, 1024] float32 and [1, 8, 256, 1024] bf16; and
      ``bitflip`` bitwise on a [1024] LayerNorm leaf dequantized to bf16.
+     The glue kernels (``csrc/glue.cu``): ``swiglu`` bitwise its op-by-op
+     chain over every bf16 h1 (16 h3 values), and ``swiglu`` and ``rope``
+     bitwise at olmo-1b's shapes in bf16, fp16 and float32 (``rope`` also
+     at decode's [8, 1] positions), then timed in bf16 beside their bound
+     and the chain's device time (RoPE's with the tables it built at every
+     call).  Phases 9, 13, 16, 17 and 18 check the glue counters: a
+     forward that autograd differentiates (training) runs the op-by-op
+     chains, counted in ``ops.unfused``, and launches neither kernel; any
+     other launches both and runs no chain (phase 9: one ``swiglu`` and
+     two ``rope`` a unit step).
   4. The whole-forward path: ResNet18 at width 1.0 (channels 64-512), img
      32, 16 classes, n_eval=512, labels = the clean model's own argmax;
      ``AFarePart`` (NSGA-II pop 24, 3 generations) under the kernel backend
@@ -403,12 +413,15 @@ the bound does not credit: the same draws take 15.
   * ``matmul_tiles_f32`` (the float32-x route's product): 3 x 2 M K N at
     989 TFLOP/s (the three parts of x), or its bytes (float32 x and W'
     read, float32 out written).
+  * ``swiglu``, ``rope``: their bytes (h1 and h3 read, the gate written;
+    x and the float32 tables read, x's rotation written).
 Rates are the H100 SXM's published peaks at 700 W.
 """
 from __future__ import annotations
 
 import collections
 import gc
+import itertools
 import json
 import os
 import re
@@ -510,7 +523,8 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     if a.dtype != b.dtype or a.shape != b.shape:
         return False
     if a.is_floating_point():
-        view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+        view = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+                torch.float16: torch.int16}
         a, b = a.view(view[a.dtype]), b.view(view[b.dtype])
     return bool(torch.equal(a, b))
 
@@ -713,7 +727,8 @@ RECORD_KEYS = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
                "seamless_candidate_launches", "reconfig_launches",
                "decode_shapes", "serve_launches", "train_probe_launches",
                "pool_launches", "pp_launches", "shard_decode_launches",
-               "train_shapes", "fault_train_launches", "tp_decode_launches")
+               "train_shapes", "fault_train_launches", "tp_decode_launches",
+               "lm_unfused")
 
 
 # fault_matmul on bf16 x at olmo-1b's projections, M = B S = 2048:
@@ -1403,6 +1418,86 @@ def check_encdec_kernels(dev, records):
                 + (f", {r['splits']} K slices" if "splits" in r else ""))
 
 
+# the glue kernels at one olmo-1b unit run of a row (B S = 2048 tokens):
+# the gate at d_ff 8192, RoPE on q (or k), 16 heads of 128
+GLUE_SHAPES = {"swiglu": (1, 8, 256, 8192), "rope": (1, 8, 256, 16, 128)}
+ROPE_THETA = 10000.0
+
+
+def check_glue_kernels(dev, records):
+    """Phase 3's glue kernels: ``swiglu`` and ``rope`` bitwise their
+    op-by-op chains (``ref.swiglu_ref``, ``ref.rope_ref``), the gate over
+    every bf16 h1, then each timed in bf16 at ``GLUE_SHAPES``: its device
+    time, its wrapper's, the chain's device time (``plain_ms``; RoPE's
+    building its tables, as every call did) and the bound.  RoPE also at
+    decode's ``[B, 1]`` positions, a table row a sequence."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    h1 = torch.arange(-32768, 32768, dtype=torch.int32, device=dev)
+    h1 = h1.to(torch.int16).view(torch.bfloat16)
+    h3 = (3 * torch.randn(16, 1, device=dev, generator=gen)).to(
+        torch.bfloat16).expand(16, h1.numel()).contiguous()
+    h1 = h1.expand_as(h3).contiguous()
+    if not bits_equal(ops.swiglu(h1, h3), ref.swiglu_ref(h1, h3)):
+        raise AssertionError("swiglu differs from its chain over the bf16 h1")
+    S, H, dh = GLUE_SHAPES["rope"][-3:]
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    tables = L.rope_tables(pos, dh // 2, ROPE_THETA)
+    # decode's: a token a sequence, each at its own position
+    dpos = torch.randint(0, 4096, (8, 1), dtype=torch.int32, device=dev,
+                         generator=gen)
+    dtables = L.rope_tables(dpos, dh // 2, ROPE_THETA)
+    args = {}
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        a, b = [(3 * torch.randn(GLUE_SHAPES["swiglu"], device=dev,
+                                 generator=gen)).to(dtype) for _ in range(2)]
+        x = torch.randn(GLUE_SHAPES["rope"], device=dev, generator=gen).to(
+            dtype)
+        xd = torch.randn(8, 1, H, dh, device=dev, generator=gen).to(dtype)
+        if not bits_equal(ops.swiglu(a, b), ref.swiglu_ref(a, b)):
+            raise AssertionError(f"swiglu {dtype} differs from its chain")
+        if not bits_equal(ops.rope(x, *tables), ref.rope_ref(x, *tables)):
+            raise AssertionError(f"rope {dtype} differs from its chain")
+        if not bits_equal(ops.rope(xd, *dtables),
+                          ref.rope_ref(xd, *dtables)):
+            raise AssertionError(f"decode's rope {dtype} differs from its "
+                                 "chain")
+        args[dtype] = (a, b, x)
+    log("phase3 glue: swiglu bitwise its chain over every bf16 h1 x 16 h3 "
+        "and at [1,8,256,8192], rope at [1,8,256,16,128] and decode's "
+        "[8,1,16,128] at 8 positions, in bfloat16/float16/float32")
+    a, b, x = args[torch.bfloat16]
+    del args
+    # x (8.4 MB) would stay in the 50 MB L2 over a graph's launches: each
+    # launch takes the next of 8 copies (67 MB), so its reads are cold, as
+    # the gate's 100 MB are
+    xs, turn = [x.clone() for _ in range(8)], itertools.count()
+    n = a.numel()
+    b_ms, b_by = bound(3 * 2 * n)
+    records["swiglu"].update(
+        ms=device_ms(lambda: ops.swiglu(a, b)),
+        wrapper_ms=time_ms(lambda: ops.swiglu(a, b)),
+        plain_ms=device_ms(lambda: ref.swiglu_ref(a, b)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, max_abs_err=0.0,
+        shape="[1,8,256,8192] bf16 h1, h3")
+    b_ms, b_by = bound(2 * 2 * x.numel() + 2 * 4 * S * dh // 2)
+    records["rope"].update(
+        ms=device_ms(lambda: ops.rope(xs[next(turn) % 8], *tables)),
+        wrapper_ms=time_ms(lambda: ops.rope(xs[next(turn) % 8], *tables)),
+        plain_ms=device_ms(lambda: ref.rope_ref(
+            xs[next(turn) % 8], *L.rope_tables(pos, dh // 2, ROPE_THETA))),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, max_abs_err=0.0,
+        shape="[1,8,256,16,128] bf16 x, [256,64] float32 tables")
+    for name in ("swiglu", "rope"):
+        r = records[name]
+        log(f"phase3 time {name} at {r['shape']}: device {r['ms']:.4f} ms, "
+            f"wrapper {r['wrapper_ms']:.4f} ms, op-by-op chain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.0f}% of it)")
+
+
 def launch_counts() -> dict:
     """``ops.launches`` with the float32-x, bf16-weight route's entry
     ``fault_matmul_bf16w`` added: its row groups, each one hash pass
@@ -1412,6 +1507,21 @@ def launch_counts() -> dict:
     counts = dict(ops.launches)
     counts["fault_matmul_bf16w"] = counts["matmul_tiles_f32"]
     return counts
+
+
+def glue_problems(cfg, launched: dict, unfused: dict, train: bool) -> list:
+    """What is wrong with a phase's glue counters (``launches`` and
+    ``ops.unfused`` of ``swiglu`` and ``rope``) on the card: a forward that
+    autograd differentiates (``train``) runs the op-by-op chains, counted
+    in ``unfused``, and launches neither kernel; any other launches both
+    (the gate where ``cfg`` gates by SwiGLU) and runs no chain."""
+    names = ("rope", "swiglu") if cfg.act_fn == "silu_glu" else ("rope",)
+    ran, idle = (unfused, launched) if train else (launched, unfused)
+    if all(ran[k] > 0 for k in names) and not any(
+            idle[k] for k in ("swiglu", "rope")):
+        return []
+    return [f"glue kernels launched {launched['swiglu']} swiglu, "
+            f"{launched['rope']} rope; op-by-op chains {unfused}"]
 
 
 # the SIMT body of fault_matmul (float32 x on int16/int32 storage with a
@@ -1437,6 +1547,10 @@ def kernel_group(key: str, other: str = "convolution") -> str:
         return "matmul_tiles"
     if "fwp::product_kernel" in key:
         return "matmul_tiles_f32"
+    if "glue::swiglu_kernel" in key:
+        return "swiglu"
+    if "glue::rope_kernel" in key:
+        return "rope"
     if "simt::kernel" in key:
         return SIMT_GROUP
     if "tc::kernel" in key or "sum_splits" in key:
@@ -1740,7 +1854,7 @@ def _lm_search(tag, dev, cfg, fixture, nsga, tokens, faulty_bits,
                           nsga2_config=nsga).optimize()
     sync()
     s_wall = time.perf_counter() - t0
-    s_launches = launch_counts()
+    s_launches, s_unfused = launch_counts(), dict(ops.unfused)
     st = s_ev.staged_stats()
     peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
     store_peak = s_ev._prefix_engine.store.peak_nbytes
@@ -1784,6 +1898,7 @@ def _lm_search(tag, dev, cfg, fixture, nsga, tokens, faulty_bits,
     if on_card:
         torch.cuda.empty_cache()
     return dict(f_ev=f_ev, f_rows=f_rows, s_launches=s_launches,
+                s_unfused=s_unfused,
                 f_launches=f_launches, s_wall=s_wall, f_wall=f_wall,
                 plan=plan, f_plan=f_plan)
 
@@ -1939,9 +2054,20 @@ def lm_phase(dev, records, cfg=None, sc_cfg=None, B=LM_B, S=LM_S,
     for name in LM_KERNELS:
         if on_card and min(s_launches[name], f_launches[name]) <= 0:
             raise AssertionError(f"{name} never launched on the LM path")
+    # a unit step (one layer over a chunk of rows) gates its MLP once and
+    # ropes q and k: one swiglu and two rope launches, no op-by-op chain
+    unfused = res["s_unfused"]
+    log(f"phase9 glue of the staged search: swiglu {s_launches['swiglu']} "
+        f"and rope {s_launches['rope']} launches, ops.unfused {unfused}")
+    if on_card and (any(unfused.values()) or not
+                    s_launches["rope"] == 2 * s_launches["swiglu"] > 0):
+        raise AssertionError(f"the staged search's glue: launches "
+                             f"{s_launches}, unfused {unfused}")
     for name, r in records.items():
         r["lm_launches"], r["lm_full_launches"] = \
             s_launches[name], f_launches[name]
+        if name in unfused:
+            r["lm_unfused"] = unfused[name]
         if name not in CNN_KERNELS:          # the LM path is their main path
             r["launches"] = s_launches[name]
     f_ev, f_rows = res["f_ev"], res["f_rows"]
@@ -2643,7 +2769,7 @@ def serve_phase(dev, records, cfg=None, steps=SERVE_STEPS, nsga=None):
             if on_card:
                 torch.cuda.set_sync_debug_mode("default")
     sync()
-    launches = launch_counts()
+    launches, unfused = launch_counts(), dict(ops.unfused)
     # sync debug mode warns at each call that makes the host wait, from
     # the Python line that made it
     sites = collections.Counter(f"{os.path.relpath(w.filename, HERE)}:"
@@ -2714,6 +2840,8 @@ def serve_phase(dev, records, cfg=None, steps=SERVE_STEPS, nsga=None):
         problems.append(f"the faulted decode step ran {fills['faulted']} fill "
                         f"or memset kernels, the clean one {fills['clean']}: "
                         "quant_bitflip's workspace was cleared")
+    if on_card:
+        problems += glue_problems(cfg, launches, unfused, train=False)
     for r in done:
         S = _bucket(len(r.prompt))
         toks = np.zeros((1, S), np.int32)
@@ -2734,7 +2862,9 @@ def serve_phase(dev, records, cfg=None, steps=SERVE_STEPS, nsga=None):
         f"{st['decode_steps']}, "
         + (f"fill or memset kernels faulted {fills['faulted']} <= clean "
            f"{fills['clean']}, " if on_card else "")
-        + f"{len(done)} first tokens = forward's argmax")
+        + f"{len(done)} first tokens = forward's argmax; swiglu "
+        f"{launches['swiglu']} and rope {launches['rope']} launches, "
+        f"ops.unfused {unfused}")
     for name, r in records.items():
         r["serve_launches"] = launches[name]
 
@@ -3195,7 +3325,7 @@ def _step_loop(dev, step, params, data, steps, on_card):
     """``steps`` train steps as ``Trainer.run`` takes them (the batch on
     the card first, then the step and its one read of the metrics), after
     one warm-up: ``(history, step walls, peak bytes, host waits and their
-    sites, launches over the steps, params)``."""
+    sites, launches and ops.unfused over the steps, params)``."""
     from repro_torch.kernels import ops
     from repro_torch.train.optimizer import adamw_init
 
@@ -3230,12 +3360,12 @@ def _step_loop(dev, step, params, data, steps, on_card):
         finally:
             if on_card:
                 torch.cuda.set_sync_debug_mode("default")
-    launches = launch_counts()
+    launches, unfused = launch_counts(), dict(ops.unfused)
     peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
     sites = collections.Counter(
         f"{os.path.relpath(w.filename, HERE)}:{w.lineno}" for w in caught
         if "called a synchronizing" in str(w.message))
-    return hist, np.array(dts), peak, sites, launches, params, st
+    return hist, np.array(dts), peak, sites, launches, unfused, params, st
 
 
 def fault_train_phase(dev, records, partition, cfg=None, B=TRAIN_B,
@@ -3337,7 +3467,7 @@ def fault_train_phase(dev, records, partition, cfg=None, B=TRAIN_B,
         step = make_train_step(cfg, opt, microbatches=TRAIN_MICRO,
                                remat=False, fault=f)
         data = TokenStream(vocab=vocab, seq_len=S, batch=B, seed=0)
-        hist, dts, peak, sites, launches, p2, st = _step_loop(
+        hist, dts, peak, sites, launches, unfused, p2, st = _step_loop(
             dev, step, params, data, steps, on_card)
         *_, busy, groups, _ = _profiled_split(
             lambda: step(p2, st, batch), on_card, iters=1)
@@ -3355,7 +3485,8 @@ def fault_train_phase(dev, records, partition, cfg=None, B=TRAIN_B,
             f"{1e3 * dts.min():.3f}-{1e3 * dts.max():.3f}), {B * S / med:.0f}"
             f" tokens/s, max_memory_allocated {peak}, host waits {waits} in "
             f"{steps} steps at {dict(sites)}, launches a step "
-            f"{ {k: v for k, v in per_step.items() if v} }; losses "
+            f"{ {k: v for k, v in per_step.items() if v} }, ops.unfused "
+            f"{unfused}; losses "
             f"{np.round(out[tag]['loss'], 4).tolist()}"
             + (f"; one profiled step: kernels busy {busy:.3f} ms "
                f"({100 * (1 - busy / (1e3 * med)):.1f}% idle against the "
@@ -3369,6 +3500,8 @@ def fault_train_phase(dev, records, partition, cfg=None, B=TRAIN_B,
         if on_card and ((per_step["quant_bitflip"] > 0) != want_qb or any(
                 v for k, v in per_step.items() if k != "quant_bitflip")):
             problems.append(f"launches a step {per_step}")
+        if on_card:
+            problems += glue_problems(cfg, launches, unfused, train=True)
         if problems:
             raise AssertionError(f"phase17b {tag}: " + "; ".join(problems))
     for name, rec in records.items():
@@ -3724,6 +3857,7 @@ def pipeline_stage(dev, records, partition, cfg, B, S, vocab, steps):
                          for w in caught)
         hist.append(dict(zip(keys, vals)))
     launched = {k: launch_counts()[k] for k in records}
+    unfused = dict(ops.unfused)
     peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
     first = hist[0]["loss"]
     diff = abs(first - ref)
@@ -3745,7 +3879,7 @@ def pipeline_stage(dev, records, partition, cfg, B, S, vocab, steps):
         f"max_memory_allocated {peak}; host waits {waits} in {steps - 1} "
         f"steps; model_flops / (wall x {PEAK_FLOPS:.3g}) = {mfu:.4f}; "
         f"port kernel launches in the {steps} steps "
-        f"{launched}")
+        f"{launched}, ops.unfused {unfused}")
     problems = []
     if not np.isfinite([h["loss"] for h in hist]).all():
         problems.append("a non-finite loss")
@@ -3761,6 +3895,8 @@ def pipeline_stage(dev, records, partition, cfg, B, S, vocab, steps):
     if any(launched.values()):
         problems.append(f"the pipelined steps launched port kernels "
                         f"{launched}")
+    if on_card:
+        problems += glue_problems(cfg, launched, unfused, train=True)
     if problems:
         raise AssertionError("phase16a: " + "; ".join(problems))
     for name, r in records.items():
@@ -3856,6 +3992,7 @@ def sharded_decode_stage(dev, records, partition, cfg, B=SERVE_BATCH,
         raise AssertionError("phase16b: the sharded prefill's logits differ")
     tok_s = tok_u = last.argmax(-1).to(torch.int32)
     same, worst, top, walls, walls_u, launched = True, 0.0, 0.0, [], [], []
+    unfused = []
     for i in range(steps):
         pos = torch.full((B,), prompt + i, dtype=torch.int32, device=dev)
         fault = (w, w, 1000 + i)
@@ -3869,6 +4006,7 @@ def sharded_decode_stage(dev, records, partition, cfg, B=SERVE_BATCH,
         got = nxt_s.tolist()
         walls.append(time.perf_counter() - t0)
         launched.append(launch_counts())
+        unfused.append(dict(ops.unfused))
         t0 = time.perf_counter()
         with torch.no_grad():
             lu, cache = decode_step(params, cfg, cache, tok_u, pos,
@@ -3900,6 +4038,10 @@ def sharded_decode_stage(dev, records, partition, cfg, B=SERVE_BATCH,
     if on_card and any(c["quant_bitflip"] != per_step for c in launched):
         raise AssertionError(f"phase16b: quant_bitflip kernels a step "
                              f"{launched}, expected {per_step}")
+    glue = [g for c, u in zip(launched, unfused)
+            for g in glue_problems(cfg, c, u, train=False)]
+    if on_card and glue:
+        raise AssertionError(f"phase16b, a sharded step's {glue[0]}")
     for name, r in records.items():
         r["shard_decode_launches"] = totals[name]
     del params, shards, cache
@@ -4102,7 +4244,7 @@ def tp_decode_stage(dev, records, partition, cfg, B, prompt, steps,
         top = logits[:, -1].float().abs().max().item()
         pdiff = (last.float() - logits[:, -1].float()).abs().max().item()
         tok = logits[:, -1].argmax(-1).to(torch.int32)
-        diffs, agree, launched, walls = [], [], [], []
+        diffs, agree, launched, walls, unfused = [], [], [], [], []
         for i in range(steps):
             pos = torch.full((B,), prompt + i, dtype=torch.int32, device=dev)
             fault = (w, w, 1000 + i)
@@ -4118,6 +4260,7 @@ def tp_decode_stage(dev, records, partition, cfg, B, prompt, steps,
                 torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             launched.append(launch_counts())
+            unfused.append(dict(ops.unfused))
             with torch.no_grad():
                 lu, cache = decode_step(params, cfg, cache, tok, pos,
                                         fault=fault)
@@ -4143,6 +4286,10 @@ def tp_decode_stage(dev, records, partition, cfg, B, prompt, steps,
         if on_card and any(q != per_row * rows for q in qb):
             raise AssertionError(f"phase18b {shp}: quant_bitflip kernels a "
                                  f"step {qb}, expected {per_row} a row")
+        glue = [g for c, u in zip(launched, unfused)
+                for g in glue_problems(cfg, c, u, train=False)]
+        if on_card and glue:
+            raise AssertionError(f"phase18b {shp}, a step's {glue[0]}")
         for name in records:
             totals[name] += sum(c[name] for c in launched)
         del placed, shards, cache
@@ -4189,17 +4336,19 @@ def tp_pipeline_stage(dev, partition, cfg, B, S, vocab, steps):
         placed, state, m = fn(placed, state, batch)
         hist.append(m["loss"].item())
         walls.append(time.perf_counter() - t0)
-    launched = launch_counts()
+    launched, unfused = launch_counts(), dict(ops.unfused)
     diff = abs(hist[0] - ref)
     log(f"phase18d {cfg.name} pipelined over two (data=1, model=2) stages "
         f"of {dev}, group cuts {fn.cuts}: first loss {hist[0]:.6f} against "
         f"make_loss_fn's {ref:.6f} (|diff| {diff:.6f}, limit "
         f"{2 ** -8 * abs(ref):.6f}); losses {[round(x, 5) for x in hist]}; "
         f"step walls {[round(1e3 * w, 3) for w in walls]} ms; port kernel "
-        f"launches {launched}")
-    if diff > 2 ** -8 * abs(ref) or any(launched.values()):
+        f"launches {launched}, ops.unfused {unfused}")
+    if diff > 2 ** -8 * abs(ref) or any(launched.values()) or (
+            dev.type == "cuda"
+            and glue_problems(cfg, launched, unfused, train=True)):
         raise AssertionError(f"phase18d: loss {hist[0]} against {ref}, "
-                             f"launches {launched}")
+                             f"launches {launched}, ops.unfused {unfused}")
     del placed, state
     gc.collect()
     if dev.type == "cuda":
@@ -4300,11 +4449,16 @@ def main() -> int:
         "matmul_tiles_f32": dict(
             route="cuda", source="src/repro_torch/csrc/fault_matmul.cu",
             replaces="src/repro/kernels/fault_matmul.py:61"),
+        "swiglu": dict(route="cuda", source="src/repro_torch/csrc/glue.cu",
+                       replaces="none: the op-by-op gate ref.swiglu_ref"),
+        "rope": dict(route="cuda", source="src/repro_torch/csrc/glue.cu",
+                     replaces="none: the op-by-op RoPE ref.rope_ref"),
     }
     check_kernels(dev, records)
     check_fault_matmul_bf16(dev, records)
     check_lm_family_kernels(dev, records)
     check_encdec_kernels(dev, records)
+    check_glue_kernels(dev, records)
 
     # phase 4: the main path
     spec = FaultSpec(**SPEC_RATES)

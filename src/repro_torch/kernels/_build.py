@@ -28,7 +28,7 @@ __all__ = ["CSRC", "BUILD_ROOT", "SOURCES", "NVCC_FLAGS", "library",
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("bitflip", "quant_bitflip", "fault_matmul")
+SOURCES = ("bitflip", "quant_bitflip", "fault_matmul", "glue")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

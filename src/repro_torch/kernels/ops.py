@@ -1,10 +1,17 @@
 """Entry points of the three fault kernels, the counterparts of
-``repro/kernels/ops.py``.
+``repro/kernels/ops.py``, and of the two glue kernels (``swiglu``,
+``rope``).
 
 Dispatch is by the tensor's device alone: a CUDA tensor launches the
 hand-written kernel in ``csrc/`` (built at first use by ``_build.py``) or
 raises; a CPU tensor runs the plain PyTorch version in ``ref.py``.  There
-is no environment switch and no fallback between the two.
+is no environment switch and no fallback between the two.  The glue
+kernels are bitwise their plain versions, the op-by-op chains they
+replace, and have no backward: where autograd would need one (the
+training path) a CUDA call runs the chain, which autograd differentiates,
+and ``unfused`` counts it.  The meta device (the dry run) runs the chain
+too.  Any other input the kernel cannot read raises, as for the fault
+kernels.
 
 Rates follow ``ref.py``'s row convention: a scalar corrupts the tensor as
 one unit, a 1-D float32 ``[R]`` tensor gives each row its own rate (the
@@ -13,7 +20,8 @@ port's population axis).  The seed is one per call, shared by all rows.
 ``launches`` counts, per wrapper, the kernels it launches: one a call of
 a C entry point for ``bitflip``, ``fault_matmul`` (float32 x; where K is
 split, the kernel and the sum of the slices count as one),
-``fault_weight_tiles``, ``matmul_tiles`` and ``matmul_tiles_f32``; two a
+``fault_weight_tiles``, ``matmul_tiles``, ``matmul_tiles_f32``, ``swiglu``
+and ``rope``; two a
 launch pair for ``quant_bitflip``, whose C entry runs an amax pass and
 the flip over a whole group of tensors (``quant_bitflip_group``; a
 one-tensor call is a group of one).  ``fault_matmul`` on bf16 x launches
@@ -27,8 +35,9 @@ Each public wrapper runs inside a ``kernel.`` span (``repro_torch.trace``;
 
 Under autograd (grad enabled and an input that requires grad)
 ``quant_bitflip_group`` is differentiable, with the reference's gradient
-(``ref.quant_bitflip_grad_ref``); the other wrappers have no backward and
-raise there rather than cut the graph.
+(``ref.quant_bitflip_grad_ref``), and ``swiglu`` and ``rope`` run their
+chains (above); the other wrappers have no backward and raise there
+rather than cut the graph.
 """
 from __future__ import annotations
 
@@ -46,8 +55,8 @@ from repro_torch.trace import spanned
 
 __all__ = ["bitflip", "quant_bitflip", "quant_bitflip_group", "fault_matmul",
            "fault_weight_tiles", "matmul_tiles", "matmul_tiles_f32",
-           "row_groups", "launches", "reset_launches", "MODEL_IDS",
-           "WORKSPACE_BYTES"]
+           "swiglu", "rope", "row_groups", "launches", "unfused",
+           "reset_launches", "MODEL_IDS", "WORKSPACE_BYTES"]
 
 MODEL_IDS = {m: i for i, m in enumerate(FAULT_MODELS)}   # csrc/faultmodel.cuh
 _INT_BYTES = {torch.int8: 1, torch.int16: 2, torch.int32: 4}
@@ -70,11 +79,18 @@ _SIGNATURES = {
                                           _I64, _I32, _P]),
     "afp_matmul_tiles_f32": ("fault_matmul", [_P, _P, _P, _P, _I64, _I64,
                                               _I64, _I64, _I32, _P]),
+    "afp_swiglu": ("glue", [_P, _P, _P, _I64, _I32, _I32, _P]),
+    "afp_rope": ("glue", [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32, _I32,
+                          _P]),
 }
 
 launches = {"bitflip": 0, "quant_bitflip": 0, "fault_matmul": 0,
             "fault_weight_tiles": 0, "matmul_tiles": 0,
-            "matmul_tiles_f32": 0}
+            "matmul_tiles_f32": 0, "swiglu": 0, "rope": 0}
+# CUDA calls of the glue wrappers that ran the op-by-op chain, autograd's
+unfused = {"swiglu": 0, "rope": 0}
+# the glue kernels' dtypes and their codes (csrc/glue.cu)
+_GLUE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_GRID_Z = 65535          # fault_matmul's grid.z is rows x K slices
 # The W' workspace of ``fault_matmul``'s two-kernel routes (bf16 x, and
 # float32 x on bf16 weights): a call hashes its rows in groups whose W'
@@ -83,8 +99,9 @@ WORKSPACE_BYTES = 256 << 20
 
 
 def reset_launches():
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, unfused):
+        for k in counts:
+            counts[k] = 0
 
 
 def _entry(fn: str):
@@ -104,17 +121,28 @@ def _is_cuda(t: torch.Tensor) -> bool:
     return False
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether a glue wrapper takes the card's path for ``t``: a CUDA
+    tensor.  Any other (the CPU, the meta dry run) runs the chain."""
+    return t.device.type == "cuda"
+
+
 def _check(cond: bool, msg: str):
     if not cond:
         raise ValueError(msg)
+
+
+def _needs_grad(*ts) -> bool:
+    """Whether autograd would need a backward through ``ts``."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in ts)
 
 
 def _no_grad(name: str, *ts):
     """Raise where autograd would need a backward of kernel ``name``,
     which has none: the reference trains through ``quant_bitflip`` alone
     (a training param is a float, never a ``QTensor``)."""
-    if torch.is_grad_enabled() and any(
-            isinstance(t, torch.Tensor) and t.requires_grad for t in ts):
+    if _needs_grad(*ts):
         raise RuntimeError(
             f"{name} has no backward: call it under torch.no_grad(), or "
             "with inputs that do not require grad")
@@ -618,4 +646,70 @@ def fault_matmul(x: torch.Tensor, qw: torch.Tensor, scale, seed, rate,
                 _INT_BYTES[qw.dtype], model_id, seed_u32(seed), faulty_bits,
                 mbu_width)
         launches["fault_matmul"] += 1
+    return out
+
+
+@spanned("kernel.swiglu")
+def swiglu(h1: torch.Tensor, h3: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU gate ``silu(h1) * h3`` of two same-shaped tensors, every
+    op rounded to their dtype as ``ref.swiglu_ref``'s chain rounds it: on
+    the card one pass (``csrc/glue.cu``) that reads h1 and h3 once and
+    writes the gate, bitwise the chain's 7 kernels; where autograd needs a
+    backward, and off the card, the chain itself."""
+    if not _on_card(h1):
+        return _ref.swiglu_ref(h1, h3)
+    if _needs_grad(h1, h3):
+        unfused["swiglu"] += 1
+        return _ref.swiglu_ref(h1, h3)
+    _check(h1.dtype in _GLUE_DTYPES and h3.dtype == h1.dtype,
+           f"swiglu takes float32/bf16/fp16 h1, h3 of one dtype, got "
+           f"{h1.dtype}, {h3.dtype}")
+    _check(h3.shape == h1.shape and h3.device == h1.device,
+           "swiglu needs h1, h3 of one shape on one device")
+    _check(h1.is_contiguous() and h3.is_contiguous(),
+           "swiglu needs contiguous h1, h3")
+    out = torch.empty_like(h1)
+    _launch("afp_swiglu", h1.device, h1.data_ptr(), h3.data_ptr(),
+            out.data_ptr(), h1.numel(), _GLUE_DTYPES[h1.dtype],
+            _sm_count(h1.device.index))
+    launches["swiglu"] += 1
+    return out
+
+
+@spanned("kernel.rope")
+def rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+         ) -> torch.Tensor:
+    """RoPE of ``x [..., S, H, Dh]`` by the float32 tables ``cos``, ``sin``
+    (``[..., S, Dh / 2]``, ``models.layers.rope_tables``: a prefill's
+    ``[S, Dh / 2]``, decode's ``[B, 1, Dh / 2]``), rounded as
+    ``ref.rope_ref``'s promoted float32 chain rounds it.  The tables'
+    leading dims are the last of x's ``[..., S]``.  On the card one pass
+    (``csrc/glue.cu``) that reads x once and writes both halves, bitwise
+    the chain's kernels; where autograd needs a backward, and off the
+    card, the chain itself."""
+    if not _on_card(x):
+        return _ref.rope_ref(x, cos, sin)
+    if _needs_grad(x, cos, sin):
+        unfused["rope"] += 1
+        return _ref.rope_ref(x, cos, sin)
+    half, lead = x.shape[-1] // 2, cos.shape[:-1]
+    _check(x.dtype in _GLUE_DTYPES,
+           f"rope takes float32/bf16/fp16 x, got {x.dtype}")
+    _check(cos.dtype == sin.dtype == torch.float32 and cos.shape == sin.shape,
+           "rope takes float32 cos, sin of one shape")
+    _check(2 * half == x.shape[-1] and cos.shape[-1] == half
+           and 1 <= len(lead) <= x.ndim - 2
+           and lead == x.shape[x.ndim - 2 - len(lead):-2],
+           f"rope needs tables [..., S, Dh / 2] of x's [..., S]: x "
+           f"{tuple(x.shape)}, tables {tuple(cos.shape)}")
+    _check(cos.device == x.device and sin.device == x.device,
+           "rope needs x and its tables on one device")
+    _check(x.is_contiguous() and cos.is_contiguous() and sin.is_contiguous(),
+           "rope needs contiguous x, cos, sin")
+    out = torch.empty_like(x)
+    _launch("afp_rope", x.device, x.data_ptr(), cos.data_ptr(),
+            sin.data_ptr(), out.data_ptr(), x.numel() // max(x.shape[-1], 1),
+            cos.numel() // max(half, 1), x.shape[-2], half,
+            _GLUE_DTYPES[x.dtype], _sm_count(x.device.index))
+    launches["rope"] += 1
     return out

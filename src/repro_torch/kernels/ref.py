@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the three fault kernels, the counterparts of
-``repro/kernels/ref.py``.  ``kernels/ops.py`` runs them for CPU tensors,
-the tests hold them bitwise against the reference, and ``chip_smoke.py``
-holds each CUDA kernel against them on the card.
+``repro/kernels/ref.py``, and of the two glue kernels.  ``kernels/ops.py``
+runs them for CPU tensors, the tests hold them bitwise against the
+reference, and ``chip_smoke.py`` holds each CUDA kernel against them on
+the card.
 
 Row convention (the port's stand-in for the reference's ``vmap`` over the
 population): ``rate`` is either a scalar, corrupting the tensor as one
@@ -33,6 +34,10 @@ the exact three-way split of float32 x the float32 product runs on, and
 tiles, the tiles of one 128-column panel in k order, each tile in wgmma's
 no-swizzle K-major B image (element (k, n) at (n & 7) 8 + (n >> 3) 128 +
 (k >> 3) 64 + (k & 7)), zeros past K and N.
+
+``swiglu_ref`` and ``rope_ref`` are the SwiGLU gate and RoPE op by op, as
+the transformer block ran them before ``csrc/glue.cu`` fused each into
+one pass: the chains the kernels round like, bitwise.
 """
 from __future__ import annotations
 
@@ -46,7 +51,7 @@ __all__ = ["row_rates", "matmul", "bitflip_ref", "quant_bitflip_ref",
            "quant_bitflip_group_ref",
            "fault_matmul_ref", "XLA_K_BLOCK", "TILE_K", "TILE_N", "tile_elems", "pack_tiles",
            "unpack_tiles", "fault_weight_tiles_ref", "matmul_tiles_ref",
-           "matmul_tiles_f32_ref", "split3"]
+           "matmul_tiles_f32_ref", "split3", "swiglu_ref", "rope_ref"]
 
 TILE_K, TILE_N = 16, 128
 
@@ -285,3 +290,22 @@ def split3(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     mid = r1.to(torch.bfloat16)
     lo = (r1 - mid.float()).to(torch.bfloat16)
     return hi, mid, lo
+
+
+def swiglu_ref(h1: torch.Tensor, h3: torch.Tensor) -> torch.Tensor:
+    """``silu(h1) * h3`` written out op by op, each op rounded to the
+    dtype: ``jax.nn.silu`` is ``x * logistic(x)`` with ``logistic = 1 / (1
+    + exp(-x))`` (``models.layers._act``)."""
+    return h1 * (1 / (1 + torch.exp(-h1))) * h3
+
+
+def rope_ref(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+             ) -> torch.Tensor:
+    """x: ``[..., S, H, Dh]``; cos, sin: float32 ``[..., S, Dh / 2]``
+    (``models.layers.rope_tables``).  bf16 x times the fp32 tables
+    promotes to fp32 and is cast back, as in the reference."""
+    half = x.shape[-1] // 2
+    cos, sin = cos[..., :, None, :], sin[..., :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

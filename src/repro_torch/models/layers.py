@@ -472,20 +472,22 @@ def norm_fwd(p: dict, x: torch.Tensor, kind: str, eps: float = 1e-6
 # --------------------------------------------------------------------------
 # RoPE
 # --------------------------------------------------------------------------
+def rope_tables(positions: torch.Tensor, half: int, theta: float):
+    """RoPE's float32 ``(cos, sin)``, ``[..., S, half]``, of ``positions
+    [..., S]``: built once for the q and the k of an attention."""
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=positions.device) / half)
+    ang = positions[..., :, None].to(torch.float32) * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
          ) -> torch.Tensor:
-    """x: ``[..., S, H, Dh]``; positions: ``[S]``.  bf16 x times the fp32
-    cos/sin promotes to fp32 and is cast back, as in the reference."""
-    dh = x.shape[-1]
-    half = dh // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                    device=x.device) / half)
-    ang = positions[..., :, None].to(torch.float32) * freqs
-    cos = torch.cos(ang)[..., :, None, :]
-    sin = torch.sin(ang)[..., :, None, :]
-    x1, x2 = x[..., :half], x[..., half:]
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+    """x: ``[..., S, H, Dh]``; positions: ``[S]`` (or decode's ``[B,
+    1]``).  bf16 x times the fp32 cos/sin promotes to fp32 and is cast
+    back, as in the reference (``kernels.ops.rope``: one pass on the
+    card)."""
+    return kops.rope(x, *rope_tables(positions, x.shape[-1] // 2, theta))
 
 
 # --------------------------------------------------------------------------
@@ -613,8 +615,8 @@ def _attend(p, x, positions, *, n_heads, n_kv, head_dim, rope_theta, window,
     k = fault_dense(src, p["wk"]).reshape(R, B, Sk, n_kv, head_dim)
     v = fault_dense(src, p["wv"]).reshape(R, B, Sk, n_kv, head_dim)
     if memory is None:
-        q = rope(q, positions, rope_theta)
-        k = rope(k, positions, rope_theta)
+        tables = rope_tables(positions, head_dim // 2, rope_theta)
+        q, k = kops.rope(q, *tables), kops.rope(k, *tables)
         pos_k, causal = positions, True
     else:
         pos_k = memory_pos if memory_pos is not None else torch.arange(
@@ -671,7 +673,8 @@ def _attend_tp(p, x, positions, *, n_heads, n_kv, head_dim, rope_theta,
                 R, B, Sk, n_kv // nm, head_dim)
             pq, pk = positions.to(dev), pos_k.to(dev)
             if memory is None:
-                q, k = rope(q, pq, rope_theta), rope(k, pq, rope_theta)
+                tables = rope_tables(pq, head_dim // 2, rope_theta)
+                q, k = kops.rope(q, *tables), kops.rope(k, *tables)
             o = torch.stack([flash_attention(q[r], k[r], v[r], pq, pk, **kw)
                              for r in range(R)])
             outs.append(fault_dense(o.reshape(R, B, S, -1), wo.local(m)))
@@ -794,6 +797,16 @@ def _act(x: torch.Tensor, act: str) -> torch.Tensor:
     raise ValueError(act)
 
 
+def _gate(h1: torch.Tensor, act: str, h3) -> torch.Tensor:
+    """The MLP's hidden activation of the first product ``h1``: ``act``
+    of it, times the second product ``h3()`` for a gated ``act``.  The
+    SwiGLU gate is ``kernels.ops.swiglu`` (one pass on the card)."""
+    if act == "silu_glu":
+        return kops.swiglu(h1, h3())
+    h = _act(h1, act)
+    return h * h3() if act.endswith("_glu") else h
+
+
 def mlp_fwd(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     """The gated or plain MLP; with :class:`Sharded` weights ``w1``/``w3``
     are column-parallel and ``w2`` row-parallel, each model slot computing
@@ -801,10 +814,8 @@ def mlp_fwd(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     outputs."""
     if isinstance(p["w1"], Sharded):
         return _mlp_tp(p, x, act)
-    h = _act(fault_dense(x, p["w1"]), act)
-    if act.endswith("_glu"):
-        h = h * fault_dense(x, p["w3"])
-    return fault_dense(h, p["w2"])
+    return fault_dense(_gate(fault_dense(x, p["w1"]), act,
+                             lambda: fault_dense(x, p["w3"])), p["w2"])
 
 
 def _mlp_tp(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
@@ -815,9 +826,8 @@ def _mlp_tp(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     xs = C.broadcast(x, devs)
     outs = []
     for m in range(len(devs)):
-        h = _act(fault_dense(xs[m], p["w1"].local(m)), act)
-        if act.endswith("_glu"):
-            h = h * fault_dense(xs[m], p["w3"].local(m))
+        h = _gate(fault_dense(xs[m], p["w1"].local(m)), act,
+                  lambda: fault_dense(xs[m], p["w3"].local(m)))
         outs.append(fault_dense(h, p["w2"].local(m)))
     return C.all_reduce(outs, [devs[0]])[0]
 
@@ -930,9 +940,8 @@ def moe_fwd(p: dict, x: torch.Tensor, *, top_k: int, act: str,
     buf = x.new_zeros((E * C + 1, D))
     buf[slot] = torch.where(keep[:, None], xt[st], 0.0)
     eb = buf[:E * C].reshape(E, C, D)
-    h = _act(_expert_matmul(eb, p["w1"]), act)
-    if act.endswith("_glu"):
-        h = h * _expert_matmul(eb, p["w3"])
+    h = _gate(_expert_matmul(eb, p["w1"]), act,
+              lambda: _expert_matmul(eb, p["w3"]))
     eo = _expert_matmul(h, p["w2"])                            # [E, C, D]
     flat_out = torch.cat([eo.reshape(E * C, D), eo.new_zeros((1, D))])
     contrib = flat_out[slot] * sw[:, None] * keep[:, None]      # float32

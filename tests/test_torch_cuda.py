@@ -308,7 +308,8 @@ def test_fault_matmul_bf16_rows_across_groups(dev, monkeypatch, dtype):
     many = ops.fault_matmul(x, qw, scale, 9, rates, 6)
     assert ops.launches == {"bitflip": 0, "quant_bitflip": 0,
                             "fault_matmul": 0, "fault_weight_tiles": 3,
-                            "matmul_tiles": 3, "matmul_tiles_f32": 0}
+                            "matmul_tiles": 3, "matmul_tiles_f32": 0,
+                            "swiglu": 0, "rope": 0}
     for r in range(5):
         one = ops.fault_matmul(x[r:r + 1].contiguous(), qw, scale, 9,
                                rates[r:r + 1], 6)
@@ -407,7 +408,8 @@ def test_fault_matmul_f32_x_bf16_weights(dev, model, shape, dtype):
     assert got.dtype == torch.float32 and _same_bits(got, w)
     assert ops.launches == {"bitflip": 0, "quant_bitflip": 0,
                             "fault_matmul": 0, "fault_weight_tiles": 1,
-                            "matmul_tiles": 0, "matmul_tiles_f32": 1}
+                            "matmul_tiles": 0, "matmul_tiles_f32": 1,
+                            "swiglu": 0, "rope": 0}
     x = torch.randn(3, M, K, device=dev)
     got = ops.fault_matmul(x, qw, scale, 7, rates, 6, fault_model=model,
                            out_dtype=bf)
@@ -494,7 +496,8 @@ def test_fault_matmul_f32_x_bf16_weights_rows_across_groups(dev, monkeypatch,
                                 out_dtype=torch.bfloat16)
         assert ops.launches == {"bitflip": 0, "quant_bitflip": 0,
                                 "fault_matmul": 0, "fault_weight_tiles": 3,
-                                "matmul_tiles": 0, "matmul_tiles_f32": 3}
+                                "matmul_tiles": 0, "matmul_tiles_f32": 3,
+                                "swiglu": 0, "rope": 0}
         for r in range(5):
             one = ops.fault_matmul(x[r:r + 1].contiguous(), qw, scale, 9,
                                    rates[r:r + 1], 6,

@@ -177,9 +177,13 @@ def test_cpu_dispatch_counts_no_launch():
     ops.matmul_tiles_f32(torch.ones(1, 2, 8), t, 8, 1)
     ops.fault_matmul(torch.ones(2, 8), q.reshape(8, 1), 1.0, 0, 0.5, 4,
                      out_dtype=torch.bfloat16)
+    ops.swiglu(torch.ones(2, 8), torch.ones(2, 8))
+    ops.rope(torch.ones(4, 2, 8), torch.ones(4, 4), torch.zeros(4, 4))
+    assert ops.unfused == {"swiglu": 0, "rope": 0}
     assert ops.launches == {"bitflip": 0, "quant_bitflip": 0,
                             "fault_matmul": 0, "fault_weight_tiles": 0,
-                            "matmul_tiles": 0, "matmul_tiles_f32": 0}
+                            "matmul_tiles": 0, "matmul_tiles_f32": 0,
+                            "swiglu": 0, "rope": 0}
 
 
 def test_fault_core_matches_reference():

@@ -117,8 +117,11 @@ def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
 
 
 def test_kernel_wrappers_take_only_cuda_or_cpu():
-    """Dispatch is by device alone: CPU runs the plain version, CUDA the
-    kernel; any other device raises (no silent plain path)."""
+    """The fault kernels' dispatch is by device alone: CPU runs the plain
+    version, CUDA the kernel; any other device raises (no silent plain
+    path).  Every source ``_build`` compiles is there, without fast math
+    (the glue kernels, bitwise their chains, run the chains off the card:
+    ``test_torch_glue.py``)."""
     from repro_torch.kernels import _build, ops
 
     fake = torch.empty(4, dtype=torch.int8, device="meta")
@@ -129,7 +132,8 @@ def test_kernel_wrappers_take_only_cuda_or_cpu():
     with pytest.raises(ValueError, match="unsupported device"):
         ops.fault_matmul(torch.empty(2, 4, device="meta"), fake.reshape(4, 1),
                          1.0, 0, 0.1, 4)
-    assert _build.SOURCES == ("bitflip", "quant_bitflip", "fault_matmul")
+    assert _build.SOURCES == ("bitflip", "quant_bitflip", "fault_matmul",
+                              "glue")
     for src in _build.SOURCES:
         assert (_build.CSRC / f"{src}.cu").is_file()
     assert "--use_fast_math" not in _build.NVCC_FLAGS
