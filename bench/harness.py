@@ -192,15 +192,30 @@ def loaded_forbidden() -> list[str]:
 
 def run_cell(bench: dict, name: str, seed: int, seconds: float, trace: bool,
              device: torch.device, t_start: float, conf: dict | None = None,
-             traffic: dict | None = None, controls: tuple = (), log=print):
+             traffic: dict | None = None, controls: tuple = (), log=print,
+             pool: list | None = None):
     """One run.  Returns the result object and the check's lines.
     ``conf`` and ``traffic`` replace the cell's files (the tests' small
-    sizes); ``controls`` also reads each named precision's control."""
+    sizes); ``controls`` also reads each named precision's control.
+
+    The program spreads its work over the cell's ``chips``: the first that
+    many cards (``device`` is ``cuda:0``), or on the host the first that
+    many slots of ``pool`` (the tests' host slots)."""
     cell = Cell(bench, name, conf, traffic)
     conf, traffic = cell.conf, cell.traffic
     rngs = seeds(seed)
     on_card = device.type == "cuda"
-    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    slots = cell.chips if pool is None else list(pool[:cell.chips])
+    cards = [torch.device("cuda", i) for i in range(cell.chips)] \
+        if on_card else []
+
+    def sync():
+        for d in cards:
+            torch.cuda.synchronize(d)
+
+    def peaks() -> list[int]:
+        """Each card's allocator peak; on the host one reading of 0."""
+        return [torch.cuda.max_memory_allocated(d) for d in cards] or [0]
 
     marks = [("start", time.perf_counter())]
     ref_mod = reference_module(cell.spec["config"])
@@ -209,7 +224,7 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float, trace: bool,
     marks.append(("inputs", time.perf_counter()))
     system_mod = load_module(BENCH / "systems" / f"{conf['system']}.py",
                              f"bench.systems.{conf['system']}")
-    system = system_mod.System(conf, made, device)
+    system = system_mod.System(conf, made, device, slots)
     sync()
     marks.append(("system", time.perf_counter()))
     from bench.drive import Driver
@@ -221,14 +236,14 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float, trace: bool,
     log("setup: " + ", ".join(
         f"{b[0]} {b[1] - a[1]:.3f} s" for a, b in zip(
             [("process", t_start)] + marks[:-1], marks)))
-    setup_peak = torch.cuda.max_memory_allocated(device) if on_card else 0
-    if on_card:
-        torch.cuda.reset_peak_memory_stats(device)
+    setup_peaks = peaks()
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
 
     stats0 = system.stats()
     t0, t1 = drv.run("window", seconds)
     stats1 = system.stats()
-    window_peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+    window_peaks = peaks()
 
     tr = None
     if trace:
@@ -241,8 +256,8 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float, trace: bool,
             with record_function("bench:trace"):
                 drv.run("trace", TRACE_SECONDS)
                 sync()
-        tr = Trace(prof, work_module(cell.spec["config"]).LIBRARY_GROUP,
-                   on_card)
+        tr = Trace.read(prof, work_module(cell.spec["config"]).LIBRARY_GROUP,
+                        [d.index for d in cards] or [0], on_card)
         del prof
     stats2 = system.stats()
 
@@ -255,7 +270,7 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float, trace: bool,
     ctx.steps = [s for s in drv.steps if s["phase"] == "window"]
     ctx.dacc_s = sum(c["t1"] - c["t0"] for c in win)
     ctx.stats = _stats_delta(stats0, stats1)
-    ctx.peak_bytes = window_peak
+    ctx.peak_bytes = max(window_peaks)         # the fullest card's
     work = work_module(cell.spec["config"]).unit_work(conf)
     needed = _needed(calls, system.n_units)
     zero = (np.zeros(system.n_units, np.int64),) * 2
@@ -278,10 +293,13 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float, trace: bool,
     dev_info = {"platform": "gpu" if on_card else device.type,
                 "kind": torch.cuda.get_device_name(device) if on_card
                 else "cpu",
-                "count": cell.chips,
-                "memory_peak_bytes": int(max(setup_peak, window_peak))}
+                "count": cell.chips}
+    card_peaks = [int(max(a, b)) for a, b in zip(setup_peaks, window_peaks)]
+    dev_info["memory_peak_bytes"] = max(card_peaks)
+    dev_info["memory_peak_bytes_per_card"] = card_peaks
     if tr is not None:
         dev_info["busy_s"] = tr.busy_s
+        dev_info["busy_s_per_card"] = tr.busy_s_per_card
         dev_info["window_s"] = tr.window_s
     breakdown = tr.breakdown() if tr is not None else None
 

@@ -1,6 +1,6 @@
-"""The share of the traced sub-window in which no operation ran on the
-device (one minus the union of the device intervals over the span), in
-percent."""
+"""The share of the traced sub-window in which no operation ran on a card
+(one minus the union of the card's device intervals over the span), the
+mean over the cell's cards, in percent."""
 
 
 def read(ctx):

@@ -1,5 +1,5 @@
 """The allocator's peak over the window (``max_memory_allocated`` after a
-reset at its start), in GB."""
+reset at its start) on the fullest of the cell's cards, in GB."""
 
 
 def read(ctx):

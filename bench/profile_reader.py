@@ -1,12 +1,14 @@
 """Reads ``torch.profiler``'s record of a traced sub-window into what the
-per-layer metrics need: each device operation's interval and name, their
-time by group, the union of the intervals (busy), the idle gaps labelled
-by what the host was doing, and the ``breakdown`` of the result line.
+per-layer metrics need: each device operation's interval, name and card,
+their time by group (summed over the cards), each card's union of
+intervals (busy), the idle gaps labelled by what the host was doing, and
+the ``breakdown`` of the result line.
 
 The record is read in memory (the profiler's event list); nothing of it
 is written to disk.  A gap is labelled by the benchmark span open on the
 host at its middle and the outermost operation running inside it there
-(``python`` where none was: the host was in Python code).
+(``python`` where none was: the host was in Python code); a card that ran
+nothing in the window is labelled by its index alone.
 """
 from __future__ import annotations
 
@@ -46,12 +48,52 @@ def kernel_group(name: str, library: str) -> str:
     return library
 
 
-class Trace:
-    """The device operations and host spans of one profiled sub-window."""
+def idle_intervals(window, busy) -> list[tuple[int, int]]:
+    """``window`` less the union ``busy`` of one card's intervals."""
+    lo, hi = window
+    edges = [lo] + [t for iv in busy for t in iv] + [hi]
+    return [(a, b) for a, b in zip(edges[0::2], edges[1::2]) if b > a]
 
-    def __init__(self, prof, library: str, on_card: bool = True):
-        """``on_card=False`` (a rehearsal on the host) takes the host's
-        outermost operations for the device's."""
+
+class Trace:
+    """The device operations and host spans of one profiled sub-window,
+    over the cards of a cell: each card's busy intervals apart, their
+    operations' time summed."""
+
+    def __init__(self, window, kernels, cpu, spans, library: str, cards):
+        """``window``: the traced span ``(t0, t1)``; ``kernels``: device
+        operations ``(t0, t1, name, card)``; ``cpu``: the host's operations
+        ``(t0, t1, name)``; ``spans``: the benchmark's host spans;
+        ``cards``: the device indices of the cell's cards."""
+        self.window_ns = window
+        self.cards = list(cards)
+        lo, hi = window
+        self.kernels = sorted((max(a, lo), min(b, hi), n, c)
+                              for a, b, n, c in kernels
+                              if b > lo and a < hi and c in self.cards)
+        if not self.kernels:
+            raise RuntimeError("the profiler recorded no device operation: "
+                               "time with CUDA events instead")
+        self.groups = collections.defaultdict(float)
+        self.by_name = collections.defaultdict(float)
+        for a, b, n, _ in self.kernels:
+            self.groups[kernel_group(n, library)] += (b - a) * 1e-9
+            self.by_name[n] += (b - a) * 1e-9
+        self.busy_by_card = [self._union([k for k in self.kernels
+                                          if k[3] == c]) for c in self.cards]
+        self.busy_s_per_card = [sum(b - a for a, b in busy) * 1e-9
+                                for busy in self.busy_by_card]
+        # the mean over the cards: busy_s / window_s is the card-time share
+        self.busy_s = sum(self.busy_s_per_card) / len(self.cards)
+        self.window_s = (hi - lo) * 1e-9
+        self._spans = sorted(spans)
+        self._top = self._outermost(sorted(cpu))
+
+    @classmethod
+    def read(cls, prof, library: str, cards, on_card: bool = True):
+        """The profiler's record in memory.  ``on_card=False`` (a rehearsal
+        on the host) takes the host's outermost operations for the first
+        card's."""
         kern, cpu, spans, window = [], [], [], None
         for e in prof.profiler.kineto_results.events():
             name = e.name()
@@ -59,7 +101,7 @@ class Trace:
             if e.device_type() == DeviceType.CUDA:
                 if e.is_user_annotation() or name.startswith("bench:"):
                     continue
-                kern.append((t0, t1, name))
+                kern.append((t0, t1, name, e.device_index()))
             elif name == "bench:trace":
                 window = (t0, t1)
             elif name.startswith("bench:"):
@@ -70,28 +112,14 @@ class Trace:
         if window is None:
             raise RuntimeError("the profiler recorded no traced span")
         if not on_card:
-            kern = self._outermost(sorted(cpu))
-        self.window_ns = window
-        lo, hi = window
-        self.kernels = sorted((max(a, lo), min(b, hi), n) for a, b, n in kern
-                              if b > lo and a < hi)
-        if not self.kernels:
-            raise RuntimeError("the profiler recorded no device operation: "
-                               "time with CUDA events instead")
-        self.groups = collections.defaultdict(float)
-        self.by_name = collections.defaultdict(float)
-        for a, b, n in self.kernels:
-            self.groups[kernel_group(n, library)] += (b - a) * 1e-9
-            self.by_name[n] += (b - a) * 1e-9
-        self.busy_intervals = self._union()
-        self.busy_s = sum(b - a for a, b in self.busy_intervals) * 1e-9
-        self.window_s = (hi - lo) * 1e-9
-        self._spans = sorted(spans)
-        self._top = self._outermost(sorted(cpu))
+            kern = [(a, b, n, cards[0])
+                    for a, b, n in cls._outermost(sorted(cpu))]
+        return cls(window, kern, cpu, spans, library, cards)
 
-    def _union(self):
+    @staticmethod
+    def _union(kernels):
         out = []
-        for a, b, _ in self.kernels:
+        for a, b, *_ in kernels:
             if out and a <= out[-1][1]:
                 out[-1][1] = max(out[-1][1], b)
             else:
@@ -121,12 +149,16 @@ class Trace:
         return f"{span}/{op}"
 
     def idle_gaps(self) -> dict[str, float]:
-        """Idle seconds by what the host was doing."""
-        lo, hi = self.window_ns
-        edges = [lo] + [t for iv in self.busy_intervals for t in iv] + [hi]
+        """Idle card-seconds by what the host was doing, every card's gaps
+        gathered.  A card that ran nothing in the window is one entry of
+        its own, ``card<index>/idle``: its one gap spans the whole window,
+        and the host's state at its middle would say nothing of it."""
         gaps = collections.defaultdict(float)
-        for a, b in zip(edges[0::2], edges[1::2]):
-            if b > a:
+        for card, busy in zip(self.cards, self.busy_by_card):
+            if not busy:
+                gaps[f"card{card}/idle"] += self.window_s
+                continue
+            for a, b in idle_intervals(self.window_ns, busy):
                 gaps[self._host_at((a + b) // 2)] += (b - a) * 1e-9
         return gaps
 

@@ -7,11 +7,13 @@ A span's layer is the prefix of its name (``search.``, ``engine.``,
 ``forward.``, ``kernel.``); time under no program span is the benchmark's
 own (``"none"``).  The spans are read from the program's ring in memory,
 on the profiler's clock, so they line up with ``Trace.window_ns`` and
-``Trace.busy_intervals``.  A program without the tracer gives None.
+each card's ``Trace.busy_by_card``.  A program without the tracer gives None.
 """
 from __future__ import annotations
 
 import collections
+
+from bench.profile_reader import idle_intervals
 
 LAYERS = {"search": "search", "engine": "engine", "forward": "forward",
           "kernel": "kernels"}
@@ -67,46 +69,42 @@ def innermost(spans, lo: int, hi: int) -> list[tuple[int, int, str | None]]:
     return out
 
 
-def idle_intervals(tr) -> list[tuple[int, int]]:
-    """The traced window less the union of the device's intervals."""
-    lo, hi = tr.window_ns
-    edges = [lo] + [t for iv in tr.busy_intervals for t in iv] + [hi]
-    return [(a, b) for a, b in zip(edges[0::2], edges[1::2]) if b > a]
-
-
 def idle_ns_by_layer(ctx) -> dict[str, int] | None:
     """Idle nanoseconds of the traced window by the layer of the innermost
     program span open at each instant (exact intersection), ``"none"``
-    for time under no program span; the values add up to the window's
-    idle time.  Computed once a run."""
+    for time under no program span, each card's idle intervals apart and
+    summed over the cell's cards; the values add up to the cards' idle
+    time.  Computed once a run."""
     if not hasattr(ctx, "program_idle_ns"):
         spans = program_spans(ctx)
         if spans is None:
             ctx.program_idle_ns = None
         else:
-            lo, hi = ctx.trace.window_ns
-            pieces = innermost(spans, lo, hi)
-            idle = idle_intervals(ctx.trace)
+            tr = ctx.trace
+            pieces = innermost(spans, *tr.window_ns)
             out: dict = collections.defaultdict(int)
-            i = j = 0
-            while i < len(pieces) and j < len(idle):
-                a = max(pieces[i][0], idle[j][0])
-                b = min(pieces[i][1], idle[j][1])
-                if b > a:
-                    out[layer_of(pieces[i][2])] += b - a
-                if pieces[i][1] < idle[j][1]:
-                    i += 1
-                else:
-                    j += 1
+            for busy in tr.busy_by_card:
+                idle = idle_intervals(tr.window_ns, busy)
+                i = j = 0
+                while i < len(pieces) and j < len(idle):
+                    a = max(pieces[i][0], idle[j][0])
+                    b = min(pieces[i][1], idle[j][1])
+                    if b > a:
+                        out[layer_of(pieces[i][2])] += b - a
+                    if pieces[i][1] < idle[j][1]:
+                        i += 1
+                    else:
+                        j += 1
             ctx.program_idle_ns = dict(out)
     return ctx.program_idle_ns
 
 
 def idle_share(ctx, layer: str) -> float | None:
-    """Percent of the traced window the device is idle while the host's
-    innermost program span is of ``layer``."""
+    """Percent of the traced window a card is idle while the host's
+    innermost program span is of ``layer``, the mean over the cell's
+    cards."""
     by = idle_ns_by_layer(ctx)
     if by is None:
         return None
     lo, hi = ctx.trace.window_ns
-    return 100.0 * by.get(layer, 0) / (hi - lo)
+    return 100.0 * by.get(layer, 0) / ((hi - lo) * len(ctx.trace.busy_by_card))

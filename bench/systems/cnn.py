@@ -10,9 +10,11 @@ import torch
 class System:
     """What a cell drives: ``evaluator`` (``delta_acc``), ``partitioner``
     (a fresh ``AFarePart`` for an ``NSGA2Config``), ``n_units``,
-    ``n_devices``, ``base_scale`` and ``set_env``."""
+    ``n_devices``, ``base_scale`` and ``set_env``.  ``devices`` is the
+    cell's: its chips as a count (the first that many cards), or a list of
+    slots."""
 
-    def __init__(self, conf, made, device):
+    def __init__(self, conf, made, device, devices):
         from repro_torch._device import fp32_exact
         from repro_torch.core import AFarePart, FaultSpec, \
             InferenceAccuracyEvaluator
@@ -43,7 +45,7 @@ class System:
             fault_backend=e["fault_backend"], step_fn=model.step,
             eval_strategy=e["eval_strategy"],
             max_store_bytes=e["max_store_bytes"], fuse_chains=e["fuse_chains"],
-            devices=e["devices"], device=device)
+            devices=devices, device=device)
         layers = model.layer_infos(conf["num_classes"], conf["width"],
                                    conf["img"])
         self.n_units, self.n_devices = model.n_units, len(ladder)

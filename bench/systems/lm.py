@@ -29,7 +29,7 @@ def arch_config(conf):
 
 
 class System:
-    def __init__(self, conf, made, device):
+    def __init__(self, conf, made, device, devices):
         from repro_torch.core import (POD_TIERS_4, FaultSpec, lm_partitioner,
                                       make_lm_accuracy_evaluator)
         from repro_torch.lm_setup import self_labels
@@ -46,7 +46,7 @@ class System:
             cfg, made["params"], batch, labels, spec, self.base_scale,
             base_seed=conf["base_seed"], eval_batch_size=e["eval_batch_size"],
             eval_strategy=e["eval_strategy"],
-            max_store_bytes=e["max_store_bytes"], devices=e["devices"],
+            max_store_bytes=e["max_store_bytes"], devices=devices,
             fuse_chains=e["fuse_chains"], fault_backend=e["fault_backend"],
             device=device)
         self.n_units, self.n_devices = cfg.n_layers, len(ladder)

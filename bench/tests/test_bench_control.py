@@ -11,7 +11,7 @@ import torch
 from bench import harness
 
 CONTROLS = {"resnet18.search": "tf32", "olmo-1b.search": "fp8",
-            "olmo-1b.sweep": "fp8"}
+            "olmo-1b.sweep": "fp8", "resnet18.search.4chip": "tf32"}
 
 
 @pytest.mark.cuda
@@ -20,6 +20,9 @@ def test_control_fails_where_the_program_holds(cell):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     bench = harness.load_json(harness.ROOT / "BENCHMARK.json")
+    chips = harness.Cell(bench, cell).chips
+    if torch.cuda.device_count() < chips:
+        pytest.skip(f"needs {chips} CUDA cards")
     res, _ = harness.run_cell(bench, cell, 2 ** 31 + 77, 8.0, False,
                               torch.device("cuda", 0), time.perf_counter(),
                               controls=(CONTROLS[cell],), log=lambda *a: None)

@@ -1,7 +1,8 @@
 """A whole run on the CPU at the tests' sizes (the look for a card
 skipped), sound and with the timed path broken underneath: ``correct``
-comes out true, then false for each fault these cells can have.  No cell
-spans chips, so the exchange between chips has no fault to plant."""
+comes out true, then false for each fault these cells can have; the
+four-chip cell runs over four host slots, and the answers of every slot
+but the first left out is its exchange's fault."""
 import time
 
 import numpy as np
@@ -14,14 +15,15 @@ from bench.tests import tiny
 torch.set_num_threads(2)
 CELLS = [("resnet18.search", "resnet18", "search"),
          ("olmo-1b.search", "olmo-1b", "search"),
-         ("olmo-1b.sweep", "olmo-1b", "sweep")]
+         ("olmo-1b.sweep", "olmo-1b", "sweep"),
+         ("resnet18.search.4chip", "resnet18", "search.4chip")]
 
 
 def _run(cell, cfg, mix, seed=2 ** 31 + 5):
     res, lines = harness.run_cell(
         tiny.bench_json(), cell, seed, 0.5, False, torch.device("cpu"),
         time.perf_counter(), conf=tiny.conf(cfg), traffic=tiny.traffic(mix),
-        log=lambda *a: None)
+        log=lambda *a: None, pool=[torch.device("cpu")] * 4)
     assert list(res)[-1] == "check" and len(lines) == len(res["check"])
     return res
 
@@ -52,6 +54,21 @@ def _step_unchanged(monkeypatch, conf):
     monkeypatch.setattr(ops, "quant_bitflip", lambda x, *a, **k: x)
 
 
+def _exchange_left_out(monkeypatch, conf):
+    """The answers computed on every slot but the first never reach the
+    host: their buffers read 0."""
+    from repro_torch.core import eval_engine
+    inner = eval_engine.PrefixEvalEngine._dispatch_group
+
+    def dispatch(self, fn, parents, genes, final, dev_idx=None, **kw):
+        outs = inner(self, fn, parents, genes, final, dev_idx=dev_idx, **kw)
+        if final and dev_idx not in (None, 0):
+            outs = [(torch.zeros_like(out), n) for out, n in outs]
+        return outs
+    monkeypatch.setattr(eval_engine.PrefixEvalEngine, "_dispatch_group",
+                        dispatch)
+
+
 @pytest.mark.parametrize("cell,cfg,mix", CELLS, ids=[c[0] for c in CELLS])
 def test_sound_run_is_correct(cell, cfg, mix):
     res = _run(cell, cfg, mix)
@@ -72,6 +89,14 @@ def test_sound_run_is_correct(cell, cfg, mix):
 @pytest.mark.parametrize("cell,cfg,mix", CELLS, ids=[c[0] for c in CELLS])
 def test_broken_run_is_not_correct(monkeypatch, cell, cfg, mix, fault):
     fault(monkeypatch, tiny.conf(cfg))
+    res = _run(cell, cfg, mix)
+    assert res["correct"] is False
+    assert any(v["value"] > v["limit"] for v in res["check"].values())
+
+
+def test_exchange_left_out_is_not_correct(monkeypatch):
+    cell, cfg, mix = CELLS[-1]
+    _exchange_left_out(monkeypatch, tiny.conf(cfg))
     res = _run(cell, cfg, mix)
     assert res["correct"] is False
     assert any(v["value"] > v["limit"] for v in res["check"].values())

@@ -64,7 +64,7 @@ def test_idle_time_is_split_exactly_by_layer(monkeypatch):
              _span(1, "engine.dispatch", 20, 80, 0),
              _span(2, "kernel.fault_matmul", 30, 40, 1)]
     tr = types.SimpleNamespace(window_ns=(0, 120),
-                               busy_intervals=[[5, 25], [35, 70]])
+                               busy_by_card=[[[5, 25], [35, 70]]])
     ctx = types.SimpleNamespace(trace=tr)
     monkeypatch.setattr("bench.program_spans.program_spans",
                         lambda c: spans)

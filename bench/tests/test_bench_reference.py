@@ -86,7 +86,7 @@ def test_delta_acc_against_the_port(name, dtype):
     made = ref_mod.make(conf, rngs["weights"], rngs["inputs"], dev)
     system = harness.load_module(
         harness.BENCH / "systems" / f"{conf['system']}.py",
-        f"bench.systems.{conf['system']}").System(conf, made, dev)
+        f"bench.systems.{conf['system']}").System(conf, made, dev, 1)
     scale = np.asarray(system.base_scale * np.float32(1.7), np.float32)
     system.set_env(scale)
     P = np.random.default_rng(1).integers(
@@ -106,4 +106,4 @@ def test_cnn_system_refuses_a_fixed_point_the_port_does_not_run():
     system_mod = harness.load_module(
         harness.BENCH / "systems" / "cnn.py", "bench.systems.cnn")
     with pytest.raises(ValueError, match="8-bit fixed point with 4 faulty"):
-        system_mod.System(conf, {}, torch.device("cpu"))
+        system_mod.System(conf, {}, torch.device("cpu"), 1)
